@@ -1,0 +1,45 @@
+"""Detection head (counterpart of `ssd3d/models/heads.py`, without the
+nuScenes attribute / velocity branches)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ssd3d_torch.nn.layers import PointConv, SharedMLP
+
+
+class DetectionHead(nn.Module):
+    """Shared MLP trunk, then cls and reg branches (128 -> out). The two
+    output convs run in f32 whatever the compute dtype, as in flax."""
+
+    def __init__(self, in_channels: int, mlp, cls_channels: int, reg_base: int,
+                 reg_channels: int, num_angle_cls: int, bn: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.reg_base = reg_base
+        self.reg_channels = reg_channels
+        self.num_angle_cls = num_angle_cls
+        self.trunk = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype)
+        c = self.trunk.out_channels
+        self.pred_cls_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
+        self.pred_cls = PointConv(128, cls_channels, bn=False, activation=False)
+        reg_out = reg_base * (reg_channels + num_angle_cls * 2)
+        self.pred_reg_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
+        self.pred_reg = PointConv(128, reg_out, bn=False, activation=False)
+
+    def forward(self, features: torch.Tensor) -> dict:
+        """features: [bs, n, c] -> dict of per-point predictions."""
+        x = self.trunk(features)
+        cls = self.pred_cls(self.pred_cls_base(x))
+        reg = self.pred_reg(self.pred_reg_base(x))
+        bs, n = reg.shape[:2]
+        reg = reg.reshape(bs, n, self.reg_base, self.reg_channels + self.num_angle_cls * 2)
+        rc, na = self.reg_channels, self.num_angle_cls
+        return {
+            "feature": x,
+            "cls": cls,
+            "offset": reg[..., :rc],
+            "angle_cls": reg[..., rc:rc + na],
+            "angle_res": reg[..., rc + na:],
+        }

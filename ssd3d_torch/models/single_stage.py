@@ -1,0 +1,150 @@
+"""3DSSD single-stage detector (counterpart of
+`ssd3d/models/single_stage.py`), inference only.
+
+`SingleStageDetector` is the parametric graph (backbone + heads);
+`DetectorSpec.decode_and_nms` turns its outputs into at most `max_output`
+boxes per class and scan. `build_detector(cfg, device)` wires both from an
+`ssd3d.config` tree, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+from torch import nn
+
+from ssd3d_torch.core.box_coders import AnchorGenerator, BoxCoder
+from ssd3d_torch.core.geometry import boxes_to_bev_aabb
+from ssd3d_torch.models.backbone import PointBackbone
+from ssd3d_torch.models.heads import DetectionHead
+from ssd3d_torch.nn.layers import _no_training
+from ssd3d_torch.ops.nms import batched_class_nms
+
+
+class SingleStageDetector(nn.Module):
+    """Backbone + detection heads, config-driven. Head modules are named
+    after their scope, or `head{i}` when it is empty, as in flax."""
+
+    def __init__(self, architecture: Sequence[Sequence[Any]],
+                 head_cfg: Sequence[Sequence[Any]], in_channels: int,
+                 max_translate_range: Sequence[float], num_classes: int,
+                 num_angle_cls: int, reg_base: int, reg_channels: int,
+                 cls_activation: str = "Sigmoid",
+                 aggregation_sa_feature: bool = False,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.backbone = PointBackbone(architecture, in_channels, max_translate_range,
+                                      aggregation_sa_feature, compute_dtype)
+        cls_channels = num_classes if cls_activation == "Sigmoid" else num_classes + 1
+        self.heads: list[tuple] = []  # (name, xyz sources, feature sources)
+        for i, (xyz_idx, feat_idx, _op, mlp, bn, head_type, scope) in enumerate(head_cfg):
+            if head_type != "Det":
+                raise NotImplementedError(
+                    f"{head_type} heads are not ported yet (ROADMAP Queue 1 item 11)"
+                )
+            name = scope if scope else f"head{i}"
+            c_in = sum(self.backbone.feature_channels[j] for j in feat_idx)
+            self.add_module(name, DetectionHead(
+                c_in, mlp, cls_channels, reg_base, reg_channels, num_angle_cls,
+                bn=bn, compute_dtype=compute_dtype,
+            ))
+            self.heads.append((name, xyz_idx, feat_idx))
+
+    def forward(self, points: torch.Tensor) -> dict:
+        """points: [bs, n, 3 + c] -> dict of raw network outputs."""
+        _no_training(self)
+        return self.predict(self.backbone(points))
+
+    def predict(self, net: dict) -> dict:
+        """The heads over the backbone's output lists (`backbone(points)`),
+        for callers that also inspect those lists."""
+        _no_training(self)
+        out: dict = {"vote_base": net["vote_base"], "vote_offset": net["vote_offset"],
+                     "fps_idx": net["fps_idx"]}
+        det_xyz, det_preds = [], []
+        for name, xyz_idx, feat_idx in self.heads:
+            xyz_in = torch.cat([net["xyz"][j] for j in xyz_idx], dim=1)
+            feat_in = torch.cat([net["features"][j] for j in feat_idx], dim=1)
+            det_preds.append(getattr(self, name)(feat_in))
+            det_xyz.append(xyz_in)
+        out["base_xyz"] = torch.cat(det_xyz, dim=1)
+        for key in ("feature", "cls", "offset", "angle_cls", "angle_res"):
+            out[key] = torch.cat([p[key] for p in det_preds], dim=1)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectorSpec:
+    """Static companion of the detector: codec, anchors, NMS parameters."""
+
+    cls_list: tuple
+    coder: BoxCoder
+    anchors: AnchorGenerator
+    cls_activation: str
+    max_output: int
+    nms_threshold: float
+
+    def decode(self, outputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """Raw head outputs -> every candidate's (boxes [b, n, cls, 7],
+        scores [b, n, cls]), before NMS."""
+        base_xyz = outputs["base_xyz"]
+        boxes = self.coder.decode(base_xyz, outputs["offset"], outputs["angle_cls"],
+                                  outputs["angle_res"], self.anchors(base_xyz))
+        if self.cls_activation == "Softmax":
+            score = torch.softmax(outputs["cls"], dim=-1)[..., 1:]
+        else:
+            score = torch.sigmoid(outputs["cls"])
+        return boxes, score
+
+    def decode_and_nms(self, outputs: dict) -> dict:
+        """Raw head outputs -> final detections (boxes, scores, classes,
+        valid, index; each [b, cls * max_output, ...])."""
+        boxes, score = self.decode(outputs)
+        bev = boxes_to_bev_aabb(boxes)
+        return batched_class_nms(boxes, bev, score, self.max_output, self.nms_threshold)
+
+
+def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str = "cpu"):
+    """Config -> (module on `device`, in eval mode, spec). Weights are left
+    as constructed; `ssd3d_torch.entry.init_weights` or a converted state
+    dict fills them."""
+    stage_cfg = cfg.MODEL[stage]
+    net_cfg = cfg.MODEL.NETWORK[stage]
+    if cfg.DATASET.TYPE != "KITTI":
+        raise NotImplementedError(
+            f"{cfg.DATASET.TYPE} is not ported yet (ROADMAP Queue 1 item 11)"
+        )
+    if stage_cfg.PREDICT_ATTRIBUTE_AND_VELOCITY or cfg.MODEL.NETWORK.USE_GN:
+        raise NotImplementedError(
+            "attribute/velocity heads and GroupNorm are not ported yet "
+            "(ROADMAP Queue 1 item 11)"
+        )
+    cls_list = tuple(cfg.DATASET.KITTI.CLS_LIST)
+    reg_method = stage_cfg.REGRESSION_METHOD.TYPE
+    coder = BoxCoder(reg_method, cfg.MODEL.ANGLE_CLS_NUM)
+    anchors = AnchorGenerator(cfg.DATASET.TYPE, cls_list, reg_method)
+    compute_dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else None
+    module = SingleStageDetector(
+        architecture=[list(layer) for layer in net_cfg.ARCHITECTURE],
+        head_cfg=[list(h) for h in net_cfg.HEAD],
+        in_channels=1,  # KITTI points are (x, y, z, reflectance)
+        max_translate_range=list(cfg.MODEL.MAX_TRANSLATE_RANGE),
+        num_classes=len(cls_list),
+        num_angle_cls=cfg.MODEL.ANGLE_CLS_NUM,
+        reg_base=1,
+        reg_channels=coder.reg_channels,
+        cls_activation=stage_cfg.CLS_ACTIVATION,
+        aggregation_sa_feature=cfg.MODEL.NETWORK.AGGREGATION_SA_FEATURE,
+        compute_dtype=compute_dtype,
+    ).to(device).eval()
+    spec = DetectorSpec(
+        cls_list=cls_list,
+        coder=coder,
+        anchors=anchors,
+        cls_activation=stage_cfg.CLS_ACTIVATION,
+        max_output=stage_cfg.MAX_OUTPUT_NUM,
+        nms_threshold=stage_cfg.NMS_THRESH,
+    )
+    return module, spec

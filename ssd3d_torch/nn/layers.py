@@ -1,0 +1,96 @@
+"""Basic layers (counterpart of `ssd3d/nn/layers.py`), inference only.
+
+Every "convolution" of this model family is 1x1, a matrix product over the
+channel axis, so `PointConv` is a Dense layer (`torch.matmul`) followed by
+BatchNorm and ReLU. Parameter names follow the flax scopes (`conv.kernel`
+[c_in, c_out], `conv.bias`, `bn.scale`, `bn.bias`, buffers `bn.mean`,
+`bn.var`), so a flax variable tree converts by joining its paths.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+TRAINING_NOT_PORTED = (
+    "ssd3d_torch runs inference only; training is ROADMAP Queue 1 item 8"
+)
+
+
+def _no_training(module: nn.Module) -> None:
+    if module.training:
+        raise NotImplementedError(TRAINING_NOT_PORTED)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode batch normalisation over the last axis with the JAX
+    package's epsilon (1e-3) and variable names; always computes in f32."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-3):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _no_training(self)
+        x = x.float()
+        inv = torch.rsqrt(self.var + self.epsilon) * self.scale
+        return x * inv + (self.bias - self.mean * inv)
+
+
+class Dense(nn.Module):
+    """y = x @ kernel + bias, kernel [c_in, c_out] as in flax. With a
+    compute dtype, x, kernel and bias are cast to it before the product and
+    the bias is added in it (nn.Dense's promotion)."""
+
+    def __init__(self, c_in: int, c_out: int, compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.kernel = nn.Parameter(torch.empty(c_in, c_out))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, b = self.kernel, self.bias
+        if self.compute_dtype is not None:
+            x, k, b = x.to(self.compute_dtype), k.to(self.compute_dtype), b.to(self.compute_dtype)
+        return torch.matmul(x, k) + b
+
+
+class PointConv(nn.Module):
+    """1x1 conv (Dense) + optional BatchNorm + optional ReLU."""
+
+    def __init__(self, c_in: int, channels: int, bn: bool = True,
+                 activation: bool = True, compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.conv = Dense(c_in, channels, compute_dtype)
+        self.bn = BatchNorm(channels) if bn else None
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        if self.activation:
+            x = torch.relu(x)
+        return x
+
+
+class SharedMLP(nn.Module):
+    """Stack of PointConv blocks (`conv0`, `conv1`, ...) applied pointwise."""
+
+    def __init__(self, c_in: int, channels, bn: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.n_layers = len(channels)
+        for i, ch in enumerate(channels):
+            self.add_module(f"conv{i}", PointConv(c_in, ch, bn=bn, compute_dtype=compute_dtype))
+            c_in = ch
+        self.out_channels = c_in
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"conv{i}")(x)
+        return x

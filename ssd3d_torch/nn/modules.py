@@ -1,0 +1,163 @@
+"""PointNet++-family modules (counterpart of `ssd3d/nn/modules.py`),
+inference only: the unfused, non-attention set abstraction with fusion
+sampling, and the candidate-generation vote layer."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ssd3d_torch.nn.layers import PointConv, SharedMLP, _no_training
+from ssd3d_torch.ops.grouping import ball_query_multi, group_points
+from ssd3d_torch.ops.sampling import (
+    farthest_point_sample,
+    farthest_point_sample_features,
+    gather_points,
+)
+
+
+def _fusion_sample(xyz: torch.Tensor, features: torch.Tensor,
+                   fps_sample_range_list: Sequence[int],
+                   fps_method_list: Sequence[str],
+                   npoint_list: Sequence[int]) -> torch.Tensor:
+    """Multi-segment fusion sampling: the point axis is cut into consecutive
+    segments (range -1: to the end), each sampled by D-FPS, F-FPS or FS (both,
+    concatenated). Returns int32 indices into the original point axis."""
+    bs, n = xyz.shape[:2]
+    idx_parts = []
+    start = 0
+    for rng, method, npoint in zip(fps_sample_range_list, fps_method_list, npoint_list):
+        length = (n - start) if rng == -1 else rng
+        if npoint == 0:
+            start += length
+            continue
+        seg_xyz = xyz[:, start:start + length]
+        if npoint == length and method != "FS":
+            idx = torch.arange(npoint, dtype=torch.int32, device=xyz.device).expand(bs, npoint)
+        elif method == "D-FPS":
+            idx = farthest_point_sample(seg_xyz, npoint)
+        elif method in ("F-FPS", "FS"):
+            fused = torch.cat([seg_xyz, features[:, start:start + length]], dim=-1)
+            idx = farthest_point_sample_features(fused, npoint)
+            if method == "FS":
+                idx = torch.cat([idx, farthest_point_sample(seg_xyz, npoint)], dim=-1)
+        else:
+            raise ValueError(f"unknown fps method {method}")
+        idx_parts.append(idx + start)
+        start += length
+    return torch.cat(idx_parts, dim=-1)
+
+
+def ffps_segments(xyz: torch.Tensor, features: torch.Tensor, fps_idx: torch.Tensor,
+                  fps_sample_range_list: Sequence[int], fps_method_list: Sequence[str],
+                  npoint_list: Sequence[int]):
+    """The F-FPS parts of a `_fusion_sample` result: a list of (fused vectors
+    [b, length, c], picks into them [b, npoint]) per F-FPS or FS segment, for
+    checking the picks with `ops.sampling.fps_pick_shortfall`."""
+    n = xyz.shape[1]
+    parts, start, col = [], 0, 0
+    for rng, method, npoint in zip(fps_sample_range_list, fps_method_list, npoint_list):
+        length = (n - start) if rng == -1 else rng
+        taken = npoint * (2 if method == "FS" else 1)
+        if method in ("F-FPS", "FS") and 0 < npoint and (npoint < length or method == "FS"):
+            fused = torch.cat([xyz[:, start:start + length],
+                               features[:, start:start + length]], dim=-1)
+            parts.append((fused, fps_idx[:, col:col + npoint] - start))
+        col += taken
+        start += length
+    return parts
+
+
+class PointnetSAModuleMSG(nn.Module):
+    """Set abstraction with multi-scale grouping and fusion sampling.
+
+    Submodules `mlp{i}` (one per radius) and `aggregation` carry the flax
+    scope names. `in_channels` is the width of the input features."""
+
+    def __init__(self, in_channels: int, radius_list, nsample_list, mlp_list,
+                 bn: bool, fps_sample_range_list, fps_method_list, npoint_list,
+                 dilated_group: bool, aggregation_channel: int | None,
+                 aggregate: bool = True, compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.radius_list = list(radius_list)
+        self.nsample_list = list(nsample_list)
+        self.fps_sample_range_list = list(fps_sample_range_list)
+        self.fps_method_list = list(fps_method_list)
+        self.npoint_list = list(npoint_list)
+        self.dilated_group = dilated_group
+        self.n_scales = len(self.radius_list)
+        out = in_channels
+        for i in range(self.n_scales):
+            self.add_module(f"mlp{i}", SharedMLP(in_channels + 3, mlp_list[i], bn=bn,
+                                                 compute_dtype=compute_dtype))
+        if self.n_scales:
+            out = sum(m[-1] for m in mlp_list[:self.n_scales])
+        self.aggregation = None
+        if aggregate and aggregation_channel is not None and self.n_scales:
+            self.aggregation = PointConv(out, aggregation_channel, bn=bn,
+                                         compute_dtype=compute_dtype)
+            out = aggregation_channel
+        self.out_channels = out
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor,
+                former_fps_idx: torch.Tensor | None = None,
+                vote_ctr: torch.Tensor | None = None):
+        _no_training(self)
+        bs = xyz.shape[0]
+        if vote_ctr is not None:
+            # CG layer: the centres are the vote outputs, not FPS picks
+            npoint = vote_ctr.shape[1]
+            fps_idx = torch.arange(npoint, dtype=torch.int32, device=xyz.device).expand(bs, npoint)
+        else:
+            fps_idx = _fusion_sample(xyz, features, self.fps_sample_range_list,
+                                     self.fps_method_list, self.npoint_list)
+        if former_fps_idx is not None:
+            fps_idx = torch.cat([fps_idx, former_fps_idx], dim=-1)
+        new_xyz = gather_points(vote_ctr if vote_ctr is not None else xyz, fps_idx)
+
+        if self.n_scales == 0:
+            # radius-less layer: a pure gather (3DSSD's pre-vote selection)
+            return new_xyz, gather_points(features, fps_idx), fps_idx
+
+        queries = ball_query_multi(self.radius_list, self.nsample_list, xyz, new_xyz,
+                                   dilated=self.dilated_group)
+        # one packed gather per scale instead of separate xyz / feature gathers
+        packed_src = torch.cat([features, xyz], dim=-1)
+        scale_feats = []
+        for i, (idx, cnt) in enumerate(queries):
+            has_pts = (cnt > 0).to(torch.int32)
+            idx = idx * has_pts[..., None]  # empty balls gather point 0
+            grouped = group_points(packed_src, idx)
+            grouped_xyz = grouped[..., -3:] - new_xyz[:, :, None, :]
+            grouped = torch.cat([grouped[..., :-3], grouped_xyz], dim=-1)
+            grouped = getattr(self, f"mlp{i}")(grouped)
+            pooled = grouped.amax(dim=2)
+            scale_feats.append(pooled * has_pts[..., None].to(pooled.dtype))
+        new_features = torch.cat(scale_feats, dim=-1)
+        if self.aggregation is not None:
+            new_features = self.aggregation(new_features)
+        return new_xyz, new_features, fps_idx
+
+
+class VoteLayer(nn.Module):
+    """Candidate-generation shift: returns (shifted xyz, features, raw
+    offsets); the shift is clipped to max_translate_range."""
+
+    def __init__(self, in_channels: int, mlp, max_translate_range, bn: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.mlp = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype)
+        # the offset conv runs in f32 whatever the compute dtype, as in flax
+        self.vote_offsets = PointConv(self.mlp.out_channels, 3, bn=False, activation=False)
+        self.register_buffer("limit", torch.tensor(max_translate_range, dtype=torch.float32),
+                             persistent=False)
+        self.out_channels = self.mlp.out_channels
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor):
+        _no_training(self)
+        x = self.mlp(features)
+        offsets = self.vote_offsets(x)
+        limited = torch.clamp(offsets, torch.minimum(self.limit, -self.limit), self.limit.abs())
+        return xyz + limited, x, offsets

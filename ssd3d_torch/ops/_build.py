@@ -1,0 +1,149 @@
+"""Build and load the port's CUDA kernels.
+
+`ssd3d_torch/csrc/*.cu` are compiled by `nvcc` into one shared library with a
+plain C interface and loaded with `ctypes`. The build happens at the first
+launch of any kernel, never at import, so every module imports on a machine
+without `nvcc` or a GPU. The library lands in `build/ssd3d_torch/` at the
+repository root, named by a hash of the sources and flags, so a changed source
+is rebuilt and an unchanged one is loaded as is.
+
+Every C entry point returns `cudaGetLastError()` after its launch; `Kernel`
+raises if that is not 0, because a refused launch never runs and a later
+synchronize does not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ssd3d_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""  # nvcc's output (ptxas register / spill report) of the last build
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = Path(home) / "bin" / "nvcc"
+        nvcc = str(cand) if cand.exists() else None
+    if nvcc is None:
+        raise RuntimeError(
+            "ssd3d_torch: cannot build the CUDA kernels: nvcc was not found on "
+            "PATH or under $CUDA_HOME/bin. CUDA tensors need the kernels; CPU "
+            "tensors take the plain PyTorch versions and need no build."
+        )
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libssd3d_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"ssd3d_torch: nvcc failed (exit {res.returncode}):\n{build_log}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+        return _lib
+
+
+class Kernel:
+    """One C entry point of the library, with its launch count.
+
+    `launches` goes up by one each time the kernel is launched, and nowhere
+    else; `chip_smoke.py` reads it to show the main path went through it."""
+
+    def __init__(self, name: str, symbol: str, argtypes: list):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = self.argtypes + [ctypes.c_void_p]  # + the stream
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"ssd3d_torch: kernel {self.name} ({self.symbol}) failed to "
+                f"launch: cudaError {err}"
+            )
+        self.launches += 1
+
+
+P, I = ctypes.c_void_p, ctypes.c_int
+FPS = Kernel("fps", "ssd3d_dfps", [P, P, I, I, I])
+FFPS = Kernel("ffps", "ssd3d_ffps", [P, P, I, I, I, I])
+BALL_QUERY = Kernel("ball_query", "ssd3d_ball_query",
+                    [P, P, P, P, I, I, I, I, P, P, P, P])
+GATHER = Kernel("gather", "ssd3d_gather_rows", [P, P, P, I, I, I, I])
+KERNELS = (FPS, FFPS, BALL_QUERY, GATHER)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def require_cuda(op: str, *tensors: torch.Tensor) -> bool:
+    """Device dispatch: True for CUDA tensors (take the kernel), False for CPU
+    tensors (take the plain version); anything else, or a mix, raises."""
+    devs = {t.device.type for t in tensors}
+    if devs == {"cuda"}:
+        return True
+    if devs == {"cpu"}:
+        return False
+    raise ValueError(f"{op}: tensors must all be on CUDA or all on CPU, got {devs}")

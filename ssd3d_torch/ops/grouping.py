@@ -1,0 +1,161 @@
+"""Neighbourhood grouping: the multi-ring ball query and the grouping gather.
+
+Counterpart of `ssd3d/ops/grouping.py` (`ball_query_multi`, `group_points`).
+Each function dispatches on the device of its inputs: CUDA tensors launch the
+hand-written kernel (`csrc/ball_query.cu`, `csrc/gather.cu`), CPU tensors take
+the plain PyTorch version beside it.
+
+The ball-query contract is the reference CUDA one (tf_grouping_g.cu:215-255,
+:308-357): per ring, the first `ns` points in index order inside the ring,
+padded by repeating the first hit, `cnt` capped at `ns`, and `idx` all zero
+for an empty ball. The TPU's packed-word selection machinery exists only to
+express that first-k rule on a TPU and has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ssd3d_torch.ops import _build
+
+_QUERY_CHUNK = 256  # plain version: queries per chunk, bounds the [b, chunk, n] tensors
+
+
+def ring_specs(radius_list, nsample_list, dilated: bool):
+    """[(lo2, hi2, ns, annulus)] per ring, as `ball_query_multi` defines them.
+    lo2 / hi2 are rounded to float32 once, as the comparisons against f32 d2
+    do in both frameworks."""
+    specs = []
+    for i, (r, ns) in enumerate(zip(radius_list, nsample_list)):
+        lo = radius_list[i - 1] if (dilated and i > 0) else 0.0
+        specs.append((float(np.float32(lo * lo)), float(np.float32(r * r)),
+                      int(ns), dilated and i > 0))
+    return specs
+
+
+def _pairwise_dist2(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """[b, m, 3] x [b, n, 3] -> [b, m, n], ((dx*dx + dy*dy) + dz*dz)."""
+    d = queries[:, :, None, :] - points[:, None, :, :]
+    dx, dy, dz = d.unbind(-1)
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def _first_k(valid: torch.Tensor, ns: int):
+    """First `ns` true entries of each row of valid [..., n], in index order,
+    padded with the first hit (0 when none) -> (idx int32 [..., ns], cnt)."""
+    n = valid.shape[-1]
+    iota = torch.arange(n, device=valid.device)
+    key = torch.where(valid, iota, n + iota)
+    if ns > n:
+        key = torch.cat([key, key.new_full(key.shape[:-1] + (ns - n,), 2 * n)], -1)
+    first = key.topk(ns, dim=-1, largest=False, sorted=True).values
+    cnt = valid.sum(-1).clamp(max=ns)
+    slots = torch.arange(ns, device=valid.device)
+    idx = torch.where(slots < cnt[..., None], first, first[..., :1])
+    idx = torch.where(cnt[..., None] > 0, idx, torch.zeros_like(idx))
+    return idx.to(torch.int32), cnt.to(torch.int32)
+
+
+def ball_query_multi_plain(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """Plain multi-ring ball query: [(idx [b, m, ns], cnt [b, m])] per ring."""
+    m = new_xyz.shape[1]
+    parts = [[] for _ in specs]
+    for q0 in range(0, m, _QUERY_CHUNK):
+        d2 = _pairwise_dist2(new_xyz[:, q0:q0 + _QUERY_CHUNK], xyz)
+        for k, (lo2, hi2, ns, annulus) in enumerate(specs):
+            if annulus:
+                valid = ((d2 >= lo2) & (d2 < hi2)) | (d2 == 0.0)
+            else:
+                valid = d2 < hi2
+            parts[k].append(_first_k(valid, ns))
+    return [(torch.cat([p[0] for p in ring], 1), torch.cat([p[1] for p in ring], 1))
+            for ring in parts]
+
+
+def _ball_query_cuda(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    k = len(specs)
+    if k > 4:
+        raise ValueError(f"ball_query_multi: kernel takes at most 4 rings, got {k}")
+    xyz, new_xyz = xyz.contiguous(), new_xyz.contiguous()
+    ns_list = [s[2] for s in specs]
+    idx = torch.empty(b, m, sum(ns_list), dtype=torch.int32, device=xyz.device)
+    cnt = torch.empty(b, m, k, dtype=torch.int32, device=xyz.device)
+    lo2 = (ctypes.c_float * k)(*[s[0] for s in specs])
+    hi2 = (ctypes.c_float * k)(*[s[1] for s in specs])
+    ann = (ctypes.c_int * k)(*[int(s[3]) for s in specs])
+    nsa = (ctypes.c_int * k)(*ns_list)
+    _build.BALL_QUERY(
+        xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+        b, n, m, k,
+        ctypes.cast(lo2, ctypes.c_void_p), ctypes.cast(hi2, ctypes.c_void_p),
+        ctypes.cast(ann, ctypes.c_void_p), ctypes.cast(nsa, ctypes.c_void_p),
+    )
+    out, off = [], 0
+    for r, ns in enumerate(ns_list):
+        out.append((idx[..., off:off + ns], cnt[..., r]))
+        off += ns
+    return out
+
+
+def ball_query_multi(radius_list, nsample_list, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor, dilated: bool = False):
+    """All radius scales of one SA layer from one distance pass.
+
+    xyz: f32 [b, n, 3]; new_xyz: f32 [b, m, 3] -> list per radius of
+    (idx int32 [b, m, ns], cnt int32 [b, m]). With dilated=True, scale i > 0
+    selects the annulus r_{i-1} <= d < r_i plus the d == 0 self point."""
+    for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
+        if t.dim() != 3 or t.shape[-1] != 3 or t.dtype != torch.float32:
+            raise ValueError(f"ball_query_multi: {name} must be f32 [b, *, 3]")
+    if xyz.shape[0] != new_xyz.shape[0]:
+        raise ValueError(f"ball_query_multi: batch {xyz.shape[0]} != {new_xyz.shape[0]}")
+    specs = ring_specs(radius_list, nsample_list, dilated)
+    if _build.require_cuda("ball_query_multi", xyz, new_xyz):
+        return _ball_query_cuda(specs, xyz, new_xyz)
+    return ball_query_multi_plain(specs, xyz, new_xyz)
+
+
+def gather_rows_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points: [b, n, c], idx: int [b, rows] -> [b, rows, c]; indices clamp
+    into [0, n) as in the kernel."""
+    n, c = points.shape[1], points.shape[2]
+    flat = idx.long().clamp(0, n - 1)
+    return points.gather(1, flat[..., None].expand(-1, -1, c))
+
+
+def _gather_rows_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if points.requires_grad:
+        raise NotImplementedError(
+            "group_points: the gather kernel has no backward yet "
+            "(ROADMAP Queue 2 item 4)"
+        )
+    if points.dtype not in (torch.float32, torch.int32):
+        raise ValueError(f"group_points: kernel takes f32 or i32, got {points.dtype}")
+    b, n, c = points.shape
+    rows = idx.shape[1]
+    points = points.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    out = torch.empty(b, rows, c, dtype=points.dtype, device=points.device)
+    _build.GATHER(points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, rows, c)
+    return out
+
+
+def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather: points [b, n, c], idx int [b, rows] -> [b, rows, c]."""
+    if points.dim() != 3 or idx.dim() != 2 or idx.shape[0] != points.shape[0]:
+        raise ValueError(f"gather_rows: points {tuple(points.shape)}, idx {tuple(idx.shape)}")
+    if _build.require_cuda("gather_rows", points, idx):
+        return _gather_rows_cuda(points, idx)
+    return gather_rows_plain(points, idx)
+
+
+def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points: [b, n, c], idx: int [b, m, s] -> [b, m, s, c]."""
+    b, m, s = idx.shape
+    out = gather_rows(points, idx.reshape(b, m * s))
+    return out.reshape(b, m, s, points.shape[-1])
