@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Four phases, each of which raises on failure (no error is caught):
+Six phases, each of which raises on failure (no error is caught):
 
 1. Environment: the card's name and power limit, torch / CUDA / nvcc
-   versions, and the build of the CUDA kernels from `ssd3d_torch/csrc/`.
+   versions, and the build of the CUDA kernels from `ssd3d_torch/csrc/`
+   (one nvcc per source, in parallel).
 2. Each kernel against its plain PyTorch version on the card, at the
    flagship's shapes (batch 8), with the kernel's and the plain version's
-   median times.
+   median times; for the scatter-add (the gather's backward, whose float
+   atomics add in no fixed order) also the difference between two launches.
 3. The main path: flagship 3DSSD inference (KITTI Car,
    `configs/kitti/3dssd/3dssd.yaml`, 16,384-point scans, bf16 as shipped,
    seeded weights) on a batch of 8 synthetic KITTI-like scans: forward,
@@ -18,8 +20,18 @@ Four phases, each of which raises on failure (no error is caught):
    batch-1 latency.
 4. The card against the CPU on one scan: the kernel path on the GPU and the
    plain path on the CPU, same weights, compared pick by pick and box by box.
+5. The training path: the flagship train step (`train_entry`, batch 8 =
+   BATCH_SIZE 4 x GPU_NUM 2, bf16, Adam, fixed batch of synthetic scenes):
+   a warm-up step and ten timed ones. Asserts finite losses, a lower total
+   after the last step than after the first, moved BatchNorm statistics and
+   that every kernel launched in one step (the scatter-add 8 times); prints
+   the step time, training scans/s, peak memory and a profile of one step.
+6. One f32 train step on the card against the CPU on 2 scans, same weights:
+   sampling picks, losses, every gradient leaf and the new BatchNorm
+   statistics.
 
-The second line from the end is a JSON object with one entry per kernel;
+The second line from the end is a JSON object with one entry per kernel
+(its launches are those of one training step, phase 5);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 1 and prints no result.
 """
@@ -33,15 +45,25 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
-from ssd3d_torch.entry import flagship
+from ssd3d_torch.entry import flagship, synthetic_scenes, train_entry
+from ssd3d_torch.nn import modules
 from ssd3d_torch.nn.modules import ffps_segments
+from ssd3d_torch.nn.modules import max_pool as _max_pool
 from ssd3d_torch.ops import _build
-from ssd3d_torch.ops.grouping import ball_query_multi, gather_rows, gather_rows_plain, ring_specs
-from ssd3d_torch.ops.grouping import ball_query_multi_plain
+from ssd3d_torch.ops.grouping import (
+    ball_query_multi,
+    ball_query_multi_plain,
+    gather_rows,
+    gather_rows_plain,
+    ring_specs,
+    scatter_add_rows,
+    scatter_add_rows_plain,
+)
 from ssd3d_torch.ops.sampling import (
     farthest_point_sample,
     farthest_point_sample_features,
@@ -50,7 +72,8 @@ from ssd3d_torch.ops.sampling import (
     fps_plain,
     gather_points,
 )
-from tools.synth_kitti import make_scene
+from ssd3d_torch.train.schedules import bn_momentum
+from ssd3d_torch.train.train_step import TrainGraph
 
 BATCH = 8
 N_POINTS = 16384
@@ -64,6 +87,13 @@ FFPS_TIE_RTOL = 1e-5
 # can land a product one bf16 step (2^-8) apart, which later layers carry on.
 F32_TOL = 1e-4
 BF16_TOL = 2.0 ** -6
+# K5 against index_add_: both add in their own order, f32 atomics on the card
+K5_RTOL = 1e-5
+TRAIN_STEPS = 10
+# One f32 train step, card against CPU: each gradient leaf within this
+# fraction of its largest |entry|.
+TRAIN_GRAD_TOL = 1e-3
+_relu = torch.relu
 
 
 def check(ok: bool, what: str) -> None:
@@ -74,18 +104,6 @@ def check(ok: bool, what: str) -> None:
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
-
-
-def realistic_scans(batch: int, n: int) -> np.ndarray:
-    """The synthetic KITTI-like scans `bench.py` benchmarks on: ground plane,
-    car shells and clutter blobs from `tools.synth_kitti.make_scene`."""
-    rng = np.random.default_rng(0)
-    out = np.zeros((batch, n, 4), np.float32)
-    for b in range(batch):
-        pts, _ = make_scene(rng, n_points=n + 2048, k_max=6)
-        sel = rng.choice(len(pts), n, replace=len(pts) < n)
-        out[b] = pts[sel]
-    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -229,6 +247,29 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
                        replaces="ssd3d/ops/pallas/gather.py:57", launches=0, max_abs_err=0.0,
                        ms=k4_times[0][0], plain_ms=k4_times[0][1], shape=k4_times[0][2],
                        check="bit-identical"))
+
+    # K5: the gather's backward at each layer's largest backward shape, on
+    # that layer's last (largest) ring from the ball query above
+    k5 = []
+    for name, n, c in (("SA2", 4096, 67), ("SA3", 1024, 131), ("CG-SA", 512, 259)):
+        idx = idx_sa[name].reshape(BATCH, -1).contiguous()
+        g = torch.randn(BATCH, idx.shape[1], c, generator=gen).to(dev)
+        got, again = scatter_add_rows(idx, g, n), scatter_add_rows(idx, g, n)
+        ref = scatter_add_rows_plain(idx, g, n)
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        rerun = float((got - again).abs().max())
+        check(err <= K5_RTOL * scale, f"scatter-add at {name} differs by {err:.3g}")
+        ms = cuda_ms(lambda: scatter_add_rows(idx, g, n), 20)
+        plain_ms = cuda_ms(lambda: scatter_add_rows_plain(idx, g, n), 20)
+        k5.append((ms, plain_ms, f"{BATCH * idx.shape[1]} x {c} into {n}", err, rerun))
+        log(f"K5 scatter-add {name} {BATCH * idx.shape[1]} rows x {c} into {n}: max |K5 - plain| "
+            f"{err:.3g} (limit {K5_RTOL:g} x {scale:.3g}); two launches differ by {rerun:.3g}; "
+            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    report.append(dict(name="scatter_add", route="cuda", source="ssd3d_torch/csrc/scatter_add.cu",
+                       replaces="ssd3d/ops/pallas/scatter_add.py:68", launches=0,
+                       max_abs_err=max(e[3] for e in k5), ms=k5[0][0], plain_ms=k5[0][1],
+                       shape=k5[0][2], run_to_run_max_abs=max(e[4] for e in k5),
+                       check=f"max |K5 - plain| <= {K5_RTOL:g} x max |plain|"))
     return report
 
 
@@ -247,7 +288,9 @@ def phase_main_path(scans: torch.Tensor) -> dict[str, int]:
     torch.cuda.synchronize()
     launches = _build.launches()
     log(f"kernel launches in one forward + decode + NMS: {launches}")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    check(all(v > 0 for k, v in launches.items() if k != "scatter_add"),
+          f"a kernel was not launched: {launches}")
+    check(launches["scatter_add"] == 0, "inference launched the gather's backward")
     valid = det["valid"]
     check(det["boxes"].shape == (BATCH, 100, 7) and valid.shape == (BATCH, 100),
           f"detections have shape {tuple(det['boxes'].shape)}")
@@ -276,21 +319,29 @@ def phase_main_path(scans: torch.Tensor) -> dict[str, int]:
         f"batch-1 latency median {statistics.median(lat[1:]):.2f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # where the device time of one batch goes (torch.profiler over one call)
+    profile_once(lambda: infer(scans), f"batch of {BATCH}")
+    return launches
+
+
+def profile_once(fn, what: str, top: int = 12) -> None:
+    """Where the device time of one call goes (torch.profiler): wall, device
+    busy share and the kernels that take most of it."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        infer(scans)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # a user annotation (the optimizer's step) spans kernels already counted
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"profiled batch of {BATCH}: wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), {len(kernels)} kernel names")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    log(f"profiled {what}: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
+        f"{sum(e.count for e in kernels)} kernel launches of {len(kernels)} names")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    return launches
 
 
 # ----------------------------------------------------------------- phase 4
@@ -382,6 +433,214 @@ def phase_card_vs_cpu(scans: torch.Tensor) -> None:
     check(compare_with_cpu(scan, "float32"), "float32: picks, bins or kept detections differ")
 
 
+# ----------------------------------------------------------------- phase 5
+
+LOSS_KEYS = ("cls", "offset", "angle", "corner", "vote")
+
+
+def phase_training() -> dict[str, int]:
+    log(f"== phase 5: flagship 3DSSD training, batch {BATCH}, {N_POINTS} points, bf16, Adam")
+    step, batch = train_entry(device="cuda", seed=0, batch=BATCH)
+    state = step.args[0]
+    stats = {k: v.clone() for k, v in state.model.named_buffers()
+             if k.endswith((".mean", ".var"))}
+    _build.reset_launches()
+    first = step(batch)  # the warm-up step
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    log(f"kernel launches in one train step: {launches}")
+    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    check(launches["scatter_add"] == 8, "the gather's backward did not run once per "
+          "gradient-carrying grouping gather (3 + 3 + 2)")
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for m in [first] + metrics:
+        check(set(LOSS_KEYS) <= set(m), f"a loss is missing: {sorted(m)}")
+        check(all(np.isfinite(float(m[k])) for k in LOSS_KEYS + ("total",)),
+              f"a loss is not finite: {m}")
+    totals = [float(m["total"]) for m in [first] + metrics]
+    log("total loss by step: " + ", ".join(f"{t:.3f}" for t in totals))
+    log("last step: " + ", ".join(f"{k} {float(v):.4f}" for k, v in metrics[-1].items()))
+    check(totals[-1] < totals[0], f"the total loss did not fall: {totals[0]} -> {totals[-1]}")
+    moved = sum(not torch.equal(v, stats[k]) for k, v in state.model.named_buffers() if k in stats)
+    check(moved == len(stats), f"only {moved} of {len(stats)} BatchNorm statistics moved")
+    check(state.step == TRAIN_STEPS + 1, f"step counter {state.step}")
+    log(f"train step at batch {BATCH}: median {statistics.median(times):.2f} ms "
+        f"(min {min(times):.2f}, max {max(times):.2f}) over {TRAIN_STEPS} steps; "
+        f"{BATCH * 1e3 / statistics.median(times):.2f} training scans/s; "
+        f"peak memory {peak:.2f} GiB; {moved} BatchNorm statistics moved")
+    profile_once(lambda: step(batch), f"train step at batch {BATCH}", top=16)
+    return launches
+
+
+# ----------------------------------------------------------------- phase 6
+
+class DecisionReplay:
+    """The card leg's discrete decisions, recorded and handed to the CPU leg.
+
+    Three decisions of a train step compare computed values: a ReLU's sign,
+    a max-pool's winner, and a ball query's members around a vote-shifted
+    centre. Where such a value lies within rounding of the threshold, the
+    legs decide differently, and the gradient through that one decision
+    moves by O(1): at full width a few hundred of ~1.5e8 ReLU signs, about
+    ten max-pool winners and one CG-layer ball differ, and a single flipped
+    ReLU moves a head leaf's gradient by 8% of its largest entry. So the CPU
+    leg takes the card's decisions, and the comparison holds what is left,
+    the arithmetic, to rounding. Every decision the CPU would have taken
+    otherwise is counted, and must be a near-tie on the CPU's own values:
+    within F32_TOL of the tensor's largest |value| of the threshold (ReLU,
+    max-pool). A ball query the legs ran on bit-identical inputs (SA1 to
+    SA3: raw points and picks) must agree; the card's answer is also held
+    against the plain version on the card's own inputs."""
+
+    KINDS = ("relu", "max_pool", "ball_query")
+
+    def __init__(self):
+        self.recording = True  # the card leg; False for the CPU leg
+        self.log = {k: [] for k in self.KINDS}
+        self.pos = dict.fromkeys(self.KINDS, 0)
+        self.differ = dict.fromkeys(self.KINDS, 0)  # decisions the CPU took otherwise
+        self.total = dict.fromkeys(self.KINDS, 0)
+
+    def _count(self, kind: str, differ: torch.Tensor) -> None:
+        self.pos[kind] += 1
+        self.differ[kind] += int(differ.sum())
+        self.total[kind] += differ.numel()
+
+    def patches(self):
+        return (mock.patch.object(torch, "relu", self.relu),
+                mock.patch.object(modules, "max_pool", self.max_pool),
+                mock.patch.object(modules, "ball_query_multi", self.ball_query))
+
+    def relu(self, x):
+        if self.recording:
+            self.log["relu"].append((x > 0).cpu())
+            return _relu(x)
+        card = self.log["relu"][self.pos["relu"]]
+        flipped = card != (x > 0)
+        self._count("relu", flipped)
+        if flipped.any():
+            check(float(x.detach()[flipped].abs().max()) <= F32_TOL * float(x.detach().abs().max()),
+                  "a ReLU sign differs between card and CPU away from 0")
+        return torch.where(card, x, x.new_zeros(()))
+
+    def max_pool(self, grouped):
+        out = _max_pool(grouped)
+        if self.recording:
+            self.log["max_pool"].append((grouped == out[:, :, None]).cpu())
+            return out
+        card = self.log["max_pool"][self.pos["max_pool"]]
+        self._count("max_pool", (card != (grouped == out[:, :, None])).any(2))
+        at_card = grouped.masked_fill(~card, float("-inf")).amax(2)
+        check(float((out - at_card).detach().abs().max())
+              <= F32_TOL * float(grouped.detach().abs().max()),
+              "a max-pool winner differs between card and CPU away from a tie")
+        # the card's winners, the gradient split among them as amax splits it
+        w = card.to(grouped.dtype)
+        return (grouped * w).sum(2) / w.sum(2)
+
+    def ball_query(self, radius_list, nsample_list, xyz, new_xyz, dilated=False):
+        own = ball_query_multi(radius_list, nsample_list, xyz, new_xyz, dilated=dilated)
+        if self.recording:
+            specs = ring_specs(radius_list, nsample_list, dilated)
+            for (gi, gc), (pi, pc) in zip(own, ball_query_multi_plain(specs, xyz, new_xyz)):
+                check(torch.equal(gi, pi) and torch.equal(gc, pc),
+                      "ball query kernel differs from its plain version on the train step's inputs")
+            self.log["ball_query"].append(
+                (xyz.cpu(), new_xyz.cpu(), [(i.cpu(), c.cpu()) for i, c in own]))
+            return own
+        card_xyz, card_new_xyz, card = self.log["ball_query"][self.pos["ball_query"]]
+        differ = torch.zeros(new_xyz.shape[:2], dtype=torch.bool)
+        for (ci, cc), (oi, oc) in zip(card, own):
+            differ |= (ci != oi).any(-1) | (cc != oc)
+        self._count("ball_query", differ)
+        if torch.equal(card_xyz, xyz) and torch.equal(card_new_xyz, new_xyz):
+            check(not differ.any(), "ball query differs between card and CPU on equal inputs")
+        return card
+
+
+def _train_grads(model, spec, cfg, batch, replay: DecisionReplay):
+    """One f32 loss + backward; -> (loss dict, outputs, grads, BN stats)."""
+    outputs = {}
+    hook = model.register_forward_hook(lambda mod, args, out: outputs.update(out))
+    relu, pool, query = replay.patches()
+    with relu, pool, query:
+        total, losses = TrainGraph.build(cfg, model, spec).compute_losses(
+            batch, bn_momentum(cfg.SOLVER, 0))
+        total.backward()
+    hook.remove()
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    stats = {k: v.detach().cpu() for k, v in model.named_buffers()
+             if k.endswith((".mean", ".var"))}
+    return {k: v.item() for k, v in losses.items()}, outputs, grads, stats
+
+
+def phase_train_card_vs_cpu() -> None:
+    n_scans = 2
+    log(f"== phase 6: one f32 train step, card against CPU, {n_scans} scans of "
+        f"{N_POINTS} points, same weights")
+    cfg, gmodel, spec, n = flagship(device="cuda", seed=0, compute_dtype="float32")
+    cmodel = copy.deepcopy(gmodel).cpu()
+    data = {k: torch.from_numpy(v) for k, v in synthetic_scenes(n_scans, n).items()}
+    gmodel.train()
+    cmodel.train()
+    replay = DecisionReplay()
+    t0 = time.perf_counter()
+    g_losses, g_out, g_grads, g_stats = _train_grads(
+        gmodel, spec, cfg, {k: v.cuda() for k, v in data.items()}, replay)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    replay.recording = False
+    c_losses, c_out, c_grads, c_stats = _train_grads(cmodel, spec, cfg, data, replay)
+    log(f"  card {t1 - t0:.2f} s, CPU {time.perf_counter() - t1:.2f} s")
+    check(all(replay.pos[k] == len(replay.log[k]) for k in replay.KINDS),
+          f"the legs took different numbers of decisions: {replay.pos}")
+    for layer, (gi, ci) in enumerate(zip(g_out["fps_idx"], c_out["fps_idx"])):
+        if gi is not None:
+            check(torch.equal(gi.cpu(), ci), f"layer {layer}: sampling picks differ between "
+                  "card and CPU, so the comparison is void")
+    log("  sampling picks equal on card and CPU at every layer; decisions the CPU would have "
+        "taken otherwise, each a near-tie (the CPU leg takes the card's): "
+        + ", ".join(f"{k} {replay.differ[k]} of {replay.total[k]}" for k in replay.KINDS))
+    vote_err = float((g_out["vote_offset"][0].cpu() - c_out["vote_offset"][0]).detach().abs().max())
+    log(f"  vote offsets (the CG layer's centres): max |card - CPU| {vote_err:.3g}")
+    loss_err = {k: abs(g_losses[k] - c_losses[k]) / abs(c_losses[k]) for k in c_losses}
+    log("  losses, card / CPU (relative difference): " + "; ".join(
+        f"{k} {g_losses[k]:.6f} / {c_losses[k]:.6f} ({loss_err[k]:.2g})" for k in c_losses))
+    grad_err = []
+    for name, cg in c_grads.items():
+        err = float((g_grads[name] - cg).abs().max())
+        scale = cg
+        if name.endswith("conv.bias") and name[:-9] + "bn.scale" in c_grads:
+            # a Dense bias ahead of BatchNorm has a true gradient of 0 (the
+            # batch mean takes it out): rounding on both sides, held against
+            # the same layer's kernel gradient
+            scale = c_grads[name[:-4] + "kernel"]
+        grad_err.append((err / max(float(scale.abs().max()), 1e-30), name))
+    grad_err.sort(reverse=True)
+    log("  gradient leaves furthest apart (max |card - CPU| / max |CPU| of the leaf): "
+        + "; ".join(f"{name} {r:.3g}" for r, name in grad_err[:6]))
+    stats_err = sorted(((float((g_stats[k] - cs).abs().max()) / float(cs.abs().max()), k)
+                        for k, cs in c_stats.items()), reverse=True)
+    log("  running statistics furthest apart (relative to the buffer's largest |entry|): "
+        + "; ".join(f"{name} {r:.3g}" for r, name in stats_err[:3]))
+    for key, r in loss_err.items():
+        check(r <= F32_TOL, f"loss {key} differs by {r:.3g} (relative)")
+    for r, name in grad_err:
+        check(r <= TRAIN_GRAD_TOL, f"gradient {name} differs by {r:.3g} of its max")
+    for r, name in stats_err:
+        check(r <= F32_TOL, f"running statistic {name} differs by {r:.3g} of its max")
+    log(f"  {len(c_losses)} losses within {F32_TOL:g} relative, {len(c_grads)} gradient leaves "
+        f"within {TRAIN_GRAD_TOL:g} of their largest entry, {len(c_stats)} running "
+        f"statistics within {F32_TOL:g}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -389,10 +648,14 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = phase_environment()
-    scans = torch.from_numpy(realistic_scans(BATCH, N_POINTS)).cuda()
+    # the synthetic KITTI-like scans of `train_entry`'s batch (ground plane,
+    # car shells and clutter from `tools.synth_kitti.make_scene`)
+    scans = torch.from_numpy(synthetic_scenes(BATCH, N_POINTS)["points"]).cuda()
     report = phase_kernels(scans)
-    launches = phase_main_path(scans)
+    phase_main_path(scans)
     phase_card_vs_cpu(scans)
+    launches = phase_training()
+    phase_train_card_vs_cpu()
     for entry in report:
         entry["launches"] = launches[entry["name"]]
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")

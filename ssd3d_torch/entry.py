@@ -1,15 +1,21 @@
 """Entry points of the port: the flagship 3DSSD detector (KITTI Car,
 `configs/kitti/3dssd/3dssd.yaml`, 16,384-point scans) with seeded weights.
 
-Counterpart of `__graft_entry__._flagship` / `entry`. Usage:
+Counterpart of `__graft_entry__._flagship` / `entry` and the single-device
+train step of `__graft_entry__._dryrun_body`. Usage:
 
-    from ssd3d_torch.entry import entry
+    from ssd3d_torch.entry import entry, train_entry
     fn, (points,) = entry(device="cuda")
     detections = fn(points)   # dict of boxes / scores / classes / valid / index
+
+    step, batch = train_entry(device="cuda")   # batch 8 of 16,384-point scans
+    metrics = step(batch)     # one optimizer step: losses, total, lr, norms
+    state = step.args[0]      # the TrainState: step counter, model, optimizer
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from pathlib import Path
 
@@ -19,6 +25,8 @@ import torch
 from ssd3d.config import load_cfg
 from ssd3d_torch.models.single_stage import build_detector
 from ssd3d_torch.nn.layers import BatchNorm, Dense
+from ssd3d_torch.train.train_step import TrainGraph
+from tools.synth_kitti import make_scene
 
 FLAGSHIP_CFG = Path(__file__).resolve().parents[1] / "configs" / "kitti" / "3dssd" / "3dssd.yaml"
 
@@ -74,3 +82,36 @@ def entry(device: torch.device | str = "cpu", seed: int = 0):
         return spec.decode_and_nms(model(points))
 
     return fn, (points,)
+
+
+def synthetic_scenes(batch: int, n: int, seed: int = 0, max_boxes: int = 6) -> dict:
+    """`batch` synthetic KITTI-like scans (ground plane, car shells, clutter
+    from `tools.synth_kitti.make_scene`) of n points each, with their car
+    boxes zero-padded to `max_boxes` rows (label 1 for a car, 0 for padding).
+    -> numpy arrays points f32 [b, n, 4], gt_boxes f32 [b, max_boxes, 7],
+    gt_labels int32 [b, max_boxes]."""
+    rng = np.random.default_rng(seed)
+    points = np.zeros((batch, n, 4), np.float32)
+    gt_boxes = np.zeros((batch, max_boxes, 7), np.float32)
+    gt_labels = np.zeros((batch, max_boxes), np.int32)
+    for b in range(batch):
+        pts, boxes = make_scene(rng, n_points=n + 2048, k_max=max_boxes)
+        points[b] = pts[rng.choice(len(pts), n, replace=len(pts) < n)]
+        gt_boxes[b, :len(boxes)] = boxes
+        gt_labels[b, :len(boxes)] = 1
+    return {"points": points, "gt_boxes": gt_boxes, "gt_labels": gt_labels}
+
+
+def train_entry(device: torch.device | str = "cpu", seed: int = 0, batch: int = 8,
+                shrink: int = 1):
+    """(step, batch): the flagship in train mode with seeded weights, its
+    TrainGraph and TrainState, and a fixed batch of synthetic scenes on
+    `device` (the config's global batch is BATCH_SIZE 4 x GPU_NUM 2 = 8).
+    `step(batch)` runs one optimizer step and returns its metrics; the
+    TrainState is `step.args[0]`."""
+    cfg, model, spec, n = flagship(shrink=shrink, device=device, seed=seed)
+    graph = TrainGraph.build(cfg, model, spec)
+    state = graph.init_state()
+    data = synthetic_scenes(batch, n, seed)
+    return (functools.partial(graph.train_step, state),
+            {k: torch.from_numpy(v).to(device) for k, v in data.items()})

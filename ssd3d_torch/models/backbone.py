@@ -65,7 +65,7 @@ class PointBackbone(nn.Module):
             self.layers.append((scope, layer_type, spec))
         self.feature_channels = feat_ch
 
-    def forward(self, points: torch.Tensor) -> dict:
+    def forward(self, points: torch.Tensor, bn_momentum: float = 0.9) -> dict:
         """points: [bs, n, 3 + c] -> dict of xyz / feature / fps-index lists
         and the vote outputs (base + raw offsets)."""
         xyz_list: list = [points[..., 0:3]]
@@ -81,10 +81,11 @@ class PointBackbone(nn.Module):
             if layer_type == "SA_Layer":
                 former = fps_idx_list[former_fps_from] if former_fps_from != -1 else None
                 vote_ctr = xyz_list[vote_ctr_from] if vote_ctr_from != -1 else None
-                new_xyz, new_feat, new_fps_idx = module(xyz_in, feat_in, former, vote_ctr)
+                new_xyz, new_feat, new_fps_idx = module(xyz_in, feat_in, former, vote_ctr,
+                                                       bn_momentum)
                 fps_idx_list.append(new_fps_idx)
             else:  # Vote_Layer
-                new_xyz, new_feat, offsets = module(xyz_in, feat_in)
+                new_xyz, new_feat, offsets = module(xyz_in, feat_in, bn_momentum)
                 vote_base.append(xyz_in)
                 vote_offset.append(offsets)
                 fps_idx_list.append(None)

@@ -28,11 +28,11 @@ class DetectionHead(nn.Module):
         self.pred_reg_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
         self.pred_reg = PointConv(128, reg_out, bn=False, activation=False)
 
-    def forward(self, features: torch.Tensor) -> dict:
+    def forward(self, features: torch.Tensor, bn_momentum: float = 0.9) -> dict:
         """features: [bs, n, c] -> dict of per-point predictions."""
-        x = self.trunk(features)
-        cls = self.pred_cls(self.pred_cls_base(x))
-        reg = self.pred_reg(self.pred_reg_base(x))
+        x = self.trunk(features, bn_momentum)
+        cls = self.pred_cls(self.pred_cls_base(x, bn_momentum))
+        reg = self.pred_reg(self.pred_reg_base(x, bn_momentum))
         bs, n = reg.shape[:2]
         reg = reg.reshape(bs, n, self.reg_base, self.reg_channels + self.num_angle_cls * 2)
         rc, na = self.reg_channels, self.num_angle_cls

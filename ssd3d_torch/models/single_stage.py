@@ -1,5 +1,5 @@
 """3DSSD single-stage detector (counterpart of
-`ssd3d/models/single_stage.py`), inference only.
+`ssd3d/models/single_stage.py`).
 
 `SingleStageDetector` is the parametric graph (backbone + heads);
 `DetectorSpec.decode_and_nms` turns its outputs into at most `max_output`
@@ -19,7 +19,6 @@ from ssd3d_torch.core.box_coders import AnchorGenerator, BoxCoder
 from ssd3d_torch.core.geometry import boxes_to_bev_aabb
 from ssd3d_torch.models.backbone import PointBackbone
 from ssd3d_torch.models.heads import DetectionHead
-from ssd3d_torch.nn.layers import _no_training
 from ssd3d_torch.ops.nms import batched_class_nms
 
 
@@ -52,22 +51,22 @@ class SingleStageDetector(nn.Module):
             ))
             self.heads.append((name, xyz_idx, feat_idx))
 
-    def forward(self, points: torch.Tensor) -> dict:
-        """points: [bs, n, 3 + c] -> dict of raw network outputs."""
-        _no_training(self)
-        return self.predict(self.backbone(points))
+    def forward(self, points: torch.Tensor, bn_momentum: float = 0.9) -> dict:
+        """points: [bs, n, 3 + c] -> dict of raw network outputs. In train
+        mode BatchNorm uses batch statistics and moves its running ones by
+        `bn_momentum`."""
+        return self.predict(self.backbone(points, bn_momentum), bn_momentum)
 
-    def predict(self, net: dict) -> dict:
+    def predict(self, net: dict, bn_momentum: float = 0.9) -> dict:
         """The heads over the backbone's output lists (`backbone(points)`),
         for callers that also inspect those lists."""
-        _no_training(self)
         out: dict = {"vote_base": net["vote_base"], "vote_offset": net["vote_offset"],
                      "fps_idx": net["fps_idx"]}
         det_xyz, det_preds = [], []
         for name, xyz_idx, feat_idx in self.heads:
             xyz_in = torch.cat([net["xyz"][j] for j in xyz_idx], dim=1)
             feat_in = torch.cat([net["features"][j] for j in feat_idx], dim=1)
-            det_preds.append(getattr(self, name)(feat_in))
+            det_preds.append(getattr(self, name)(feat_in, bn_momentum))
             det_xyz.append(xyz_in)
         out["base_xyz"] = torch.cat(det_xyz, dim=1)
         for key in ("feature", "cls", "offset", "angle_cls", "angle_res"):

@@ -1,10 +1,14 @@
-"""Basic layers (counterpart of `ssd3d/nn/layers.py`), inference only.
+"""Basic layers (counterpart of `ssd3d/nn/layers.py`).
 
 Every "convolution" of this model family is 1x1, a matrix product over the
 channel axis, so `PointConv` is a Dense layer (`torch.matmul`) followed by
 BatchNorm and ReLU. Parameter names follow the flax scopes (`conv.kernel`
 [c_in, c_out], `conv.bias`, `bn.scale`, `bn.bias`, buffers `bn.mean`,
 `bn.var`), so a flax variable tree converts by joining its paths.
+
+Train or eval mode is the module's `training` flag; the BatchNorm momentum is
+a call argument (`bn_momentum`), passed down as in the JAX signatures,
+because the schedule changes it from step to step.
 """
 
 from __future__ import annotations
@@ -12,19 +16,16 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-TRAINING_NOT_PORTED = (
-    "ssd3d_torch runs inference only; training is ROADMAP Queue 1 item 8"
-)
-
-
-def _no_training(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(TRAINING_NOT_PORTED)
-
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch normalisation over the last axis with the JAX
-    package's epsilon (1e-3) and variable names; always computes in f32."""
+    """Batch normalisation over every axis but the last, with the JAX
+    package's epsilon (1e-3) and variable names; always computes in f32.
+
+    Train mode normalises with the batch's mean and biased variance
+    (mean(x^2) - mean^2, clamped at 0; the gradient flows through both) and
+    updates the running statistics as m * running + (1 - m) * batch. This is
+    written out because `F.batch_norm` differs: it takes the inverse
+    momentum, keeps the unbiased variance and defaults to another epsilon."""
 
     def __init__(self, channels: int, epsilon: float = 1e-3):
         super().__init__()
@@ -34,11 +35,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _no_training(self)
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
         x = x.float()
-        inv = torch.rsqrt(self.var + self.epsilon) * self.scale
-        return x * inv + (self.bias - self.mean * inv)
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                m = torch.as_tensor(bn_momentum, dtype=torch.float32)  # f32, as in JAX
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.epsilon) * self.scale
+        return x * inv + (self.bias - mean * inv)
 
 
 class Dense(nn.Module):
@@ -69,10 +79,10 @@ class PointConv(nn.Module):
         self.bn = BatchNorm(channels) if bn else None
         self.activation = activation
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, bn_momentum)
         if self.activation:
             x = torch.relu(x)
         return x
@@ -90,7 +100,7 @@ class SharedMLP(nn.Module):
             c_in = ch
         self.out_channels = c_in
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"conv{i}")(x)
+            x = getattr(self, f"conv{i}")(x, bn_momentum)
         return x

@@ -1,6 +1,12 @@
-"""PointNet++-family modules (counterpart of `ssd3d/nn/modules.py`),
-inference only: the unfused, non-attention set abstraction with fusion
-sampling, and the candidate-generation vote layer."""
+"""PointNet++-family modules (counterpart of `ssd3d/nn/modules.py`): the
+unfused, non-attention set abstraction with fusion sampling, and the
+candidate-generation vote layer, in train and eval mode.
+
+Sampling and ball-query inputs go through `.detach()`: those ops return
+integers and have no gradient, and without the detach the CPU plain F-FPS
+would build an autograd graph over its [b, n, n] distance tensor. Gradients
+reach the features and the (vote-shifted) centres through the grouping
+gather, whose backward is the row scatter-add."""
 
 from __future__ import annotations
 
@@ -9,7 +15,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ssd3d_torch.nn.layers import PointConv, SharedMLP, _no_training
+from ssd3d_torch.nn.layers import PointConv, SharedMLP
 from ssd3d_torch.ops.grouping import ball_query_multi, group_points
 from ssd3d_torch.ops.sampling import (
     farthest_point_sample,
@@ -70,6 +76,14 @@ def ffps_segments(xyz: torch.Tensor, features: torch.Tensor, fps_idx: torch.Tens
     return parts
 
 
+def max_pool(grouped: torch.Tensor) -> torch.Tensor:
+    """Max over each ball's samples: [b, m, ns, c] -> [b, m, c]. `amax`
+    splits the gradient evenly among tied maxima, as JAX's max does (padding
+    repeats the first hit; ReLU outputs zeros); `max(dim).values` would send
+    it all to one sample."""
+    return grouped.amax(dim=2)
+
+
 class PointnetSAModuleMSG(nn.Module):
     """Set abstraction with multi-scale grouping and fusion sampling.
 
@@ -103,16 +117,16 @@ class PointnetSAModuleMSG(nn.Module):
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
                 former_fps_idx: torch.Tensor | None = None,
-                vote_ctr: torch.Tensor | None = None):
-        _no_training(self)
+                vote_ctr: torch.Tensor | None = None, bn_momentum: float = 0.9):
         bs = xyz.shape[0]
         if vote_ctr is not None:
             # CG layer: the centres are the vote outputs, not FPS picks
             npoint = vote_ctr.shape[1]
             fps_idx = torch.arange(npoint, dtype=torch.int32, device=xyz.device).expand(bs, npoint)
         else:
-            fps_idx = _fusion_sample(xyz, features, self.fps_sample_range_list,
-                                     self.fps_method_list, self.npoint_list)
+            fps_idx = _fusion_sample(xyz.detach(), features.detach(),
+                                     self.fps_sample_range_list, self.fps_method_list,
+                                     self.npoint_list)
         if former_fps_idx is not None:
             fps_idx = torch.cat([fps_idx, former_fps_idx], dim=-1)
         new_xyz = gather_points(vote_ctr if vote_ctr is not None else xyz, fps_idx)
@@ -121,8 +135,8 @@ class PointnetSAModuleMSG(nn.Module):
             # radius-less layer: a pure gather (3DSSD's pre-vote selection)
             return new_xyz, gather_points(features, fps_idx), fps_idx
 
-        queries = ball_query_multi(self.radius_list, self.nsample_list, xyz, new_xyz,
-                                   dilated=self.dilated_group)
+        queries = ball_query_multi(self.radius_list, self.nsample_list, xyz.detach(),
+                                   new_xyz.detach(), dilated=self.dilated_group)
         # one packed gather per scale instead of separate xyz / feature gathers
         packed_src = torch.cat([features, xyz], dim=-1)
         scale_feats = []
@@ -132,18 +146,19 @@ class PointnetSAModuleMSG(nn.Module):
             grouped = group_points(packed_src, idx)
             grouped_xyz = grouped[..., -3:] - new_xyz[:, :, None, :]
             grouped = torch.cat([grouped[..., :-3], grouped_xyz], dim=-1)
-            grouped = getattr(self, f"mlp{i}")(grouped)
-            pooled = grouped.amax(dim=2)
+            grouped = getattr(self, f"mlp{i}")(grouped, bn_momentum)
+            pooled = max_pool(grouped)
             scale_feats.append(pooled * has_pts[..., None].to(pooled.dtype))
         new_features = torch.cat(scale_feats, dim=-1)
         if self.aggregation is not None:
-            new_features = self.aggregation(new_features)
+            new_features = self.aggregation(new_features, bn_momentum)
         return new_xyz, new_features, fps_idx
 
 
 class VoteLayer(nn.Module):
     """Candidate-generation shift: returns (shifted xyz, features, raw
-    offsets); the shift is clipped to max_translate_range."""
+    offsets); the shift is clipped to max_translate_range, the raw offsets
+    feed the vote loss."""
 
     def __init__(self, in_channels: int, mlp, max_translate_range, bn: bool = True,
                  compute_dtype: torch.dtype | None = None):
@@ -155,9 +170,8 @@ class VoteLayer(nn.Module):
                              persistent=False)
         self.out_channels = self.mlp.out_channels
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor):
-        _no_training(self)
-        x = self.mlp(features)
-        offsets = self.vote_offsets(x)
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor, bn_momentum: float = 0.9):
+        x = self.mlp(features, bn_momentum)
+        offsets = self.vote_offsets(x, bn_momentum)
         limited = torch.clamp(offsets, torch.minimum(self.limit, -self.limit), self.limit.abs())
         return xyz + limited, x, offsets

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 `ssd3d_torch/csrc/*.cu` are compiled by `nvcc` into one shared library with a
-plain C interface and loaded with `ctypes`. The build happens at the first
+plain C interface and loaded with `ctypes`; one `nvcc` per source runs in
+parallel, then one link. The build happens at the first
 launch of any kernel, never at import, so every module imports on a machine
 without `nvcc` or a GPU. The library lands in `build/ssd3d_torch/` at the
 repository root, named by a hash of the sources and flags, so a changed source
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ssd3d_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -72,14 +73,23 @@ def build() -> Path:
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"ssd3d_torch: nvcc failed (exit {res.returncode}):\n{build_log}"
-        )
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sorted(CSRC.glob("*.cu"))]
+    # one nvcc per source, all started together, then one link
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sorted(CSRC.glob("*.cu")), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
+        failed = [res.returncode] if res.returncode != 0 else []
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"ssd3d_torch: nvcc failed (exit {failed[0]}):\n{build_log}")
     os.replace(tmp, out)
     return out
 
@@ -126,7 +136,8 @@ FFPS = Kernel("ffps", "ssd3d_ffps", [P, P, I, I, I, I])
 BALL_QUERY = Kernel("ball_query", "ssd3d_ball_query",
                     [P, P, P, P, I, I, I, I, P, P, P, P])
 GATHER = Kernel("gather", "ssd3d_gather_rows", [P, P, P, I, I, I, I])
-KERNELS = (FPS, FFPS, BALL_QUERY, GATHER)
+SCATTER_ADD = Kernel("scatter_add", "ssd3d_scatter_add_rows", [P, P, P, I, I, I, I])
+KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD)
 
 
 def reset_launches() -> None:

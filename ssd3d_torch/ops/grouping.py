@@ -2,8 +2,9 @@
 
 Counterpart of `ssd3d/ops/grouping.py` (`ball_query_multi`, `group_points`).
 Each function dispatches on the device of its inputs: CUDA tensors launch the
-hand-written kernel (`csrc/ball_query.cu`, `csrc/gather.cu`), CPU tensors take
-the plain PyTorch version beside it.
+hand-written kernel (`csrc/ball_query.cu`, `csrc/gather.cu`, and for the
+gather's backward `csrc/scatter_add.cu`), CPU tensors take the plain PyTorch
+version beside it.
 
 The ball-query contract is the reference CUDA one (tf_grouping_g.cu:215-255,
 :308-357): per ring, the first `ns` points in index order inside the ring,
@@ -129,11 +130,6 @@ def gather_rows_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_rows_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    if points.requires_grad:
-        raise NotImplementedError(
-            "group_points: the gather kernel has no backward yet "
-            "(ROADMAP Queue 2 item 4)"
-        )
     if points.dtype not in (torch.float32, torch.int32):
         raise ValueError(f"group_points: kernel takes f32 or i32, got {points.dtype}")
     b, n, c = points.shape
@@ -145,13 +141,66 @@ def _gather_rows_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row gather: points [b, n, c], idx int [b, rows] -> [b, rows, c]."""
-    if points.dim() != 3 or idx.dim() != 2 or idx.shape[0] != points.shape[0]:
-        raise ValueError(f"gather_rows: points {tuple(points.shape)}, idx {tuple(idx.shape)}")
+def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if _build.require_cuda("gather_rows", points, idx):
         return _gather_rows_cuda(points, idx)
     return gather_rows_plain(points, idx)
+
+
+def scatter_add_rows_plain(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
+    """idx: int [b, rows], g: [b, rows, c] -> dsrc [b, n, c] with
+    dsrc[b, clamp(idx[b, r], 0, n - 1)] += g[b, r]; duplicates accumulate."""
+    b, rows, c = g.shape
+    flat = idx.long().clamp(0, n - 1) + n * torch.arange(b, device=idx.device)[:, None]
+    out = torch.zeros(b * n, c, dtype=g.dtype, device=g.device)
+    return out.index_add_(0, flat.reshape(-1), g.reshape(b * rows, c)).reshape(b, n, c)
+
+
+def _scatter_add_rows_cuda(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
+    if g.dtype != torch.float32:
+        raise ValueError(f"scatter_add_rows: kernel takes f32, got {g.dtype}")
+    b, rows, c = g.shape
+    g = g.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    out = torch.empty(b, n, c, dtype=g.dtype, device=g.device)  # zeroed by the kernel
+    _build.SCATTER_ADD(idx.data_ptr(), g.data_ptr(), out.data_ptr(), b, n, rows, c)
+    return out
+
+
+def scatter_add_rows(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
+    """Row scatter-add, the gather's backward: idx int [b, rows], g [b, rows,
+    c] -> [b, n, c]. On CUDA the sum's order follows the kernel's atomics."""
+    if g.dim() != 3 or idx.shape != g.shape[:2]:
+        raise ValueError(f"scatter_add_rows: idx {tuple(idx.shape)}, g {tuple(g.shape)}")
+    if _build.require_cuda("scatter_add_rows", idx, g):
+        return _scatter_add_rows_cuda(idx, g, n)
+    return scatter_add_rows_plain(idx, g, n)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The row gather with the row scatter-add as its backward (the CUDA
+    GroupPointGrad contract); both dispatch on the device."""
+
+    @staticmethod
+    def forward(ctx, points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        return _gather_rows(points, idx)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        return scatter_add_rows(idx, g, ctx.n), None
+
+
+def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather: points [b, n, c], idx int [b, rows] -> [b, rows, c].
+    Differentiable wrt points (backward: `scatter_add_rows`)."""
+    if points.dim() != 3 or idx.dim() != 2 or idx.shape[0] != points.shape[0]:
+        raise ValueError(f"gather_rows: points {tuple(points.shape)}, idx {tuple(idx.shape)}")
+    if points.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(points, idx)
+    return _gather_rows(points, idx)
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

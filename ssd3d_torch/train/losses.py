@@ -1,0 +1,196 @@
+"""Detection losses (counterpart of `ssd3d/train/losses.py`).
+
+The reference's masking and normalisation are kept exactly:
+- classification: Is-Not / Focal / Center-ness over the (pmask + nmask)
+  points, normalised by their count;
+- regression: huber over positive points, normalised by the positive count;
+- angle: softmax CE on the bin + huber on the selected residual, masked
+  inside the huber as the reference does;
+- corner loss on the predicted box decoded under the GT angle bin;
+- vote loss against the vote targets.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ssd3d_torch.core.geometry import boxes_to_corners, centerness
+from ssd3d_torch.train.assigner import vote_targets
+
+
+def huber(error: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    abs_e = error.abs()
+    quad = torch.minimum(abs_e, abs_e.new_tensor(delta))  # a tie splits the gradient, as in JAX
+    return 0.5 * quad * quad + delta * (abs_e - quad)
+
+
+def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    # |x| as a select, whose gradient at 0 is +1 as JAX's abs has it
+    # (torch's abs has 0 there); max(x, 0) splits a tie as JAX's does
+    abs_x = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, logits.new_zeros(())) - logits * labels
+            + torch.log1p(torch.exp(-abs_x)))
+
+
+def softmax_ce(logits: torch.Tensor, label_idx: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, label_idx.long()[..., None])[..., 0]
+
+
+def focal_loss(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 2.0,
+               alpha: float = 0.25) -> torch.Tensor:
+    """Per-entry sigmoid focal loss."""
+    ce = sigmoid_ce(logits, targets)
+    p = torch.sigmoid(logits)
+    p_t = targets * p + (1 - targets) * (1 - p)
+    alpha_t = targets * alpha + (1 - targets) * (1 - alpha)
+    return (1.0 - p_t).pow(gamma) * alpha_t * ce
+
+
+def softmax_focal_loss(logits: torch.Tensor, label_idx: torch.Tensor, gamma: float = 2.0,
+                       alpha: float = 0.25) -> torch.Tensor:
+    """-alpha_t (1 - p_t)^gamma log p_t over a softmax head; background
+    (class 0) weighs 1 - alpha, foreground alpha."""
+    logp_t = torch.log_softmax(logits, dim=-1).gather(-1, label_idx.long()[..., None])[..., 0]
+    alpha_t = torch.where(label_idx > 0, alpha, 1.0 - alpha)
+    return -alpha_t * (1.0 - logp_t.exp()).pow(gamma) * logp_t
+
+
+def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """jax.nn.one_hot: an index outside [0, n) gives an all-zero row."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    cls_loss_type: str  # 'Center-ness' | 'Is-Not' | 'Focal-loss'
+    cls_activation: str  # 'Sigmoid' | 'Softmax'
+    num_classes: int
+    num_angle_cls: int
+    centerness_range: tuple = (0.0, 1.0)
+    corner_loss: bool = False
+    vote_loss: bool = False
+    iou_loss: bool = False
+    attr_velo_loss: bool = False
+    reg_type: str = "Dist-Anchor-free"
+    expand_dims_length: float = 0.1  # vote-target box expansion
+
+    @classmethod
+    def from_cfg(cls, cfg, stage: str = "FIRST_STAGE", vote: bool = False, iou: bool = False):
+        sc = cfg.MODEL[stage]
+        cls_list = (cfg.DATASET.KITTI.CLS_LIST if cfg.DATASET.TYPE == "KITTI"
+                    else cfg.DATASET.NUSCENES.CLS_LIST)
+        return cls(
+            cls_loss_type=sc.CLASSIFICATION_LOSS.TYPE,
+            cls_activation=sc.CLS_ACTIVATION,
+            num_classes=len(cls_list),
+            num_angle_cls=cfg.MODEL.ANGLE_CLS_NUM,
+            centerness_range=tuple(sc.CLASSIFICATION_LOSS.CENTER_NESS_LABEL_RANGE),
+            corner_loss=sc.CORNER_LOSS,
+            vote_loss=vote,
+            iou_loss=iou,
+            attr_velo_loss=sc.PREDICT_ATTRIBUTE_AND_VELOCITY,
+            reg_type=sc.REGRESSION_METHOD.TYPE,
+            expand_dims_length=cfg.TRAIN.AUGMENTATIONS.EXPAND_DIMS_LENGTH,
+        )
+
+
+def classification_loss(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tensor:
+    pmask, nmask = targets["pmask"], targets["nmask"]
+    cls_mask = (pmask + nmask).amax(-1)  # [bs, pts]
+    norm = cls_mask.sum().clamp(min=1.0)
+    logits = outputs["cls"]  # [bs, pts, c]
+    gt_cls = targets["gt_cls"]  # [bs, pts], 0 = background
+    softmax = cfg.cls_activation == "Softmax"
+    if not softmax:
+        # sigmoid: num_classes channels, background is the all-zero row
+        onehot = one_hot(gt_cls - 1, cfg.num_classes, logits.dtype)
+    if cfg.cls_loss_type == "Is-Not":
+        per_pt = softmax_ce(logits, gt_cls) if softmax else sigmoid_ce(logits, onehot).mean(-1)
+    elif cfg.cls_loss_type == "Focal-loss":
+        per_pt = (softmax_focal_loss(logits, gt_cls) if softmax
+                  else focal_loss(logits, onehot).mean(-1))
+    else:  # Center-ness
+        base_xyz = outputs["base_xyz"].detach()
+        box_per_pt = (targets["gt_boxes"] * pmask[..., None]).sum(2)
+        ctr = centerness(base_xyz, box_per_pt) * pmask.amax(-1)
+        lo, hi = cfg.centerness_range
+        ctr = ctr * (hi - lo) + lo
+        if softmax:
+            # soft-label CE: centre-ness mass on the true class, the rest on
+            # background
+            c = ctr[..., None]
+            target = (one_hot(gt_cls, cfg.num_classes + 1, logits.dtype) * c
+                      + one_hot(torch.zeros_like(gt_cls), cfg.num_classes + 1, logits.dtype)
+                      * (1.0 - c))
+            per_pt = -(target * torch.log_softmax(logits, dim=-1)).sum(-1)
+        else:
+            per_pt = sigmoid_ce(logits, onehot * ctr[..., None]).mean(-1)
+    return (per_pt * cls_mask).sum() / norm
+
+
+def offset_loss_res(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tensor:
+    pmask = targets["pmask"]
+    norm = pmask.sum().clamp(min=1.0)
+    err = outputs["offset"] - targets["gt_offset"]
+    return (huber(err).sum(-1) * pmask).sum() / norm
+
+
+def angle_loss(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tensor:
+    pmask = targets["pmask"]
+    norm = pmask.sum().clamp(min=1.0)
+    gt_bin = targets["gt_angle_cls"]
+    bin_l = (softmax_ce(outputs["angle_cls"], gt_bin) * pmask).sum() / norm
+    onehot = one_hot(gt_bin, cfg.num_angle_cls, outputs["angle_res"].dtype)
+    sel = (outputs["angle_res"] * onehot).sum(-1)
+    res_l = huber((sel - targets["gt_angle_res"]) * pmask).sum() / norm
+    return bin_l + res_l
+
+
+def corner_loss(cfg: LossConfig, pred_boxes_gt_angle: torch.Tensor, targets: dict) -> torch.Tensor:
+    """pred_boxes_gt_angle: [bs, pts, cls, 7] decoded with the GT angle bin."""
+    pmask = targets["pmask"]
+    norm = pmask.sum().clamp(min=1.0)
+    diff = boxes_to_corners(pred_boxes_gt_angle) - boxes_to_corners(targets["gt_boxes"])
+    return (huber(diff).sum((-2, -1)) * pmask).sum() / norm
+
+
+def vote_loss(vote_offset: torch.Tensor, vote_mask: torch.Tensor,
+              vote_target: torch.Tensor) -> torch.Tensor:
+    per = huber(vote_target - vote_offset).sum(-1) * vote_mask
+    return per.sum() / vote_mask.sum().clamp(min=1.0)
+
+
+def compute_stage_losses(cfg: LossConfig, coder, outputs: dict, targets: dict,
+                         anchors: torch.Tensor, base_xyz: torch.Tensor,
+                         gt_boxes_scene: torch.Tensor | None = None) -> dict:
+    """Every loss of one detection stage. `targets` holds the assigner's
+    outputs; this adds the encoded regression targets. anchors: [bs, n, 1,
+    3] (anchor-free); base_xyz: [bs, n, 3]; gt_boxes_scene: [bs, g, 7], the
+    raw scene GTs (vote loss only)."""
+    if cfg.reg_type == "Bin-Anchor" or cfg.iou_loss or cfg.attr_velo_loss:
+        raise NotImplementedError(
+            "compute_stage_losses: Bin-Anchor offsets, the IoU branch and the "
+            "attribute/velocity losses are not ported yet (ROADMAP Queue 1 "
+            "items 10 and 11)")
+    gt_offset, gt_angle_cls, gt_angle_res = coder.encode(base_xyz, targets["gt_boxes"], anchors)
+    targets = dict(targets, gt_offset=gt_offset, gt_angle_cls=gt_angle_cls,
+                   gt_angle_res=gt_angle_res)
+    loss_dict = {
+        "cls": classification_loss(cfg, outputs, targets),
+        "offset": offset_loss_res(cfg, outputs, targets),
+        "angle": angle_loss(cfg, outputs, targets),
+    }
+    if cfg.corner_loss:
+        # the predicted boxes decoded under the GT angle bin
+        gt_bin_onehot = one_hot(gt_angle_cls, cfg.num_angle_cls, outputs["angle_res"].dtype)
+        pred_boxes = coder.decode(base_xyz, outputs["offset"], gt_bin_onehot,
+                                  outputs["angle_res"], anchors)
+        loss_dict["corner"] = corner_loss(cfg, pred_boxes, targets)
+    if cfg.vote_loss and outputs.get("vote_base"):
+        vmask, vtarget = vote_targets(outputs["vote_base"][0], gt_boxes_scene,
+                                      expand=cfg.expand_dims_length)
+        loss_dict["vote"] = vote_loss(outputs["vote_offset"][0], vmask, vtarget)
+    return loss_dict

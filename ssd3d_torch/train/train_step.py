@@ -1,0 +1,189 @@
+"""Single-stage train step (counterpart of `ssd3d/train/train_step.py`):
+forward in train mode, target assignment, losses, backward and the
+optimizer update.
+
+The update is optax's chain as the JAX package builds it: clip by global
+norm 5.0, written as optax writes it ((g / norm) * 5 only when the norm
+reaches 5; `clip_grad_norm_` adds 1e-6 and differs), then Adam (b1 0.9,
+b2 0.999, eps 1e-8) or SGD with momentum, with the learning rate of the step
+before its increment. `torch.optim.SGD` computes optax's SGD update. Adam is
+written out (`Adam` below) because optax rounds its bias corrections to
+float32, where 1 - 0.999^t loses five digits and moves the first updates by
+~1e-5 relative from `torch.optim.Adam`, which keeps them in float64.
+Parameters, BatchNorm buffers and the optimizer state are updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ssd3d_torch.train import losses as L
+from ssd3d_torch.train.assigner import AssignerConfig, assign_targets
+from ssd3d_torch.train.schedules import bn_momentum, learning_rate
+
+MAX_GRAD_NORM = 5.0
+
+
+class Adam(torch.optim.Optimizer):
+    """optax.adam's arithmetic: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 +
+    b2 nu, update = -lr (mu / bc1) / (sqrt(nu / bc2) + eps) with the bias
+    corrections bc = 1 - b^t rounded to float32 as optax computes them.
+    Multi-tensor (`torch._foreach_*`) ops, a handful of launches a step."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(mu=torch.zeros_like(p), nu=torch.zeros_like(p))
+            group["count"] = count = group.get("count", 0) + 1
+            b1, b2 = group["b1"], group["b2"]
+            grads = [p.grad for p in params]
+            mu = [self.state[p]["mu"] for p in params]
+            nu = [self.state[p]["nu"] for p in params]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            update = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(update, denom)
+            torch._foreach_add_(params, update, alpha=-group["lr"])
+
+
+def make_optimizer(solver_cfg, params, train_param_prefix=()) -> torch.optim.Optimizer:
+    """Adam or SGD + momentum over `params`; the learning rate is set each
+    step from `learning_rate` (`TrainGraph.train_step`)."""
+    if train_param_prefix:
+        raise NotImplementedError(
+            "make_optimizer: stage-wise freezing (TRAIN_PARAM_PREFIX) comes with "
+            "PointRCNN (ROADMAP Queue 1 item 10)")
+    lr = learning_rate(solver_cfg, 0)
+    if solver_cfg.TYPE == "Adam":
+        return Adam(params, lr=lr)
+    if solver_cfg.TYPE == "SGD":
+        return torch.optim.SGD(params, lr=lr, momentum=solver_cfg.MOMENTUM)
+    if solver_cfg.TYPE == "AdaBound":
+        raise NotImplementedError("make_optimizer: AdaBound is not ported yet "
+                                  "(ROADMAP Queue 1 item 8a)")
+    raise ValueError(f"unknown solver {solver_cfg.TYPE}")
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of squares of every entry."""
+    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float = MAX_GRAD_NORM) -> None:
+    """optax.clip_by_global_norm in place: (g / norm) * max_norm when norm
+    >= max_norm, g otherwise. Decided on the device (no host sync)."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Step counter, the model (parameters and BatchNorm buffers) and the
+    optimizer (its state); the counterpart of the JAX TrainState."""
+
+    step: int
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainGraph:
+    """Everything static the train step needs."""
+
+    model: Any  # SingleStageDetector
+    spec: Any  # DetectorSpec
+    loss_cfg: L.LossConfig
+    assigner_cfg: AssignerConfig
+    solver_cfg: Any
+    train_param_prefix: tuple = ()
+    # SUMMARY_HISTOGRAMS: global grad / param norms in the metrics
+    histograms: bool = False
+
+    @classmethod
+    def build(cls, cfg, model, spec) -> "TrainGraph":
+        arch = cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE
+        if any(h[5] == "IoU" for h in cfg.MODEL.NETWORK.FIRST_STAGE.HEAD):
+            raise NotImplementedError("TrainGraph: IoU heads are not ported yet "
+                                      "(ROADMAP Queue 1 item 10)")
+        if cfg.TPU.DEVICE_AUGMENT and cfg.TRAIN.AUGMENTATIONS.OPEN:
+            raise NotImplementedError("TrainGraph: device augmentation is not ported "
+                                      "yet (ROADMAP Queue 1 item 8a)")
+        return cls(
+            model=model,
+            spec=spec,
+            loss_cfg=L.LossConfig.from_cfg(
+                cfg, "FIRST_STAGE", vote=any(l[11] == "Vote_Layer" for l in arch)),
+            assigner_cfg=AssignerConfig.from_cfg(cfg.MODEL.FIRST_STAGE),
+            solver_cfg=cfg.SOLVER,
+            train_param_prefix=tuple(cfg.TRAIN.CONFIG.TRAIN_PARAM_PREFIX),
+            histograms=bool(cfg.TRAIN.CONFIG.SUMMARY_HISTOGRAMS),
+        )
+
+    def init_state(self) -> TrainState:
+        """Puts the model in train mode and builds its optimizer."""
+        self.model.train()
+        opt = make_optimizer(self.solver_cfg, list(self.model.parameters()),
+                             self.train_param_prefix)
+        return TrainState(step=0, model=self.model, optimizer=opt)
+
+    def compute_losses(self, batch: dict, bn_m: float):
+        """batch: points [bs, n, 3 + c], gt_boxes [bs, g, 7], gt_labels
+        [bs, g] -> (total, loss dict). Moves the BatchNorm running statistics
+        by `bn_m` (the JAX version returns them as mutated batch_stats)."""
+        outputs = self.model(batch["points"], bn_m)
+        base_xyz = outputs["base_xyz"]
+        anchors = self.spec.anchors(base_xyz)
+        targets = assign_targets(self.assigner_cfg, base_xyz, anchors,
+                                 batch["gt_boxes"], batch["gt_labels"])
+        loss_dict = L.compute_stage_losses(self.loss_cfg, self.spec.coder, outputs, targets,
+                                           anchors, base_xyz, gt_boxes_scene=batch["gt_boxes"])
+        return sum(loss_dict.values()), loss_dict
+
+    def train_step(self, state: TrainState, batch: dict) -> dict:
+        """One optimizer step; updates `state` in place and returns the
+        metrics (the loss dict, `total`, `lr`, and with SUMMARY_HISTOGRAMS
+        `grad_norm` and `param_norm`) as tensors on the model's device, but
+        `lr`, a float."""
+        bn_m = bn_momentum(self.solver_cfg, state.step)
+        lr = learning_rate(self.solver_cfg, state.step)
+        params = list(state.model.parameters())
+        state.optimizer.zero_grad(set_to_none=True)
+        total, loss_dict = self.compute_losses(batch, bn_m)
+        total.backward()
+        grads = [p.grad for p in params]
+        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics.update(total=total.detach(), lr=lr)
+        if self.histograms:
+            metrics["grad_norm"] = global_norm(grads)
+        clip_by_global_norm(grads)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        if self.histograms:
+            with torch.no_grad():
+                metrics["param_norm"] = global_norm(params)
+        return metrics

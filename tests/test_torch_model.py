@@ -20,7 +20,7 @@ from ssd3d.models.backbone import PointBackbone as JaxPointBackbone
 from ssd3d.nn import layers as jlayers
 from ssd3d_torch.entry import flagship
 from ssd3d_torch.models.single_stage import build_detector
-from ssd3d_torch.nn.layers import PointConv, SharedMLP, TRAINING_NOT_PORTED
+from ssd3d_torch.nn.layers import PointConv, SharedMLP
 from ssd3d_torch.utils.convert import flax_to_state_dict
 
 # f32: the port's CPU matmuls and XLA's dot sum in different orders; over the
@@ -103,12 +103,26 @@ def test_batchnorm_runs_from_running_statistics():
     torch.testing.assert_close(y, torch.tensor([[4.5, 2.0]]))
 
 
-def test_training_mode_is_refused():
-    model = flagship(shrink=8)[1]
-    model.train()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        model(torch.zeros(1, 2048, 4))
-    assert "Queue 1 item 8" in TRAINING_NOT_PORTED
+def test_training_mode_runs_forward_and_backward():
+    """flagship(...).train(), a forward and loss.backward() on the CPU: every
+    parameter gets a finite gradient and every BatchNorm moves its running
+    statistics by the momentum."""
+    from ssd3d_torch.ops import _build
+
+    model = flagship(shrink=8)[1].train()
+    before = {k: v.clone() for k, v in model.named_buffers() if k.endswith((".mean", ".var"))}
+    pts = torch.from_numpy((np.random.RandomState(4).randn(2, 2048, 4) * 10).astype(np.float32))
+    _build.reset_launches()
+    out = model(pts, 0.5)
+    (out["cls"].float().square().mean() + out["offset"].square().mean()
+     + out["vote_offset"][0].square().mean()).backward()
+    assert set(_build.launches().values()) == {0}
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    assert model.backbone.layer2.mlp0.conv0.conv.kernel.grad.abs().max() > 0
+    for name, value in model.named_buffers():
+        if name in before:
+            assert not torch.equal(value, before[name]), name
 
 
 def test_unported_layer_types_raise():

@@ -207,8 +207,11 @@ def test_cpu_tensors_take_the_plain_versions():
     sampling.farthest_point_sample(xyz, 8)
     sampling.farthest_point_sample_features(torch.cat([xyz, xyz], -1), 8)
     (idx, _), = grouping.ball_query_multi([1.0], [4], xyz, xyz[:, :5])
-    grouping.group_points(xyz, idx)
-    assert _build.launches() == {"fps": 0, "ffps": 0, "ball_query": 0, "gather": 0}
+    src = xyz.clone().requires_grad_(True)
+    grouping.group_points(src, idx).sum().backward()  # the scatter-add backward
+    assert src.grad.shape == xyz.shape
+    assert _build.launches() == {"fps": 0, "ffps": 0, "ball_query": 0, "gather": 0,
+                                 "scatter_add": 0}
     assert _build._lib is None  # nothing was built or loaded
 
 
@@ -282,10 +285,39 @@ def test_gather_kernel_bit_identical(cuda, c):
 
 
 @pytest.mark.cuda
-def test_gather_kernel_refuses_gradients(cuda):
-    pts = torch.zeros(1, 8, 4, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4"):
-        grouping.group_points(pts, torch.zeros(1, 2, 2, dtype=torch.int32, device=cuda))
+def test_gather_kernel_gradient_is_the_scatter_add_kernel(cuda):
+    rng = np.random.RandomState(18)
+    pts = _t(rng.randn(2, 300, 67).astype(np.float32))
+    idx = _t(rng.randint(0, 300, size=(2, 64, 16)).astype(np.int32))
+    w = _t(rng.randn(2, 64, 16, 67).astype(np.float32))
+    want = pts.clone().requires_grad_(True)
+    (grouping.group_points(want, idx) * w).sum().backward()
+    got = pts.to(cuda).requires_grad_(True)
+    _build.reset_launches()
+    (grouping.group_points(got, idx.to(cuda)) * w.to(cuda)).sum().backward()
+    assert _build.launches()["gather"] == 1 and _build.launches()["scatter_add"] == 1
+    torch.testing.assert_close(got.grad.cpu(), want.grad, rtol=1e-5, atol=1e-5)
+    with torch.inference_mode():  # no gradient: the forward kernel alone
+        grouping.group_points(got, idx.to(cuda))
+    assert _build.launches()["scatter_add"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,rows", [(4096, 67, 65536), (1024, 131, 16384), (512, 259, 8192),
+                                      (7, 5, 1000)])
+def test_scatter_add_kernel_matches_plain(cuda, n, c, rows):
+    """Within 1e-5 of the largest |entry|: float atomics add in another
+    order than the plain version's index_add_."""
+    rng = np.random.RandomState(19)
+    idx = rng.randint(-2, n + 2, size=(2, rows)).astype(np.int32)  # clamped ends
+    idx[:, 1::4] = idx[:, ::4][:, :idx[:, 1::4].shape[1]]  # duplicates
+    g = _t(rng.randn(2, rows, c).astype(np.float32))
+    want = grouping.scatter_add_rows_plain(_t(idx), g, n)
+    got = grouping.scatter_add_rows(_t(idx).to(cuda), g.to(cuda), n)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    with pytest.raises(ValueError, match="f32"):
+        grouping.scatter_add_rows(_t(idx).to(cuda), g.to(cuda).double(), n)
 
 
 @pytest.mark.cuda

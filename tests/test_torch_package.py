@@ -82,7 +82,9 @@ def test_each_kernel_source_names_the_tpu_kernel_it_replaces():
     for name, pallas in [("fps.cu", "fps.py:_fps_batch_kernel"),
                          ("ffps.cu", "fps.py:_ffps_hbm_kernel"),
                          ("ball_query.cu", "ring_words.py:_kernel"),
-                         ("gather.cu", "gather.py:_kernel")]:
+                         ("gather.cu", "gather.py:_kernel"),
+                         ("scatter_add.cu", "scatter_add.py:_scatter_add_raw"),
+                         ("scatter_add.cu", "gather.py:_gather_bwd")]:
         head = (REPO / "ssd3d_torch" / "csrc" / name).read_text()[:1500]
         assert "ssd3d/ops/pallas/" + pallas.split(":")[0] in head, name
         assert pallas.split(":")[1] in head, name
