@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six phases, each of which raises on failure (no error is caught):
+Nine phases, each of which raises on failure (no error is caught):
 
 1. Environment: the card's name and power limit, torch / CUDA / nvcc
    versions, and the build of the CUDA kernels from `ssd3d_torch/csrc/`
@@ -29,15 +29,41 @@ Six phases, each of which raises on failure (no error is caught):
 6. One f32 train step on the card against the CPU on 2 scans, same weights:
    sampling picks, losses, every gradient leaf and the new BatchNorm
    statistics.
+7. PointRCNN's kernels against their plain versions on the card, on the
+   inputs of every launch in one PointRCNN forward (batch 4): K1 D-FPS
+   (RPN and the RCNN's 400 clouds), K3 ball query, K4 gather (RPN grouping,
+   RegionPool's xyz, features and mask) equal or bit-identical; K6
+   three_nn at the four FP layers' shapes (indices equal, distances within
+   1 ulp); K7 fused SA at the RCNN's SA1 and SA2 (and once with one scale,
+   unmasked), with the kernel's and the plain version's times, the bound,
+   and the SA module's own forward on the fused and the unfused route.
+8. The PointRCNN path: inference (`two_stage_entry`, KITTI Car,
+   `configs/kitti/pointrcnn/pointrcnn_test.yaml`, full widths and depth,
+   f32, 16,384-point scans, 100 proposals, seeded weights) at batch 4.
+   Asserts finite outputs, at most 100 boxes and proposals per scan and the
+   launches of one forward (K6 4, K7 2, K1 6, K3 and K4 some, K2 and K5
+   none); prints scans/s, the median batch-1 latency, peak memory, a
+   profile; then at batch 1, 2, 4, 8 and 16 the median of nine timed
+   passes and the device busy time of a profiled one, and the fixed and
+   per-scan costs fitted to them.
+9. PointRCNN on the card against the CPU on one scan: RPN picks, head
+   outputs, candidates, and the proposal NMS's keep sets (a candidate kept
+   on one leg only must be a near-tie on the CPU's values); then the card's
+   proposals through both legs' RCNN, with the card's RoI decisions
+   replayed on the CPU leg, the final boxes and scores, and the final NMS's
+   keep sets held the same way.
 
-The second line from the end is a JSON object with one entry per kernel
-(its launches are those of one training step, phase 5);
-the last line is {"ok": true, "device": {...}}. Without a CUDA device the
+The second line from the end is a JSON object with one entry per kernel:
+`launches_by_path` counts its launches in one run of each path (flagship
+inference, phase 3; one training step, phase 5; PointRCNN inference, phase
+8), `launches` is their sum; times and bounds are of the shape in `shape`.
+The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -50,11 +76,14 @@ from unittest import mock
 import numpy as np
 import torch
 
-from ssd3d_torch.entry import flagship, synthetic_scenes, train_entry
+from ssd3d_torch.core.geometry import boxes_to_bev_aabb, canonicalize_points
+from ssd3d_torch.core.iou import aabb_iou
+from ssd3d_torch.entry import flagship, pointrcnn, synthetic_scenes, train_entry, two_stage_entry
+from ssd3d_torch.models import two_stage
 from ssd3d_torch.nn import modules
 from ssd3d_torch.nn.modules import ffps_segments
 from ssd3d_torch.nn.modules import max_pool as _max_pool
-from ssd3d_torch.ops import _build
+from ssd3d_torch.ops import _build, grouping, sa_fused
 from ssd3d_torch.ops.grouping import (
     ball_query_multi,
     ball_query_multi_plain,
@@ -64,6 +93,9 @@ from ssd3d_torch.ops.grouping import (
     scatter_add_rows,
     scatter_add_rows_plain,
 )
+from ssd3d_torch.ops.interpolate import three_nn, three_nn_plain
+from ssd3d_torch.ops.nms import _nms_rows as nms_rows
+from ssd3d_torch.ops.nms import class_unaware_nms
 from ssd3d_torch.ops.sampling import (
     farthest_point_sample,
     farthest_point_sample_features,
@@ -72,6 +104,7 @@ from ssd3d_torch.ops.sampling import (
     fps_plain,
     gather_points,
 )
+from ssd3d_torch.ops.topk import top_k_set
 from ssd3d_torch.train.schedules import bn_momentum
 from ssd3d_torch.train.train_step import TrainGraph
 
@@ -94,6 +127,35 @@ TRAIN_STEPS = 10
 # fraction of its largest |entry|.
 TRAIN_GRAD_TOL = 1e-3
 _relu = torch.relu
+TWO_STAGE_BATCH = 4
+# timed PointRCNN passes per batch size (phase 8)
+PASSES = 9
+# K7 against its plain version, relative to the largest |value|: both sum
+# every dot in f32, K7 in channel order with fmaf, cuBLAS in its own order
+K7_TOL = 1e-4
+# The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM3 bytes/s
+# and f32 FLOP/s outside the tensor cores (no kernel here uses them)
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOP_PER_S = 67e12
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take for a kernel's work: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its operations over the f32 rate."""
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def ball_query_pairs(idx_cnt, n: int, ns_list) -> int:
+    """(query, point) pairs K3 examines on this data: a query stops at the
+    point where its last ring fills (the ns-th hit), else scans all n."""
+    last = None
+    for (idx, cnt), ns in zip(idx_cnt, ns_list):
+        stop = torch.where(cnt >= ns, idx[..., ns - 1].long() + 1, torch.full_like(cnt, n).long())
+        last = stop if last is None else torch.maximum(last, stop)
+    return int(last.sum())
 
 
 def check(ok: bool, what: str) -> None:
@@ -169,10 +231,14 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
     ms = cuda_ms(lambda: farthest_point_sample(xyz, 4096), 5)
     plain_ms = cuda_ms(lambda: fps_plain(xyz, 4096), 3)
     log(f"K1 D-FPS {list(xyz.shape)} -> 4096: picks equal; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    b, n = xyz.shape[:2]
+    # per pick and point: 3 sub, 3 mul, 2 add, a min and a compare
     report.append(dict(name="fps", route="cuda", source="ssd3d_torch/csrc/fps.cu",
                        replaces="ssd3d/ops/pallas/fps.py:126", launches=0,
                        max_abs_err=float((picks - plain).abs().max()), ms=ms,
-                       plain_ms=plain_ms, shape=f"{list(xyz.shape)} -> 4096", check="equal"))
+                       plain_ms=plain_ms, **bound(4 * (b * n * 3 + b * 4096),
+                                                  b * 4095 * n * 10),
+                       library_ms=None, shape=f"{list(xyz.shape)} -> 4096", check="equal"))
 
     # K2: F-FPS at SA2 (4,096 x 67 -> 512) and SA3 (512 x 131 -> 256)
     xyz1 = gather_points(xyz, picks)
@@ -189,12 +255,16 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
         same = int((got == ref).sum())
         ms = cuda_ms(lambda: farthest_point_sample_features(fused, m), 5)
         plain_ms = cuda_ms(lambda: ffps_plain(fused, m), 3)
-        k2_times.append((ms, plain_ms, f"{list(fused.shape)} -> {m}"))
+        # per pick, point and channel: sub, mul, add; per pick and point a min
+        k2_times.append((ms, plain_ms, f"{list(fused.shape)} -> {m}",
+                         bound(4 * (BATCH * n * c + BATCH * m), BATCH * (m - 1) * n * (3 * c + 2))))
         log(f"K2 F-FPS {list(fused.shape)} -> {m}: worst relative shortfall {short:.3g}; "
-            f"{same}/{got.numel()} picks equal to plain; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+            f"{same}/{got.numel()} picks equal to plain; {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+            f"bound {k2_times[-1][3]['bound_ms']:.4f} ms ({k2_times[-1][3]['bound_by']})")
     report.append(dict(name="ffps", route="cuda", source="ssd3d_torch/csrc/ffps.cu",
                        replaces="ssd3d/ops/pallas/fps.py:310", launches=0, max_abs_err=worst,
-                       ms=k2_times[0][0], plain_ms=k2_times[0][1], shape=k2_times[0][2],
+                       ms=k2_times[0][0], plain_ms=k2_times[0][1], **k2_times[0][3],
+                       library_ms=None, shape=k2_times[0][2],
                        check="tie-aware: max relative shortfall of a pick"))
 
     # K3: ball query at all four SA layers' shapes
@@ -218,14 +288,18 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
         idx_sa[name] = got[-1][0]
         ms = cuda_ms(lambda: ball_query_multi(radii, ns, pts, q, dilated=dilated), 10)
         plain_ms = cuda_ms(lambda: ball_query_multi_plain(specs, pts, q), 3)
-        k3_times.append((ms, plain_ms, f"{name} {list(q.shape)} x {list(pts.shape)}"))
+        # per pair examined: d2 (3 sub, 3 mul, 2 add) and one compare a ring
+        pairs = ball_query_pairs(got, pts.shape[1], ns)
+        k3_times.append((ms, plain_ms, f"{name} {list(q.shape)} x {list(pts.shape)}",
+                         bound(4 * (pts.numel() + q.numel() + BATCH * q.shape[1] * (sum(ns) + len(ns))),
+                               pairs * (8 + len(ns)))))
         fill = [f"{float(c.float().mean()):.1f}" for _, c in got]
         log(f"K3 ball query {name} {list(q.shape)} x {list(pts.shape)} rings {radii}: "
             f"idx and cnt equal (mean cnt {fill}); {ms:.3f} ms vs plain {plain_ms:.3f} ms")
     report.append(dict(name="ball_query", route="cuda", source="ssd3d_torch/csrc/ball_query.cu",
                        replaces="ssd3d/ops/pallas/ring_words.py:144", launches=0,
                        max_abs_err=0.0, ms=k3_times[0][0], plain_ms=k3_times[0][1],
-                       shape=k3_times[0][2], check="equal"))
+                       **k3_times[0][3], library_ms=None, shape=k3_times[0][2], check="equal"))
 
     # K4: the grouping gather at c = 4, 67, 131, 259 with each layer's index
     k4 = [(scans, idx_sa["SA1"]), (torch.randn(BATCH, 4096, 67, generator=gen).to(dev),
@@ -240,12 +314,18 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
         check(torch.equal(got.view(torch.int32), ref.view(torch.int32)), "gather not bit-identical")
         ms = cuda_ms(lambda: gather_rows(src, flat), 20)
         plain_ms = cuda_ms(lambda: gather_rows_plain(src, flat), 20)
-        k4_times.append((ms, plain_ms, f"{list(src.shape)} x {flat.shape[1]} rows"))
-        log(f"K4 gather {list(src.shape)} x {flat.shape[1]} rows: "
-            f"bit-identical; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+        wide = flat.long()[..., None].expand(-1, -1, src.shape[2])  # torch.gather's own index
+        lib_ms = cuda_ms(lambda: src.gather(1, wide), 20)
+        rows, c = flat.shape[1], src.shape[2]
+        k4_times.append((ms, plain_ms, f"{list(src.shape)} x {rows} rows", lib_ms,
+                         bound(4 * (BATCH * min(rows, src.shape[1]) * c + BATCH * rows
+                                    + BATCH * rows * c), 0)))
+        log(f"K4 gather {list(src.shape)} x {rows} rows: bit-identical; {ms:.3f} ms vs plain "
+            f"{plain_ms:.3f} ms, torch.gather {lib_ms:.3f} ms")
     report.append(dict(name="gather", route="cuda", source="ssd3d_torch/csrc/gather.cu",
                        replaces="ssd3d/ops/pallas/gather.py:57", launches=0, max_abs_err=0.0,
-                       ms=k4_times[0][0], plain_ms=k4_times[0][1], shape=k4_times[0][2],
+                       ms=k4_times[0][0], plain_ms=k4_times[0][1], **k4_times[0][4],
+                       library_ms=k4_times[0][3], shape=k4_times[0][2],
                        check="bit-identical"))
 
     # K5: the gather's backward at each layer's largest backward shape, on
@@ -261,14 +341,19 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
         check(err <= K5_RTOL * scale, f"scatter-add at {name} differs by {err:.3g}")
         ms = cuda_ms(lambda: scatter_add_rows(idx, g, n), 20)
         plain_ms = cuda_ms(lambda: scatter_add_rows_plain(idx, g, n), 20)
-        k5.append((ms, plain_ms, f"{BATCH * idx.shape[1]} x {c} into {n}", err, rerun))
+        flat = (idx.long() + n * torch.arange(BATCH, device=dev)[:, None]).reshape(-1)
+        zero, g_flat = torch.zeros(BATCH * n, c, device=dev), g.reshape(-1, c)
+        lib_ms = cuda_ms(lambda: torch.index_add(zero, 0, flat, g_flat), 20)
+        rows = BATCH * idx.shape[1]
+        k5.append((ms, plain_ms, f"{rows} x {c} into {n}", err, rerun, lib_ms,
+                   bound(4 * (rows * c + rows + BATCH * n * c), rows * c)))
         log(f"K5 scatter-add {name} {BATCH * idx.shape[1]} rows x {c} into {n}: max |K5 - plain| "
             f"{err:.3g} (limit {K5_RTOL:g} x {scale:.3g}); two launches differ by {rerun:.3g}; "
-            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, torch.index_add {lib_ms:.3f} ms")
     report.append(dict(name="scatter_add", route="cuda", source="ssd3d_torch/csrc/scatter_add.cu",
                        replaces="ssd3d/ops/pallas/scatter_add.py:68", launches=0,
                        max_abs_err=max(e[3] for e in k5), ms=k5[0][0], plain_ms=k5[0][1],
-                       shape=k5[0][2], run_to_run_max_abs=max(e[4] for e in k5),
+                       **k5[0][6], library_ms=k5[0][5], shape=k5[0][2], run_to_run_max_abs=max(e[4] for e in k5),
                        check=f"max |K5 - plain| <= {K5_RTOL:g} x max |plain|"))
     return report
 
@@ -288,9 +373,11 @@ def phase_main_path(scans: torch.Tensor) -> dict[str, int]:
     torch.cuda.synchronize()
     launches = _build.launches()
     log(f"kernel launches in one forward + decode + NMS: {launches}")
-    check(all(v > 0 for k, v in launches.items() if k != "scatter_add"),
+    check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather")),
           f"a kernel was not launched: {launches}")
     check(launches["scatter_add"] == 0, "inference launched the gather's backward")
+    check(launches["three_nn"] == 0 and launches["sa_fused"] == 0,
+          "3DSSD launched a PointRCNN kernel")
     valid = det["valid"]
     check(det["boxes"].shape == (BATCH, 100, 7) and valid.shape == (BATCH, 100),
           f"detections have shape {tuple(det['boxes'].shape)}")
@@ -323,9 +410,10 @@ def phase_main_path(scans: torch.Tensor) -> dict[str, int]:
     return launches
 
 
-def profile_once(fn, what: str, top: int = 12) -> None:
+def profile_once(fn, what: str, top: int = 12) -> tuple[float, float]:
     """Where the device time of one call goes (torch.profiler): wall, device
-    busy share and the kernels that take most of it."""
+    busy share and the `top` kernels that take most of it.
+    -> (wall ms, device busy ms) under the profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -342,6 +430,15 @@ def profile_once(fn, what: str, top: int = 12) -> None:
         f"{sum(e.count for e in kernels)} kernel launches of {len(kernels)} names")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3
+
+
+def linear_fit(xs, ys) -> tuple[float, float]:
+    """Least-squares y = fixed + per_x * x -> (fixed, per_x)."""
+    mx, my = statistics.fmean(xs), statistics.fmean(ys)
+    per_x = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    return my - per_x * mx, per_x
 
 
 # ----------------------------------------------------------------- phase 4
@@ -449,7 +546,10 @@ def phase_training() -> dict[str, int]:
     torch.cuda.synchronize()
     launches = _build.launches()
     log(f"kernel launches in one train step: {launches}")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather", "scatter_add")),
+          f"a kernel was not launched: {launches}")
+    check(launches["three_nn"] == 0 and launches["sa_fused"] == 0,
+          "3DSSD training launched a PointRCNN kernel")
     check(launches["scatter_add"] == 8, "the gather's backward did not run once per "
           "gradient-carrying grouping gather (3 + 3 + 2)")
     torch.cuda.reset_peak_memory_stats()
@@ -641,23 +741,569 @@ def phase_train_card_vs_cpu() -> None:
         f"statistics within {F32_TOL:g}")
 
 
+# ----------------------------------------------------------------- phase 7
+
+def capture_two_stage_inputs(forward, points: torch.Tensor, sa_layers) -> dict:
+    """One PointRCNN forward, recording the inputs of every launch of the
+    path's kernels: D-FPS (RPN SA1-SA4, RCNN SA1-SA2), ball query, row
+    gather (RPN grouping; RegionPool's xyz, features and mask), three_nn
+    (the four FP layers) and fused SA (RCNN SA1, SA2); and the inputs of the
+    RCNN's SA modules `sa_layers`. Each kind's calls are held to its
+    kernel's launches in that forward, so no launch goes unrecorded."""
+    kinds = {"fps": (modules, "farthest_point_sample"),
+             "ball_query": (modules, "ball_query_multi"),
+             "gather": (grouping, "_gather_rows"),
+             "three_nn": (modules, "three_nn"),
+             "sa_fused": (sa_fused, "sa_fused_multi")}
+    seen = {k: [] for k in list(kinds) + ["sa_module"]}
+
+    def spy(kind, fn):
+        def recorded(*args, **kwargs):
+            seen[kind].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return recorded
+
+    patches = [mock.patch.object(mod, name, spy(kind, getattr(mod, name)))
+               for kind, (mod, name) in kinds.items()]
+    hooks = [layer.register_forward_pre_hook(
+        lambda mod, args, kwargs: seen["sa_module"].append((mod, args, kwargs)), with_kwargs=True)
+        for layer in sa_layers]
+    _build.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        forward(points)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    for hook in hooks:
+        hook.remove()
+    for kind in kinds:
+        check(len(seen[kind]) == launches[kind],
+              f"{kind}: {len(seen[kind])} calls recorded, {launches[kind]} launches")
+    return seen
+
+
+def check_path_kernels(seen: dict) -> None:
+    """K1, K3 and K4 against their plain versions on the card, at every call
+    of one PointRCNN forward (phase 2 holds them at 3DSSD's shapes)."""
+    shapes = []
+    for (xyz, npoint), _ in seen["fps"]:
+        check(torch.equal(farthest_point_sample(xyz, npoint), fps_plain(xyz, npoint)),
+              f"D-FPS kernel disagrees with its plain version at {list(xyz.shape)} -> {npoint}")
+        shapes.append(f"{list(xyz.shape)}->{npoint}")
+    log(f"K1 D-FPS at the path's {len(shapes)} calls, picks equal: {', '.join(shapes)}")
+    shapes = []
+    for (radii, ns, xyz, new_xyz), kwargs in seen["ball_query"]:
+        dilated = kwargs.get("dilated", False)
+        got = ball_query_multi(radii, ns, xyz, new_xyz, dilated=dilated)
+        ref = ball_query_multi_plain(ring_specs(radii, ns, dilated), xyz, new_xyz)
+        for (gi, gc), (ri, rc) in zip(got, ref):
+            check(torch.equal(gc, rc) and torch.equal(gi, ri),
+                  f"ball query differs from plain at {list(new_xyz.shape)} x {list(xyz.shape)}")
+        shapes.append(f"{list(new_xyz.shape)}x{xyz.shape[1]} ns {list(ns)}")
+    log(f"K3 ball query at the path's {len(shapes)} calls, idx and cnt equal: {', '.join(shapes)}")
+    shapes = []
+    for (src, idx), _ in seen["gather"]:
+        got, ref = grouping._gather_rows(src, idx), gather_rows_plain(src, idx)
+        check(got.dtype == ref.dtype and torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+              f"gather not bit-identical at {list(src.shape)} x {idx.shape[1]} rows")
+        shapes.append(f"{list(src.shape)}x{idx.shape[1]}")
+    log(f"K4 gather at the path's {len(shapes)} calls, bit-identical: {', '.join(shapes)}")
+
+
+@torch.inference_mode()
+def phase_two_stage_kernels() -> list[dict]:
+    log(f"== phase 7: PointRCNN's kernels against their plain versions, on the inputs "
+        f"of one forward at batch {TWO_STAGE_BATCH}")
+    _, model, rpn_spec, _, n = pointrcnn(device="cuda", seed=0)
+    # the scans `two_stage_entry(seed=0, batch=TWO_STAGE_BATCH)` runs on
+    points = torch.from_numpy(synthetic_scenes(TWO_STAGE_BATCH, n, seed=0)["points"]).cuda()
+    layers = (model.rcnn_backbone.rcnn_layer1, model.rcnn_backbone.rcnn_layer2)
+    seen = capture_two_stage_inputs(lambda p: model(p, rpn_spec), points, layers)
+    check(len(seen["three_nn"]) == 4 and len(seen["sa_fused"]) == 2
+          and len(seen["sa_module"]) == 2,
+          f"captured {len(seen['three_nn'])} three_nn and {len(seen['sa_fused'])} fused-SA calls")
+    check_path_kernels(seen)
+    report = []
+
+    # K6 at the four FP shapes, FP4 (256 x 64) to FP1 (16,384 x 4,096)
+    k6 = []
+    for (xyz1, xyz2), _ in seen["three_nn"]:
+        got_d, got_i = three_nn(xyz1, xyz2)
+        want_d, want_i = three_nn_plain(xyz1, xyz2)
+        check(torch.equal(got_i, want_i), f"three_nn indices differ at {list(xyz1.shape)}")
+        ulps = int((got_d.view(torch.int32) - want_d.view(torch.int32)).abs().max())
+        check(ulps <= 1, f"three_nn distances {ulps} ulp apart at {list(xyz1.shape)}")
+        ms = cuda_ms(lambda: three_nn(xyz1, xyz2), 20)
+        plain_ms = cuda_ms(lambda: three_nn_plain(xyz1, xyz2), 3)
+        b, n, m = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
+        # per pair: d2 (3 sub, 3 mul, 2 add) and one compare
+        k6.append(dict(ms=ms, plain_ms=plain_ms, ulps=ulps, shape=f"{n} x {m}",
+                       **bound(4 * (b * n * 3 + b * m * 3 + 2 * b * n * 3), b * n * m * 9)))
+        log(f"K6 three_nn {list(xyz1.shape)} x {list(xyz2.shape)}: indices equal, distances "
+            f"{ulps} ulp apart at most; {ms:.3f} ms vs plain {plain_ms:.3f} ms "
+            f"(bound {k6[-1]['bound_ms']:.4f} ms)")
+    fp1 = max(k6, key=lambda e: e["bound_ms"])
+    report.append(dict(name="three_nn", route="cuda", source="ssd3d_torch/csrc/three_nn.cu",
+                       replaces="ssd3d/ops/pallas/three_nn.py:90", launches=0,
+                       max_abs_err=0.0, ms=fp1["ms"], plain_ms=fp1["plain_ms"],
+                       bound_ms=fp1["bound_ms"], bound_by=fp1["bound_by"], library_ms=None,
+                       shape=f"FP1 {fp1['shape']} (batch {TWO_STAGE_BATCH})",
+                       other_shapes={e["shape"]: [e["ms"], e["plain_ms"]] for e in k6},
+                       check="indices equal, distances within 1 ulp"))
+
+    # K7 at the RCNN's SA1 and SA2, on the ball queries of the pooled RoIs;
+    # the yardstick is the same SA module's forward with the fused route
+    # turned off (K4 gather, cuBLAS MLP, max-pool), on the same inputs
+    unfused_route = mock.patch.object(modules.PointnetSAModuleMSG, "_use_fused",
+                                      lambda self, packed_src, queries: False)
+    k7 = []
+    for name, (args, _), (layer, l_args, l_kwargs) in zip(("SA1", "SA2"), seen["sa_fused"],
+                                                           seen["sa_module"]):
+        src, idx_list, centers, masks, layers_list, agg = args
+        got = sa_fused.sa_fused_multi(*args)
+        want = sa_fused.sa_fused_multi_plain(*args)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= K7_TOL * scale, f"K7 at {name} differs from plain by {err:.3g} of {scale:.3g}")
+        fused_out = layer(*l_args, **l_kwargs)[1]
+        with unfused_route:
+            unfused_out = layer(*l_args, **l_kwargs)[1]
+        err_unfused = float((fused_out - unfused_out).abs().max())
+        check(torch.equal(fused_out, got), f"the {name} module's fused route is not K7's output")
+        check(err_unfused <= K7_TOL * scale, f"K7 at {name} differs from the unfused route")
+        ms = cuda_ms(lambda: sa_fused.sa_fused_multi(*args), 5)
+        plain_ms = cuda_ms(lambda: sa_fused.sa_fused_multi_plain(*args), 5)
+        # the whole module (D-FPS, ball query, then either route) both ways
+        module_ms = cuda_ms(lambda: layer(*l_args, **l_kwargs), 5)
+        with unfused_route:
+            unfused_ms = cuda_ms(lambda: layer(*l_args, **l_kwargs), 5)
+        b, n, cp = src.shape
+        m = centers.shape[1]
+        flops = sum(2 * b * m * idx.shape[2] * sum(w.shape[0] * w.shape[1] for w, *_ in lay)
+                    for idx, lay in zip(idx_list, layers_list))
+        params = sum(t.numel() for lay in layers_list for layer_ in lay for t in layer_)
+        n_bytes = 4 * (b * n * cp + sum(i.numel() for i in idx_list) + centers.numel()
+                       + masks.numel() + params + got.numel())
+        k7.append(dict(name=name, ms=ms, plain_ms=plain_ms, module_ms=[module_ms, unfused_ms],
+                       err=err, shape=f"{name} b {b}, n {n}, cp {cp}, m {m}, "
+                                      f"ns {idx_list[0].shape[2]}",
+                       **bound(n_bytes, flops)))
+        log(f"K7 fused SA {k7[-1]['shape']}: max |K7 - plain| {err:.3g}, module output fused "
+            f"vs unfused route {err_unfused:.3g} (limit {K7_TOL:g} x {scale:.3g}); K7 {ms:.3f} ms "
+            f"vs plain {plain_ms:.3f} ms, bound {k7[-1]['bound_ms']:.3f} ms "
+            f"({k7[-1]['bound_by']}, {flops / 1e9:.1f} GFLOP); the SA module's forward "
+            f"{module_ms:.3f} ms fused, {unfused_ms:.3f} ms on the unfused route")
+    # K7 with one scale and no mask: the JAX package's sa_fused_pallas contract
+    (src, idx_list, centers, _, layers_list, _), _ = seen["sa_fused"][1]
+    single = sa_fused.sa_fused(src, idx_list[0], centers, layers_list[0])
+    ones = torch.ones_like(centers[..., :1])
+    want = sa_fused.sa_fused_multi_plain(src, idx_list, centers, ones, layers_list)
+    err = float((single - want).abs().max())
+    check(err <= K7_TOL * float(want.abs().max()), f"single-scale K7 differs by {err:.3g}")
+    log(f"K7 single scale, unmasked (R = 1) at SA2: max |K7 - plain| {err:.3g}")
+    sa1 = k7[0]
+    report.append(dict(name="sa_fused", route="cuda", source="ssd3d_torch/csrc/sa_fused.cu",
+                       replaces="ssd3d/ops/pallas/sa_fused.py:306", launches=0,
+                       max_abs_err=max(e["err"] for e in k7), ms=sa1["ms"],
+                       plain_ms=sa1["plain_ms"], bound_ms=sa1["bound_ms"],
+                       bound_by=sa1["bound_by"], library_ms=None, shape=sa1["shape"],
+                       module_ms_fused_unfused={e["name"]: e["module_ms"] for e in k7},
+                       other_shapes={e["shape"]: [e["ms"], e["plain_ms"]] for e in k7[1:]},
+                       check=f"max |K7 - plain| <= {K7_TOL:g} x max |plain|"))
+    return report
+
+
+# ----------------------------------------------------------------- phase 8
+
+def timed_pass(fn, points) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(points)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_two_stage() -> dict[str, int]:
+    log(f"== phase 8: PointRCNN inference, batch {TWO_STAGE_BATCH}, {N_POINTS} points, f32")
+    fn, (points,) = two_stage_entry(device="cuda", seed=0, batch=TWO_STAGE_BATCH)
+    _build.reset_launches()
+    det = fn(points)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    log(f"kernel launches in one PointRCNN forward: {launches}")
+    want = dict(three_nn=4, sa_fused=2, fps=6, ffps=0, scatter_add=0)
+    check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
+    check(launches["ball_query"] > 0 and launches["gather"] > 0, "K3 or K4 was not launched")
+    b = TWO_STAGE_BATCH
+    check(det["boxes"].shape == (b, 100, 7) and det["proposals"].shape == (b, 100, 7),
+          f"detections {tuple(det['boxes'].shape)}, proposals {tuple(det['proposals'].shape)}")
+    for key in ("boxes", "scores", "proposals"):
+        check(bool(torch.isfinite(det[key]).all()), f"non-finite {key}")
+    check(bool((det["valid"].sum(-1) <= 100).all() and det["valid"].any()),
+          "a scan has more than 100 boxes, or no scan has any")
+    check(bool((det["proposals_valid"].sum(-1) <= 100).all() and det["proposals_valid"].any()),
+          "a scan has more than 100 proposals, or no scan has any")
+    log(f"boxes per scan {det['valid'].sum(-1).tolist()}, proposals per scan "
+        f"{det['proposals_valid'].sum(-1).tolist()}")
+
+    fn(points)
+    torch.cuda.reset_peak_memory_stats()
+    t = [timed_pass(fn, points) for _ in range(PASSES)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    one = points[:1].contiguous()
+    lat = [timed_pass(fn, one) * 1e3 for _ in range(PASSES + 1)]
+    log(f"PointRCNN throughput at batch {b}: {b * PASSES / sum(t):.2f} scans/s over {PASSES} "
+        f"passes (median pass {statistics.median(t) * 1e3:.2f} ms); batch-1 latency median "
+        f"{statistics.median(lat[1:]):.2f} ms of {PASSES}; peak memory {peak:.2f} GiB")
+    profile_once(lambda: fn(points), f"PointRCNN batch of {b}", top=16)
+
+    # batch scaling on other scans: at each batch a warm-up, PASSES timed
+    # passes (the host-side NMS sweep moves one pass by ~20%) and one
+    # profiled pass for the device busy time, which repeats far closer; the
+    # fixed and per-scan costs are fitted to this call's readings only
+    scans = torch.from_numpy(synthetic_scenes(16, N_POINTS, seed=1)["points"]).cuda()
+    sizes, walls, busies = (1, 2, 4, 8, 16), [], []
+    for bb in sizes:
+        chunk = scans[:bb].contiguous()
+        timed_pass(fn, chunk)
+        torch.cuda.reset_peak_memory_stats()
+        dts = sorted(timed_pass(fn, chunk) * 1e3 for _ in range(PASSES))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        walls.append(statistics.median(dts))
+        busies.append(profile_once(lambda: fn(chunk), f"PointRCNN batch of {bb}", top=0)[1])
+        log(f"PointRCNN batch {bb}: median {walls[-1]:.2f} ms of {PASSES} passes (min "
+            f"{dts[0]:.2f}, max {dts[-1]:.2f}); {bb * 1e3 / walls[-1]:.2f} scans/s; device busy "
+            f"{busies[-1]:.2f} ms; peak memory {peak:.2f} GiB")
+    fixed, per_scan = linear_fit(sizes, walls)
+    busy_fixed, busy_per_scan = linear_fit(sizes, busies)
+    log(f"PointRCNN batch scaling fit over b {list(sizes)}: wall {fixed:.2f} ms + "
+        f"{per_scan:.2f} ms a scan; device busy {busy_fixed:.2f} ms + {busy_per_scan:.2f} ms a scan")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 9
+
+class RoIReplay:
+    """The card leg's discrete decisions inside the RCNN, handed to the CPU
+    leg: RoI-pool membership (a point within rounding of a proposal face),
+    the RCNN's D-FPS picks and its ball queries (on canonical coordinates,
+    which the two devices' cos and sin round apart by an ulp). Every
+    decision the CPU would have taken otherwise is counted and must be a
+    near-tie on the CPU's own inputs: pool members inside the box grown by
+    FACE_TOL, counts between those of the box shrunk and grown by it; balls
+    likewise with the radius scaled by 1 -+ RADIUS_RTOL; a pick within
+    FFPS_TIE_RTOL of the farthest distance."""
+
+    KINDS = ("roi_points", "fps", "ball_query")
+    FACE_TOL = 1e-4  # metres
+    RADIUS_RTOL = 1e-5
+
+    def __init__(self):
+        self.recording = True
+        self.log = {k: [] for k in self.KINDS}
+        self.pos = dict.fromkeys(self.KINDS, 0)
+        self.differ = dict.fromkeys(self.KINDS, 0)
+        self.total = dict.fromkeys(self.KINDS, 0)
+        self._roi = two_stage.query_boxes_3d_points
+        self._fps = modules.farthest_point_sample
+        self._ball = modules.ball_query_multi
+
+    def patches(self):
+        return (mock.patch.object(two_stage, "query_boxes_3d_points", self.roi_points),
+                mock.patch.object(modules, "farthest_point_sample", self.fps),
+                mock.patch.object(modules, "ball_query_multi", self.ball_query))
+
+    def _next(self, kind):
+        card = self.log[kind][self.pos[kind]]
+        self.pos[kind] += 1
+        return card
+
+    def roi_points(self, xyz, boxes, nsample):
+        own = self._roi(xyz, boxes, nsample)
+        if self.recording:
+            self.log["roi_points"].append(tuple(t.cpu() for t in own))
+            return own
+        idx, cnt = self._next("roi_points")
+        differ = (idx != own[0]).any(-1) | (cnt != own[1])
+        self.differ["roi_points"] += int(differ.sum())
+        self.total["roi_points"] += differ.numel()
+        if differ.any():
+            grow = torch.cat([boxes[..., :3], boxes[..., 3:6] + 2 * self.FACE_TOL,
+                              boxes[..., 6:]], -1)
+            shrink = torch.cat([boxes[..., :3], boxes[..., 3:6] - 2 * self.FACE_TOL,
+                                boxes[..., 6:]], -1)
+            grow = torch.cat([grow[..., :1], grow[..., 1:2] + self.FACE_TOL, grow[..., 2:]], -1)
+            shrink = torch.cat([shrink[..., :1], shrink[..., 1:2] - self.FACE_TOL,
+                                shrink[..., 2:]], -1)
+            lo, hi = self._roi(xyz, shrink, nsample)[1], self._roi(xyz, grow, nsample)[1]
+            check(bool(((lo <= cnt) & (cnt <= hi))[differ].all()),
+                  "an RoI pool count differs between card and CPU away from a box face")
+            members = xyz.gather(1, idx.reshape(xyz.shape[0], -1, 1).long().expand(-1, -1, 3))
+            canon = canonicalize_points(members.reshape(*idx.shape, 3), grow)
+            l, h, w = grow[..., 3:4], grow[..., 4:5], grow[..., 5:6]
+            inside = ((canon[..., 0].abs() <= l / 2) & (canon[..., 2].abs() <= w / 2)
+                      & (canon[..., 1] <= 0) & (canon[..., 1] >= -h))
+            check(bool(inside[differ & (cnt > 0)].all()),
+                  "a card RoI pool member lies outside its proposal on the CPU")
+        return idx, cnt
+
+    def fps(self, xyz, npoint):
+        own = self._fps(xyz, npoint)
+        if self.recording:
+            self.log["fps"].append(own.cpu())
+            return own
+        card = self._next("fps")
+        differ = (card != own).any(-1)
+        self.differ["fps"] += int(differ.sum())
+        self.total["fps"] += differ.numel()
+        if differ.any():
+            short = fps_pick_shortfall(xyz[differ], card[differ])
+            check(short <= FFPS_TIE_RTOL, f"a card D-FPS pick is {short:.3g} short on the CPU")
+        return card
+
+    def ball_query(self, radius_list, nsample_list, xyz, new_xyz, dilated=False):
+        own = self._ball(radius_list, nsample_list, xyz, new_xyz, dilated=dilated)
+        if self.recording:
+            self.log["ball_query"].append([(i.cpu(), c.cpu()) for i, c in own])
+            return own
+        card = self._next("ball_query")
+        check(not dilated, "the RCNN's ball queries are not dilated")
+        lo = self._ball([r * (1 - self.RADIUS_RTOL) for r in radius_list], nsample_list, xyz,
+                        new_xyz)
+        hi = self._ball([r * (1 + self.RADIUS_RTOL) for r in radius_list], nsample_list, xyz,
+                        new_xyz)
+        for (ci, cc), (oi, oc), (_, lc), (_, hc), r in zip(card, own, lo, hi, radius_list):
+            differ = (ci != oi).any(-1) | (cc != oc)
+            self.differ["ball_query"] += int(differ.sum())
+            self.total["ball_query"] += differ.numel()
+            if differ.any():
+                check(bool(((lc <= cc) & (cc <= hc))[differ].all()),
+                      "a ball count differs between card and CPU away from the radius")
+                pts = xyz.gather(1, ci.reshape(xyz.shape[0], -1, 1).long().expand(-1, -1, 3))
+                d = pts.reshape(*ci.shape, 3) - new_xyz[:, :, None]
+                d2 = (d * d).sum(-1)
+                check(bool((d2[differ & (cc > 0)] < (r * (1 + self.RADIUS_RTOL)) ** 2).all()),
+                      "a card ball member lies outside the radius on the CPU")
+        return card
+
+
+def _bins_flipped(a: torch.Tensor, b: torch.Tensor, tol: float) -> torch.Tensor:
+    """Where two legs' argmax over the last axis differ; each such place must
+    be a near-tie on leg b (its top two within tol x the largest |logit|)."""
+    flipped = a.argmax(-1) != b.argmax(-1)
+    if flipped.any():
+        top2 = b[flipped].topk(2, dim=-1).values
+        gap = float((top2[:, 0] - top2[:, 1]).max())
+        check(gap <= tol * float(b.abs().max()), f"an argmax differs away from a tie ({gap:.3g})")
+    return flipped
+
+
+def bin_flips(coder, out_a: dict, out_b: dict, tol: float) -> torch.Tensor:
+    """Bin-Anchor argmaxes (x bin, z bin, heading bin) that differ between
+    two legs' head outputs -> bool [bs, n] of the candidates they touch."""
+    nb = coder.num_bins
+    flips = _bins_flipped(out_a["angle_cls"].cpu(), out_b["angle_cls"], tol)
+    for part in (slice(0, nb), slice(2 * nb, 3 * nb)):
+        flips |= _bins_flipped(out_a["offset"][..., part].cpu(), out_b["offset"][..., part], tol)
+    return flips.any(-1)
+
+
+def proposal_keeps(spec, out: dict):
+    """The RPN's proposal NMS on scan 0, step by step as `class_unaware_nms`
+    runs it (best score, top-k prefilter, greedy sweep), but with every keep
+    before the max_output cap. -> (kept candidates in keep order, the top-k
+    set, candidate scores [n], candidate BEV boxes [n, 4]), on the CPU."""
+    boxes = spec.decode(out)[0].cpu()
+    check(boxes.shape[1] == 1, "the RPN regresses one box per candidate")
+    score = spec.scores(out)[0].amax(-1).cpu()
+    bev = boxes_to_bev_aabb(boxes[:, 0])
+    top = top_k_set(score[None], spec.nms_pre_topk)[0][0].long()
+    idx, valid = nms_rows(bev[top][None], score[top][None], len(top), spec.nms_threshold)
+    return top[idx[0][valid[0]].long()].tolist(), top, score, bev
+
+
+def keeps_differ_at_ties(what: str, g_keep, c_keep, score, bev, thr: float, flips,
+                         universe, cut: float | None = None, cap: int | None = None) -> int:
+    """Greedy-NMS keep sets of the card (g_keep) and the CPU (c_keep), each in
+    keep order. Every candidate kept on one leg only must be a near-tie on
+    the CPU's values (`score`, `bev`; `universe` the candidates the sweeps
+    saw): its score within F32_TOL of the largest of the top-k `cut`; an IoU
+    with another candidate within F32_TOL of `thr`; an overlap above `thr`
+    less F32_TOL with a candidate whose score is within F32_TOL of its own
+    (the sweep's order); a bin flip (`flips`, its box decoded a whole bin
+    apart); or an overlap above `thr` less F32_TOL with another such
+    candidate, whose keep or loss it follows. With `cap`, the first `cap`
+    keeps are compared too: a candidate in one leg's first `cap` only must
+    be a differing keep, or have its score within F32_TOL of the cap's, or
+    come after a differing keep. Fails otherwise; -> candidates kept on one
+    side only."""
+    s_tol = F32_TOL * float(score.abs().max())
+    differ = sorted(set(g_keep) ^ set(c_keep))
+    if differ:
+        d, u = torch.tensor(differ), universe
+        iou = aabb_iou(bev[d][None], bev[u][None])[0]  # [|d|, |u|]
+        other = u[None] != d[:, None]
+        overlap = (iou > thr - F32_TOL) & other
+        near_thr = ((iou - thr).abs() <= F32_TOL) & other
+        near_score = overlap & ((score[u][None] - score[d][:, None]).abs() <= s_tol)
+        tie = flips[d] | near_thr.any(1) | near_score.any(1)
+        if cut is not None:
+            tie |= (score[d] - cut).abs() <= s_tol
+        col = torch.isin(u, d)
+        while True:  # a keep that follows from another differing keep
+            tied_cols = torch.zeros(len(u), dtype=torch.bool)
+            tied_cols[col.nonzero()[:, 0]] = tie[torch.searchsorted(d, u[col])]
+            grown = tie | (overlap & tied_cols[None]).any(1)
+            if torch.equal(grown, tie):
+                break
+            tie = grown
+        check(bool(tie.all()), f"{what}: candidates {d[~tie].tolist()} are kept on one leg "
+              "only, away from any tie")
+    if cap is not None:
+        first = [set(g_keep[:cap]), set(c_keep[:cap])]
+        last = score[c_keep[min(cap, len(c_keep)) - 1]] if c_keep else score.max()
+        earliest = max((float(score[i]) for i in differ), default=float("-inf"))
+        for i in first[0] ^ first[1]:
+            check(i in differ or abs(float(score[i] - last)) <= s_tol
+                  or earliest >= float(score[i]) - s_tol,
+                  f"{what}: candidate {i} is in one leg's first {cap} keeps only, away from a tie")
+    log(f"  {what}: {len(set(g_keep) & set(c_keep))} kept on both legs, {len(differ)} on one "
+        "side only" + (" (each a near-tie on the CPU's values)" if differ else ""))
+    return len(differ)
+
+
+def phase_two_stage_card_vs_cpu(scans: torch.Tensor) -> None:
+    log(f"== phase 9: PointRCNN card against CPU, one scan of {N_POINTS} points, f32")
+    _, gmodel, rpn_spec, rcnn_spec, _ = pointrcnn(device="cuda", seed=0)
+    cmodel = copy.deepcopy(gmodel).cpu()
+    scan = scans[:1].contiguous()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        gnet = gmodel.rpn_backbone(scan)
+        cnet = cmodel.rpn_backbone(scan.cpu())
+        gout, cout = gmodel.rpn(scan), cmodel.rpn(scan.cpu())
+    log(f"  RPN on both legs in {time.perf_counter() - t0:.2f} s")
+    for layer, (gi, ci) in enumerate(zip(gnet["fps_idx"], cnet["fps_idx"])):
+        if gi is not None:
+            check(torch.equal(gi.cpu(), ci), f"RPN layer {layer}: D-FPS picks differ")
+    log("  RPN D-FPS picks equal at SA1-SA4 (raw points on both legs)")
+    for key in ("feature", "cls", "offset", "angle_cls", "angle_res"):
+        _close(f"RPN {key}", gout[key].cpu(), cout[key], F32_TOL)
+    flips = bin_flips(rpn_spec.coder, gout, cout, F32_TOL)
+    gbox, cbox = rpn_spec.decode(gout)[:, :, 0].cpu(), rpn_spec.decode(cout)[:, :, 0]
+    _close(f"RPN candidate boxes ({int(flips.sum())} with a bin at a near-tie left out)",
+           gbox[~flips], cbox[~flips], F32_TOL)
+    gsc, csc = rpn_spec.scores(gout).cpu(), rpn_spec.scores(cout)
+    _close("RPN candidate scores", gsc, csc, F32_TOL)
+
+    with torch.inference_mode():
+        gprop = rpn_spec.propose(gout)
+        cprop = rpn_spec.propose(cout)
+        # the CPU's NMS on the card's candidates: the same function on the
+        # same inputs, so a difference between the legs comes from inputs
+        # that lie within rounding of each other
+        replay = class_unaware_nms(rpn_spec.decode(gout).cpu(), gsc, rpn_spec.max_output,
+                                   rpn_spec.nms_threshold, pre_topk=rpn_spec.nms_pre_topk)
+    check(torch.equal(replay[2], gprop[2].cpu()), "CPU NMS on the card's candidates keeps others")
+    _close("CPU NMS on the card's candidates: proposals", replay[0], gprop[0].cpu(), F32_TOL)
+    # the legs' own keep sets, every keep before the cap of max_output
+    g_keep, g_top, _, _ = proposal_keeps(rpn_spec, gout)
+    c_keep, c_top, c_score, c_bev = proposal_keeps(rpn_spec, cout)
+    for keep, box, prop in ((g_keep, gbox, gprop), (c_keep, cbox, cprop)):
+        count = int(prop[2][0].sum())
+        check(count == min(len(keep), rpn_spec.max_output)
+              and torch.equal(box[0, keep[:count]], prop[0][0, :count].cpu()),
+              "proposal_keeps does not reproduce the proposals")
+    cut = float(c_score.sort(descending=True).values[rpn_spec.nms_pre_topk - 1])
+    keeps_differ_at_ties("proposal NMS", g_keep, c_keep, c_score, c_bev, rpn_spec.nms_threshold,
+                         flips[0], torch.unique(torch.cat([g_top, c_top])), cut=cut,
+                         cap=rpn_spec.max_output)
+    capped = [keep[:rpn_spec.max_output] for keep in (g_keep, c_keep)]
+    both = sorted(i for i in set(capped[0]) & set(capped[1]) if not flips[0, i])
+    rows = [[keep.index(i) for i in both] for keep in capped]
+    _close(f"proposals kept on both legs ({len(both)})", gprop[0][0, rows[0]].cpu(),
+           cprop[0][0, rows[1]], F32_TOL)
+
+    # the RCNN on the card's proposals, with the card's foreground mask and
+    # RoI decisions replayed on the CPU leg
+    gmask = two_stage.foreground_mask(gout)
+    cmask = two_stage.foreground_mask(cout)
+    flipped = gmask.cpu() != cmask
+    if flipped.any():
+        logit = cout["cls"].amax(-1, keepdim=True)
+        check(float(logit[flipped].abs().max()) <= F32_TOL * float(logit.abs().max()),
+              "a foreground bit differs away from the 0.5 threshold")
+    log(f"  foreground mask bits that differ (near-ties, the card's taken): {int(flipped.sum())}")
+    rep = RoIReplay()
+    roi, fps_p, ball = rep.patches()
+    t0 = time.perf_counter()
+    with roi, fps_p, ball, torch.inference_mode():
+        gr = gmodel.rcnn(gout["base_xyz"], gout["feature"], gmask, gprop[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rep.recording = False
+        cr = cmodel.rcnn(gout["base_xyz"].cpu(), cout["feature"], gmask.cpu(), gprop[0].cpu())
+    log(f"  RCNN card {t1 - t0:.2f} s, CPU {time.perf_counter() - t1:.2f} s")
+    check(all(rep.pos[k] == len(rep.log[k]) for k in rep.KINDS),
+          f"the legs took different numbers of RCNN decisions: {rep.pos}")
+    log("  RCNN decisions the CPU would have taken otherwise, each a near-tie (the card's "
+        "taken): " + ", ".join(f"{k} {rep.differ[k]} of {rep.total[k]}" for k in rep.KINDS))
+    for key in ("cls", "offset", "angle_cls", "angle_res"):
+        _close(f"RCNN {key}", gr[key].cpu(), cr[key], F32_TOL)
+    gr["proposals"], cr["proposals"] = gprop[0], gprop[0].cpu()
+    gdet, cdet = rcnn_spec.final_detections(gr), rcnn_spec.final_detections(cr)
+    flips = bin_flips(rcnn_spec.coder, gr, cr, F32_TOL)
+    keep = [{int(i): k for k, i in enumerate(d["index"][0].tolist()) if d["valid"][0, k]}
+            for d in (gdet, cdet)]
+    both = sorted(i for i in set(keep[0]) & set(keep[1]) if not flips[0, i])
+    rows = [[kp[i] for i in both] for kp in keep]
+    _close("final box centres and sizes", gdet["boxes"][0, rows[0], :6].cpu(),
+           cdet["boxes"][0, rows[1], :6], F32_TOL)
+    _close("final headings", gdet["boxes"][0, rows[0], 6].cpu(), cdet["boxes"][0, rows[1], 6],
+           F32_TOL)
+    _close("final scores", gdet["scores"][0, rows[0]].cpu(), cdet["scores"][0, rows[1]], F32_TOL)
+    # the per-class NMS on the CPU's values (one class, so one row)
+    with torch.inference_mode():
+        c_final = rcnn_spec.decode(cr)[0, :, 0]
+        c_final_score = (rcnn_spec.scores(cr) * cr["pool_mask"].float())[0, :, 0]
+    check(rcnn_spec.scores(cr).shape[-1] == 1, "the RCNN scores one class")
+    one_side = keeps_differ_at_ties(
+        "final NMS", list(keep[0]), list(keep[1]), c_final_score, boxes_to_bev_aabb(c_final),
+        rcnn_spec.nms_threshold, flips[0], torch.arange(len(c_final_score)))
+    log(f"  final detections: {len(both)} kept on both and compared ({int(flips.sum())} "
+        f"proposals with a bin at a near-tie left out), {one_side} on one side only")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    card = phase_environment()
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        log(f"-- {phase.__name__} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    card = timed(phase_environment)
     # the synthetic KITTI-like scans of `train_entry`'s batch (ground plane,
-    # car shells and clutter from `tools.synth_kitti.make_scene`)
+    # car shells and clutter from `ssd3d_torch.utils.synth.make_scene`)
     scans = torch.from_numpy(synthetic_scenes(BATCH, N_POINTS)["points"]).cuda()
-    report = phase_kernels(scans)
-    phase_main_path(scans)
-    phase_card_vs_cpu(scans)
-    launches = phase_training()
-    phase_train_card_vs_cpu()
+    report = timed(phase_kernels, scans)
+    infer_launches = timed(phase_main_path, scans)
+    timed(phase_card_vs_cpu, scans)
+    train_launches = timed(phase_training)
+    timed(phase_train_card_vs_cpu)
+    report += timed(phase_two_stage_kernels)
+    two_stage_launches = timed(phase_two_stage)
+    timed(phase_two_stage_card_vs_cpu, scans)
+    paths = {"inference": infer_launches, "train": train_launches, "two_stage": two_stage_launches}
     for entry in report:
-        entry["launches"] = launches[entry["name"]]
+        entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

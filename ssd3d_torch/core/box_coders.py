@@ -1,6 +1,10 @@
-"""Box encoding and decoding for the anchor-free 3DSSD head (counterpart of
-`ssd3d/core/box_coders.py`). Only 'Dist-Anchor-free' is ported; the other
-codecs come with PointRCNN (ROADMAP Queue 1 item 10)."""
+"""Box encoding and decoding (counterpart of `ssd3d/core/box_coders.py`).
+
+'Dist-Anchor-free' (3DSSD) encodes and decodes. 'Bin-Anchor' (PointRCNN)
+decodes: x and z as a bin class plus an in-bin residual, y and the sizes as
+residuals against the anchor (the class's mean size, or a proposal in the
+second stage). Its encoding waits for two-stage training, and 'Dist-Anchor'
+and 'Log-Anchor' for the configs that use them (ROADMAP Queue 1 item 10)."""
 
 from __future__ import annotations
 
@@ -57,26 +61,54 @@ def decode_dist_anchor_free(center_xyz, det_offset, det_angle_cls, det_angle_res
     return torch.cat([ctr, lhw, pred_angle[..., None]], dim=-1)
 
 
+def decode_bin_anchor(det_offset, det_angle_cls, det_angle_res, anchors, num_angle_cls: int,
+                      half_range: float, num_bins: int) -> torch.Tensor:
+    """det_offset: [bs, n, 4 * num_bins + 4] = x-bin logits | x residuals |
+    z-bin logits | z residuals, then (y residual, dl, dh, dw); anchors
+    [bs, n, 7] -> boxes [bs, n, 7]."""
+    nb = num_bins
+    interval = half_range * 2.0 / nb
+    x_bin = det_offset[..., 0:nb].argmax(-1)
+    dx = decode_class_to_angle(x_bin, det_offset[..., nb:2 * nb], nb, interval, bin_offset=0.5)
+    z_bin = det_offset[..., 2 * nb:3 * nb].argmax(-1)
+    dz = decode_class_to_angle(z_bin, det_offset[..., 3 * nb:4 * nb], nb, interval, bin_offset=0.5)
+    rest = det_offset[..., 4 * nb:]
+    px = anchors[..., 0] - half_range + dx
+    pz = anchors[..., 2] - half_range + dz
+    py = anchors[..., 1] + rest[..., 0]
+    ctr = torch.stack([px, py, pz], dim=-1)
+    size = (anchors[..., 3:6] + rest[..., 1:4]).clamp(min=0.1)
+    angle_bin = det_angle_cls.argmax(-1)
+    pred_angle = anchors[..., 6] + decode_class_to_angle(
+        angle_bin, det_angle_res, num_angle_cls, TWO_PI / num_angle_cls)
+    return torch.cat([ctr, size, pred_angle[..., None]], dim=-1)
+
+
 class BoxCoder:
     """Encode and decode over [bs, points, cls, ...] tensors."""
 
-    def __init__(self, method: str, num_angle_cls: int):
-        if method != "Dist-Anchor-free":
+    def __init__(self, method: str, num_angle_cls: int, half_range: float = 3.0,
+                 num_bins: int = 12):
+        if method not in ("Dist-Anchor-free", "Bin-Anchor"):
             raise NotImplementedError(
-                f"BoxCoder: only 'Dist-Anchor-free' is ported, got {method!r} "
-                f"(ROADMAP Queue 1 item 10)"
-            )
+                f"BoxCoder: {method!r} is not ported yet (ROADMAP Queue 1 item 10)")
         self.method = method
         self.num_angle_cls = num_angle_cls
+        self.half_range = half_range
+        self.num_bins = num_bins
 
     @property
     def reg_channels(self) -> int:
-        return 6
+        return 6 if self.method != "Bin-Anchor" else self.num_bins * 4 + 4
 
     def encode(self, center_xyz, gt_boxes, anchors):
         """center_xyz [bs, pts, 3]; gt_boxes [bs, pts, cls, 7] -> (target
         [bs, pts, cls, 6], angle bin int32, angle residual). Anchor-free:
         the point is the anchor, so `anchors` is not read."""
+        if self.method != "Dist-Anchor-free":
+            raise NotImplementedError(
+                "BoxCoder.encode: 'Bin-Anchor' targets come with two-stage training "
+                "(ROADMAP Queue 1 item 10)")
         bs, pts, cls_num, _ = gt_boxes.shape
         gt_flat = gt_boxes.reshape(bs, pts * cls_num, 7)
         enc_ctr, enc_size = encode_dist_anchor_free(gt_flat[..., 0:3], gt_flat[..., 3:6],
@@ -93,22 +125,49 @@ class BoxCoder:
         off = det_offset.reshape(bs, pts * cls_num, -1)
         a_cls = det_angle_cls.reshape(bs, pts * cls_num, self.num_angle_cls)
         a_res = det_angle_res.reshape(bs, pts * cls_num, self.num_angle_cls)
-        out = decode_dist_anchor_free(center_xyz, off, a_cls, a_res, self.num_angle_cls)
+        if self.method == "Dist-Anchor-free":
+            out = decode_dist_anchor_free(center_xyz, off, a_cls, a_res, self.num_angle_cls)
+        else:
+            out = decode_bin_anchor(off, a_cls, a_res, anchors.reshape(bs, pts * cls_num, -1),
+                                    self.num_angle_cls, self.half_range, self.num_bins)
         return out.reshape(bs, pts, cls_num, 7)
 
 
+# per-class mean sizes (l, h, w) of KITTI's classes
+MEAN_SIZES = {
+    "Car": (3.88311640418, 1.62856739989, 1.52563191462),
+    "Van": (5.06763659, 1.9007158, 2.20532825),
+    "Truck": (10.13586957, 2.58549199, 3.2520595),
+    "Pedestrian": (0.84422524, 1.76255119, 0.66068622),
+    "Person_sitting": (0.80057803, 1.27450867, 0.5983815),
+    "Cyclist": (1.76282397, 1.73698127, 0.59706367),
+    "Tram": (16.17150617, 2.53246914, 3.53079012),
+    "Misc": (3.64300781, 1.54298177, 1.92320313),
+}
+
+
 class AnchorGenerator:
-    """Anchor-free per-point anchors: the point itself."""
+    """Per-point anchors: anchor-free (the point itself) or anchor-based (the
+    class's mean size, bottom face h/2 below the point, heading 0)."""
 
     def __init__(self, dataset_type: str, cls_list, method: str):
-        if not method.endswith("free"):
-            raise NotImplementedError(
-                f"AnchorGenerator: only anchor-free methods are ported, got "
-                f"{method!r} (ROADMAP Queue 1 item 10)"
-            )
         self.cls_list = list(cls_list)
-        self.anchor_free = True
+        self.anchor_free = method.endswith("free")
+        if not self.anchor_free and dataset_type != "KITTI":
+            raise NotImplementedError(
+                f"AnchorGenerator: {dataset_type} mean sizes are not ported yet "
+                f"(ROADMAP Queue 1 item 11)")
+        self.sizes = None if self.anchor_free else torch.tensor(
+            [MEAN_SIZES[c] for c in self.cls_list], dtype=torch.float32)  # [cls, 3]
 
     def __call__(self, points: torch.Tensor) -> torch.Tensor:
-        """points [bs, n, 3] -> anchors [bs, n, 1, 3]."""
-        return points[:, :, None, :]
+        """points [bs, n, 3] -> anchors [bs, n, cls, 7] (anchor-free:
+        [bs, n, 1, 3])."""
+        if self.anchor_free:
+            return points[:, :, None, :]
+        bs, n, _ = points.shape
+        sizes = self.sizes.to(points.device).expand(bs, n, -1, 3)
+        ctr = points[:, :, None, :].expand(bs, n, sizes.shape[2], 3)
+        y = ctr[..., 1] + sizes[..., 1] / 2.0
+        ry = torch.zeros_like(y)
+        return torch.cat([ctr[..., 0:1], y[..., None], ctr[..., 2:3], sizes, ry[..., None]], -1)

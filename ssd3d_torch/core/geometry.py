@@ -34,6 +34,19 @@ def boxes_to_corners(boxes: torch.Tensor) -> torch.Tensor:
     return rotate_points_y(local, ry) + ctr[..., None, :]
 
 
+def canonicalize_points(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Points in each box's local frame. points: [..., n, 3]; boxes: [..., 7]
+    -> [..., n, 3], translated by the bottom-face centre and rotated by -ry."""
+    return rotate_points_y(points - boxes[..., None, 0:3], -boxes[..., 6])
+
+
+def boxes_bottom_to_center(boxes: torch.Tensor) -> torch.Tensor:
+    """box_3d [..., 7] with (x, y, z) moved from the bottom-face centre to the
+    volumetric centre, y - h/2 (camera y points down)."""
+    ctr_y = boxes[..., 1] - boxes[..., 4] / 2.0
+    return torch.cat([boxes[..., 0:1], ctr_y[..., None], boxes[..., 2:]], dim=-1)
+
+
 def points_in_boxes(points: torch.Tensor, boxes: torch.Tensor, expand: float = 0.0) -> torch.Tensor:
     """Membership of points in rotated 3D boxes. points: [..., n, 3]; boxes:
     [..., m, 7] -> bool [..., n, m]. `expand` enlarges l, h and w (the vote

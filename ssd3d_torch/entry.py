@@ -1,16 +1,22 @@
-"""Entry points of the port: the flagship 3DSSD detector (KITTI Car,
-`configs/kitti/3dssd/3dssd.yaml`, 16,384-point scans) with seeded weights.
+"""Entry points of the port, with seeded weights: the flagship 3DSSD
+detector (KITTI Car, `configs/kitti/3dssd/3dssd.yaml`) and PointRCNN (KITTI
+Car, `configs/kitti/pointrcnn/pointrcnn_test.yaml`), on 16,384-point scans.
 
 Counterpart of `__graft_entry__._flagship` / `entry` and the single-device
-train step of `__graft_entry__._dryrun_body`. Usage:
+train step of `__graft_entry__._dryrun_body`. Every entry point runs on the
+card unless the caller asks for the CPU (`device="cpu"`); without a card the
+default raises. Usage:
 
-    from ssd3d_torch.entry import entry, train_entry
-    fn, (points,) = entry(device="cuda")
+    from ssd3d_torch.entry import entry, train_entry, two_stage_entry
+    fn, (points,) = entry()
     detections = fn(points)   # dict of boxes / scores / classes / valid / index
 
-    step, batch = train_entry(device="cuda")   # batch 8 of 16,384-point scans
+    step, batch = train_entry()   # batch 8 of 16,384-point scans
     metrics = step(batch)     # one optimizer step: losses, total, lr, norms
     state = step.args[0]      # the TrainState: step counter, model, optimizer
+
+    fn, (points,) = two_stage_entry()   # PointRCNN, batch 4
+    detections = fn(points)   # as above, plus proposals / proposals_valid
 """
 
 from __future__ import annotations
@@ -22,13 +28,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ssd3d.config import load_cfg
+from ssd3d_torch.config import load_cfg
+from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.models.single_stage import build_detector
 from ssd3d_torch.nn.layers import BatchNorm, Dense
 from ssd3d_torch.train.train_step import TrainGraph
-from tools.synth_kitti import make_scene
+from ssd3d_torch.utils.synth import make_scene
 
-FLAGSHIP_CFG = Path(__file__).resolve().parents[1] / "configs" / "kitti" / "3dssd" / "3dssd.yaml"
+CONFIGS = Path(__file__).resolve().parents[1] / "configs" / "kitti"
+FLAGSHIP_CFG = CONFIGS / "3dssd" / "3dssd.yaml"
+POINTRCNN_CFG = CONFIGS / "pointrcnn" / "pointrcnn_test.yaml"
 
 
 def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
@@ -52,7 +61,7 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
 
 
 def flagship(shrink: int = 1, compute_dtype: str | None = None,
-             device: torch.device | str = "cpu", seed: int = 0):
+             device: torch.device | str = "cuda", seed: int = 0):
     """-> (cfg, model, spec, n). `shrink` divides the FPS ranges, sample
     counts and scan size as `__graft_entry__._flagship` does (widths stay);
     `compute_dtype` ("float32" | "bfloat16") overrides TPU.COMPUTE_DTYPE."""
@@ -70,7 +79,7 @@ def flagship(shrink: int = 1, compute_dtype: str | None = None,
     return cfg, model, spec, n
 
 
-def entry(device: torch.device | str = "cpu", seed: int = 0):
+def entry(device: torch.device | str = "cuda", seed: int = 0):
     """(fn, (points,)): fn runs the flagship forward, decode and NMS on a
     [1, 16384, 4] scan made from `seed`."""
     _, model, spec, n = flagship(device=device, seed=seed)
@@ -86,7 +95,7 @@ def entry(device: torch.device | str = "cpu", seed: int = 0):
 
 def synthetic_scenes(batch: int, n: int, seed: int = 0, max_boxes: int = 6) -> dict:
     """`batch` synthetic KITTI-like scans (ground plane, car shells, clutter
-    from `tools.synth_kitti.make_scene`) of n points each, with their car
+    from `utils.synth.make_scene`) of n points each, with their car
     boxes zero-padded to `max_boxes` rows (label 1 for a car, 0 for padding).
     -> numpy arrays points f32 [b, n, 4], gt_boxes f32 [b, max_boxes, 7],
     gt_labels int32 [b, max_boxes]."""
@@ -102,7 +111,7 @@ def synthetic_scenes(batch: int, n: int, seed: int = 0, max_boxes: int = 6) -> d
     return {"points": points, "gt_boxes": gt_boxes, "gt_labels": gt_labels}
 
 
-def train_entry(device: torch.device | str = "cpu", seed: int = 0, batch: int = 8,
+def train_entry(device: torch.device | str = "cuda", seed: int = 0, batch: int = 8,
                 shrink: int = 1):
     """(step, batch): the flagship in train mode with seeded weights, its
     TrainGraph and TrainState, and a fixed batch of synthetic scenes on
@@ -115,3 +124,33 @@ def train_entry(device: torch.device | str = "cpu", seed: int = 0, batch: int = 
     data = synthetic_scenes(batch, n, seed)
     return (functools.partial(graph.train_step, state),
             {k: torch.from_numpy(v).to(device) for k, v in data.items()})
+
+
+def _pointrcnn_pipeline(shrink: int, device, seed: int):
+    cfg = load_cfg(str(POINTRCNN_CFG))
+    if shrink > 1:
+        for layer in cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE:
+            layer[8] = [p // shrink for p in layer[8]]
+        cfg.MODEL.POINTS_NUM_FOR_TRAINING //= shrink
+    pipe = build_pipeline(cfg, device=device)
+    init_weights(pipe.model, seed)
+    return cfg, pipe
+
+
+def pointrcnn(shrink: int = 1, device: torch.device | str = "cuda", seed: int = 0):
+    """-> (cfg, model, rpn_spec, rcnn_spec, n): PointRCNN at full widths and
+    depth with seeded weights, f32 (COMPUTE_DTYPE as shipped), 100 proposals,
+    nms_pre_topk 2048. `shrink` divides the RPN's sample counts and the scan
+    size n (the RoI pool keeps its 512 points)."""
+    cfg, pipe = _pointrcnn_pipeline(shrink, device, seed)
+    return cfg, pipe.model, pipe.rpn_spec, pipe.rcnn_spec, cfg.MODEL.POINTS_NUM_FOR_TRAINING
+
+
+def two_stage_entry(device: torch.device | str = "cuda", seed: int = 0, batch: int = 4):
+    """(fn, (points,)): fn runs PointRCNN inference (RPN, proposals, RCNN,
+    NMS) on `batch` synthetic KITTI-like scans made from `seed` and returns
+    the detection dict with `proposals` and `proposals_valid`."""
+    cfg, pipe = _pointrcnn_pipeline(1, device, seed)
+    n = cfg.MODEL.POINTS_NUM_FOR_TRAINING
+    points = torch.from_numpy(synthetic_scenes(batch, n, seed)["points"]).to(device)
+    return pipe.infer, (points,)

@@ -6,6 +6,10 @@ entry 0 is the raw input, each layer appends its outputs, and source indices
 refer into these lists. Layer modules are registered under the flax scope
 names, repeated scopes deduplicated the same way (the flagship's second
 `vote` becomes `vote_4`).
+
+The two-stage detector seeds the RCNN's lists with the proposal centres:
+`prefix_xyz` / `prefix_features` entries stand before the raw input, and
+`prefix_channels` gives the width of each prefix feature (0 for None).
 """
 
 from __future__ import annotations
@@ -15,19 +19,25 @@ from typing import Any, Sequence
 import torch
 from torch import nn
 
-from ssd3d_torch.nn.modules import PointnetSAModuleMSG, VoteLayer
+from ssd3d_torch.nn.modules import (
+    PointnetFPModule,
+    PointnetSAModuleGlobal,
+    PointnetSAModuleMSG,
+    VoteLayer,
+)
 
 
 class PointBackbone(nn.Module):
-    """Stack of SA and Vote layers described by architecture rows.
+    """Stack of SA, Vote, FP and global-SA layers described by architecture rows.
     `in_channels` is the width of the raw per-point features (points[..., 3:])."""
 
     def __init__(self, architecture: Sequence[Sequence[Any]], in_channels: int,
                  max_translate_range: Sequence[float],
                  aggregation_sa_feature: bool = False,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, prefix_channels: Sequence[int] = ()):
         super().__init__()
-        feat_ch = [in_channels]
+        self.n_prefix = len(prefix_channels)
+        feat_ch = list(prefix_channels) + [in_channels]
         used_names: set = set()
         self.layers: list[tuple] = []  # (scope, layer_type, spec)
         for layer_i, spec in enumerate(architecture):
@@ -54,10 +64,13 @@ class PointBackbone(nn.Module):
             elif layer_type == "Vote_Layer":
                 module = VoteLayer(c_in, mlp_list, max_translate_range, bn=bn,
                                    compute_dtype=compute_dtype)
-            elif layer_type in ("FP_Layer", "SA_Layer_SSG_Last"):
-                raise NotImplementedError(
-                    f"{layer_type} is not ported yet (ROADMAP Queue 1 item 10)"
-                )
+            elif layer_type == "FP_Layer":
+                # interpolated sparse features, then the dense points' own
+                module = PointnetFPModule(feat_ch[feat_idx[1]] + feat_ch[feat_idx[0]], mlp_list,
+                                          bn=bn, compute_dtype=compute_dtype)
+            elif layer_type == "SA_Layer_SSG_Last":
+                module = PointnetSAModuleGlobal(c_in, mlp_list, bn=bn,
+                                                compute_dtype=compute_dtype)
             else:
                 raise ValueError(f"unknown layer type {layer_type}")
             self.add_module(scope, module)
@@ -65,12 +78,15 @@ class PointBackbone(nn.Module):
             self.layers.append((scope, layer_type, spec))
         self.feature_channels = feat_ch
 
-    def forward(self, points: torch.Tensor, bn_momentum: float = 0.9) -> dict:
+    def forward(self, points: torch.Tensor, bn_momentum: float = 0.9,
+                prefix_xyz: tuple = (), prefix_features: tuple = ()) -> dict:
         """points: [bs, n, 3 + c] -> dict of xyz / feature / fps-index lists
         and the vote outputs (base + raw offsets)."""
-        xyz_list: list = [points[..., 0:3]]
-        feature_list: list = [points[..., 3:]]
-        fps_idx_list: list = [None]
+        if len(prefix_xyz) != self.n_prefix or len(prefix_features) != self.n_prefix:
+            raise ValueError(f"PointBackbone: built for {self.n_prefix} prefix entries")
+        xyz_list: list = list(prefix_xyz) + [points[..., 0:3]]
+        feature_list: list = list(prefix_features) + [points[..., 3:]]
+        fps_idx_list: list = [None] * (self.n_prefix + 1)
         vote_base, vote_offset = [], []
         for scope, layer_type, spec in self.layers:
             xyz_idx, feat_idx = spec[0], spec[1]
@@ -84,10 +100,19 @@ class PointBackbone(nn.Module):
                 new_xyz, new_feat, new_fps_idx = module(xyz_in, feat_in, former, vote_ctr,
                                                        bn_momentum)
                 fps_idx_list.append(new_fps_idx)
-            else:  # Vote_Layer
+            elif layer_type == "Vote_Layer":
                 new_xyz, new_feat, offsets = module(xyz_in, feat_in, bn_momentum)
                 vote_base.append(xyz_in)
                 vote_offset.append(offsets)
+                fps_idx_list.append(None)
+            elif layer_type == "FP_Layer":
+                new_xyz = xyz_in
+                new_feat = module(xyz_in, xyz_list[xyz_idx[1]], feat_in,
+                                  feature_list[feat_idx[1]], bn_momentum)
+                fps_idx_list.append(None)
+            else:  # SA_Layer_SSG_Last: one feature vector per cloud, no xyz
+                new_xyz = None
+                new_feat = module(xyz_in, feat_in, bn_momentum)
                 fps_idx_list.append(None)
             xyz_list.append(new_xyz)
             feature_list.append(new_feat)

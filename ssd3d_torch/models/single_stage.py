@@ -3,8 +3,9 @@
 
 `SingleStageDetector` is the parametric graph (backbone + heads);
 `DetectorSpec.decode_and_nms` turns its outputs into at most `max_output`
-boxes per class and scan. `build_detector(cfg, device)` wires both from an
-`ssd3d.config` tree, as the JAX package does.
+boxes per class and scan. `build_detector(cfg, device)` wires both from a
+config tree (`ssd3d_torch.config` or the JAX package's, both attribute-access
+dicts of the same keys), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ssd3d_torch.core.box_coders import AnchorGenerator, BoxCoder
 from ssd3d_torch.core.geometry import boxes_to_bev_aabb
 from ssd3d_torch.models.backbone import PointBackbone
 from ssd3d_torch.models.heads import DetectionHead
+from ssd3d_torch.ops import _build
 from ssd3d_torch.ops.nms import batched_class_nms
 
 
@@ -105,10 +107,12 @@ class DetectorSpec:
         return batched_class_nms(boxes, bev, score, self.max_output, self.nms_threshold)
 
 
-def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str = "cpu"):
+def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str = "cuda"):
     """Config -> (module on `device`, in eval mode, spec). Weights are left
     as constructed; `ssd3d_torch.entry.init_weights` or a converted state
-    dict fills them."""
+    dict fills them. The default device is the card; without one it raises
+    (pass device="cpu" for the plain versions)."""
+    device = _build.resolve_device(device)
     stage_cfg = cfg.MODEL[stage]
     net_cfg = cfg.MODEL.NETWORK[stage]
     if cfg.DATASET.TYPE != "KITTI":
@@ -122,7 +126,9 @@ def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str =
         )
     cls_list = tuple(cfg.DATASET.KITTI.CLS_LIST)
     reg_method = stage_cfg.REGRESSION_METHOD.TYPE
-    coder = BoxCoder(reg_method, cfg.MODEL.ANGLE_CLS_NUM)
+    coder = BoxCoder(reg_method, cfg.MODEL.ANGLE_CLS_NUM,
+                     half_range=stage_cfg.REGRESSION_METHOD.HALF_BIN_SEARCH_RANGE,
+                     num_bins=stage_cfg.REGRESSION_METHOD.BIN_CLASS_NUM)
     anchors = AnchorGenerator(cfg.DATASET.TYPE, cls_list, reg_method)
     compute_dtype = torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else None
     module = SingleStageDetector(
@@ -132,7 +138,7 @@ def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str =
         max_translate_range=list(cfg.MODEL.MAX_TRANSLATE_RANGE),
         num_classes=len(cls_list),
         num_angle_cls=cfg.MODEL.ANGLE_CLS_NUM,
-        reg_base=1,
+        reg_base=1 if reg_method.endswith("free") else len(cls_list),
         reg_channels=coder.reg_channels,
         cls_activation=stage_cfg.CLS_ACTIVATION,
         aggregation_sa_feature=cfg.MODEL.NETWORK.AGGREGATION_SA_FEATURE,

@@ -1,0 +1,275 @@
+"""PointRCNN two-stage detector, inference (counterpart of
+`ssd3d/models/two_stage.py`).
+
+Stage 1 (RPN): a PointNet++ encoder-decoder over the raw scan, a per-point
+Bin-Anchor head, class-unaware NMS into a fixed buffer of proposals. Stage 2
+(RCNN): `RegionPool` gathers the first 512 RPN points inside each expanded
+proposal with their features, in the proposal's frame; a small SA stack runs
+over batch x proposals such clouds (its SA layers take the fused kernel K7),
+and a head refines each proposal.
+
+Submodules carry the flax scope names (`rpn_backbone`, `rpn_head`,
+`roi_pool.align`, `rcnn_backbone`, `rcnn_head`), so a flax variable tree
+converts with `utils.convert.flax_to_state_dict` and loads strictly.
+Training (target assignment, minibatch subsampling) and STD's `PointsPool`
+are not ported yet (ROADMAP Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ssd3d_torch.core.box_coders import AnchorGenerator, BoxCoder
+from ssd3d_torch.core.geometry import boxes_bottom_to_center, boxes_to_bev_aabb, rotate_points_y
+from ssd3d_torch.models.backbone import PointBackbone
+from ssd3d_torch.models.heads import DetectionHead
+from ssd3d_torch.nn.layers import SharedMLP
+from ssd3d_torch.ops import _build
+from ssd3d_torch.ops.grouping import group_points, query_boxes_3d_points
+from ssd3d_torch.ops.nms import batched_class_nms, class_unaware_nms
+
+
+def expand_boxes(boxes: torch.Tensor, context: float) -> torch.Tensor:
+    """Grow l, h and w by the context range."""
+    return torch.cat([boxes[..., 0:3], boxes[..., 3:6] + context, boxes[..., 6:7]], dim=-1)
+
+
+def canonicalize_pool(pool_xyz: torch.Tensor, proposals: torch.Tensor) -> torch.Tensor:
+    """pool_xyz: [bs, p, ns, 3]; proposals: [bs, p, 7] -> each proposal's frame."""
+    return rotate_points_y(pool_xyz - proposals[:, :, None, 0:3], -proposals[..., 6])
+
+
+class RegionPool(nn.Module):
+    """PointRCNN RoI pooling: the first `sample_pts_num` RPN points inside
+    each proposal grown by `context_range`, as (canonical xyz, `align` MLP
+    over canonical xyz and the info keys, RPN features)."""
+
+    def __init__(self, feature_channels: int, sample_pts_num: int, context_range: float,
+                 info_keys: Sequence[str], align_channels: Sequence[int], bn: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.sample_pts_num = sample_pts_num
+        self.context_range = context_range
+        self.info_keys = [k for k in info_keys if k in ("mask", "dist")]
+        self.align = SharedMLP(3 + len(self.info_keys), align_channels, bn=bn,
+                               compute_dtype=compute_dtype)
+        self.out_channels = 3 + self.align.out_channels + feature_channels
+
+    def forward(self, base_xyz, base_feature, base_mask, proposals, bn_momentum: float = 0.9):
+        """base_*: [bs, pts, *]; proposals: [bs, p, 7] -> (pooled
+        [bs * p, ns, out_channels], has-points mask int32 [bs, p, 1])."""
+        expanded = expand_boxes(proposals, self.context_range)
+        idx, cnt = query_boxes_3d_points(base_xyz, expanded, self.sample_pts_num)
+        has = (cnt > 0).to(torch.int32)[..., None]
+        idx = idx * has
+        pool_xyz = group_points(base_xyz, idx)  # [bs, p, ns, 3]
+        pool_feat = group_points(base_feature, idx)
+        info = []
+        for key in self.info_keys:
+            if key == "mask":
+                info.append(group_points(base_mask, idx))
+            else:  # dist: |xyz| of the pooled point, sqrt of the summed squares
+                info.append(pool_xyz.square().sum(-1, keepdim=True).sqrt())
+        canonical = canonicalize_pool(pool_xyz, expanded)
+        encoded = self.align(torch.cat([canonical] + info, dim=-1), bn_momentum)
+        out = torch.cat([canonical, encoded, pool_feat], dim=-1)
+        bs, p, ns, c = out.shape
+        return out.reshape(bs * p, ns, c), has
+
+
+class TwoStageDetector(nn.Module):
+    """RPN + RCNN; the stages are methods (`rpn`, `rcnn`) so that inference
+    can run the RCNN over chunks of proposals."""
+
+    def __init__(self, rpn_architecture, rpn_head_cfg, rcnn_architecture, rcnn_head_cfg,
+                 pooler_cfg, max_translate_range, num_angle_cls: int,
+                 rpn_cls_channels: int, rpn_reg_base: int, rpn_reg_channels: int,
+                 rcnn_cls_channels: int, rcnn_reg_base: int, rcnn_reg_channels: int,
+                 aggregation_sa_feature: bool = False, compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.rpn_backbone = PointBackbone(rpn_architecture, 1, max_translate_range,
+                                          aggregation_sa_feature, compute_dtype)
+        rpn_ch = self.rpn_backbone.feature_channels
+        self.rpn_heads = self._heads(rpn_head_cfg, rpn_ch, "rpn_head", rpn_cls_channels,
+                                     rpn_reg_base, rpn_reg_channels, num_angle_cls, compute_dtype)
+        if pooler_cfg[0] != "RegionPool":
+            raise NotImplementedError(
+                f"{pooler_cfg[0]} (STD's voxelising RoI pooler) is not ported yet "
+                f"(ROADMAP Queue 1 item 10)")
+        head_feat = getattr(self, self.rpn_heads[0][0]).trunk.out_channels  # rpn "feature"
+        self.pool_name = pooler_cfg[8] or "roi_pool"
+        pooler = RegionPool(head_feat, pooler_cfg[3], pooler_cfg[4], pooler_cfg[1],
+                            pooler_cfg[2], bn=pooler_cfg[7], compute_dtype=compute_dtype)
+        self.add_module(self.pool_name, pooler)
+        # the RCNN's lists start with the proposal centres (no features)
+        self.rcnn_backbone = PointBackbone(rcnn_architecture, pooler.out_channels - 3,
+                                           max_translate_range, aggregation_sa_feature,
+                                           compute_dtype, prefix_channels=(0,))
+        self.rcnn_heads = self._heads(rcnn_head_cfg, self.rcnn_backbone.feature_channels,
+                                      "rcnn_head", rcnn_cls_channels, rcnn_reg_base,
+                                      rcnn_reg_channels, num_angle_cls, compute_dtype)
+
+    def _heads(self, head_cfg, feat_ch, prefix, cls_ch, reg_base, reg_ch, num_angle_cls,
+               compute_dtype):
+        heads = []
+        for i, (xyz_idx, feat_idx, _op, mlp, bn, head_type, scope) in enumerate(head_cfg):
+            if head_type != "Det":
+                raise NotImplementedError(f"{head_type} heads are not ported yet "
+                                          f"(ROADMAP Queue 1 item 10)")
+            name = scope or f"{prefix}{i}"
+            self.add_module(name, DetectionHead(sum(feat_ch[j] for j in feat_idx), mlp, cls_ch,
+                                                reg_base, reg_ch, num_angle_cls, bn=bn,
+                                                compute_dtype=compute_dtype))
+            heads.append((name, xyz_idx, feat_idx))
+        return heads
+
+    def _predict(self, heads, net, bn_momentum, fold=None) -> dict:
+        preds, xyzs = [], []
+        for name, xyz_idx, feat_idx in heads:
+            xyz_in = torch.cat([net["xyz"][j] for j in xyz_idx], dim=1)
+            feat_in = torch.cat([net["features"][j] for j in feat_idx], dim=1)
+            if fold is not None and feat_in.shape[0] != fold[0]:
+                feat_in = feat_in.reshape(*fold, -1)  # pooled [bs * p, c] -> [bs, p, c]
+            preds.append(getattr(self, name)(feat_in, bn_momentum))
+            xyzs.append(xyz_in)
+        out = {"base_xyz": torch.cat(xyzs, dim=1)}
+        for key in ("feature", "cls", "offset", "angle_cls", "angle_res"):
+            out[key] = torch.cat([p[key] for p in preds], dim=1)
+        return out
+
+    def rpn(self, points: torch.Tensor, bn_momentum: float = 0.9) -> dict:
+        """points [bs, n, 4] -> the RPN's per-point outputs."""
+        net = self.rpn_backbone(points, bn_momentum)
+        out = self._predict(self.rpn_heads, net, bn_momentum)
+        out["vote_base"], out["vote_offset"] = net["vote_base"], net["vote_offset"]
+        return out
+
+    def rcnn(self, base_xyz, base_feature, base_mask, proposals, bn_momentum: float = 0.9) -> dict:
+        """proposals [bs, p, 7] (bottom-face boxes) -> per-proposal
+        refinement outputs [bs, p, ...] and the pool's has-points mask."""
+        bs, p = proposals.shape[:2]
+        pool_out, pool_mask = getattr(self, self.pool_name)(
+            base_xyz, base_feature, base_mask, proposals, bn_momentum)
+        ctr = boxes_bottom_to_center(proposals)[..., 0:3]
+        net = self.rcnn_backbone(pool_out, bn_momentum, prefix_xyz=(ctr,), prefix_features=(None,))
+        out = self._predict(self.rcnn_heads, net, bn_momentum, fold=(bs, p))
+        out["pool_mask"] = pool_mask
+        return out
+
+    def forward(self, points: torch.Tensor, rpn_spec: "StageSpec", bn_momentum: float = 0.9):
+        """The whole test-mode forward: RPN, proposals, RCNN."""
+        rpn_out = self.rpn(points, bn_momentum)
+        proposals, scores, valid = rpn_spec.propose(rpn_out)
+        out = self.rcnn(rpn_out["base_xyz"], rpn_out["feature"], foreground_mask(rpn_out),
+                        proposals, bn_momentum)
+        out.update(proposals=proposals, proposal_scores=scores, proposal_valid=valid, rpn=rpn_out)
+        return out
+
+
+def foreground_mask(rpn_out: dict) -> torch.Tensor:
+    """The RoI pool's mask channel: 1.0 where the RPN's best class
+    probability is at least 0.5, [bs, n, 1] f32."""
+    return (torch.sigmoid(rpn_out["cls"].amax(-1, keepdim=True)) >= 0.5).float()
+
+
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    """One stage's codec, anchors and post-processing."""
+
+    cls_list: tuple
+    coder: BoxCoder
+    anchors: AnchorGenerator
+    cls_activation: str
+    max_output: int
+    nms_threshold: float
+    nms_pre_topk: int = 0
+
+    def decode(self, outputs: dict) -> torch.Tensor:
+        return self.coder.decode(outputs["base_xyz"], outputs["offset"], outputs["angle_cls"],
+                                 outputs["angle_res"], self.anchors(outputs["base_xyz"]))
+
+    def scores(self, outputs: dict) -> torch.Tensor:
+        if self.cls_activation == "Softmax":
+            return torch.softmax(outputs["cls"], dim=-1)[..., 1:]
+        return torch.sigmoid(outputs["cls"])
+
+    def propose(self, outputs: dict):
+        """RPN outputs -> (proposals [bs, max_output, 7], scores, valid)."""
+        return class_unaware_nms(self.decode(outputs), self.scores(outputs), self.max_output,
+                                 self.nms_threshold, pre_topk=self.nms_pre_topk)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProposalSpec(StageSpec):
+    """The RCNN's spec: its anchors are the proposals in the outputs."""
+
+    def decode(self, outputs: dict) -> torch.Tensor:
+        ctr = boxes_bottom_to_center(outputs["proposals"])[..., 0:3]
+        return self.coder.decode(ctr, outputs["offset"], outputs["angle_cls"],
+                                 outputs["angle_res"], outputs["proposals"][:, :, None, :])
+
+    def final_detections(self, outputs: dict) -> dict:
+        boxes = self.decode(outputs)
+        score = self.scores(outputs)
+        if "pool_mask" in outputs:
+            score = score * outputs["pool_mask"].to(score.dtype)
+        return batched_class_nms(boxes, boxes_to_bev_aabb(boxes), score, self.max_output,
+                                 self.nms_threshold)
+
+
+def _stage_fields(cfg, stage: str, cls_list, nms_pre_topk: int = 0) -> dict:
+    sc = cfg.MODEL[stage]
+    method = sc.REGRESSION_METHOD.TYPE
+    return dict(
+        cls_list=tuple(cls_list),
+        coder=BoxCoder(method, cfg.MODEL.ANGLE_CLS_NUM,
+                       half_range=sc.REGRESSION_METHOD.HALF_BIN_SEARCH_RANGE,
+                       num_bins=sc.REGRESSION_METHOD.BIN_CLASS_NUM),
+        anchors=AnchorGenerator(cfg.DATASET.TYPE, cls_list, method),
+        cls_activation=sc.CLS_ACTIVATION,
+        max_output=sc.MAX_OUTPUT_NUM,
+        nms_threshold=sc.NMS_THRESH,
+        nms_pre_topk=nms_pre_topk,
+    )
+
+
+def build_two_stage(cfg, nms_pre_topk: int = 2048, device: torch.device | str = "cuda"):
+    """Config -> (TwoStageDetector on `device` in eval mode, rpn_spec,
+    rcnn_spec). Weights are left as constructed (`entry.init_weights` or a
+    converted state dict fills them). The default device is the card."""
+    device = _build.resolve_device(device)
+    if cfg.DATASET.TYPE != "KITTI" or cfg.MODEL.NETWORK.USE_GN:
+        raise NotImplementedError("only KITTI without GroupNorm is ported "
+                                  "(ROADMAP Queue 1 item 11)")
+    cls_list = tuple(cfg.DATASET.KITTI.CLS_LIST)
+    rpn_spec = StageSpec(**_stage_fields(cfg, "FIRST_STAGE", cls_list, nms_pre_topk))
+    rcnn_spec = ProposalSpec(**_stage_fields(cfg, "SECOND_STAGE", cls_list))
+    s1, s2 = cfg.MODEL.FIRST_STAGE, cfg.MODEL.SECOND_STAGE
+
+    def cls_ch(stage_cfg):
+        return len(cls_list) if stage_cfg.CLS_ACTIVATION == "Sigmoid" else len(cls_list) + 1
+
+    def reg_base(stage_cfg):
+        return 1 if stage_cfg.REGRESSION_METHOD.TYPE.endswith("free") else len(cls_list)
+
+    net = cfg.MODEL.NETWORK
+    model = TwoStageDetector(
+        rpn_architecture=[list(layer) for layer in net.FIRST_STAGE.ARCHITECTURE],
+        rpn_head_cfg=[list(h) for h in net.FIRST_STAGE.HEAD],
+        rcnn_architecture=[list(layer) for layer in net.SECOND_STAGE.ARCHITECTURE],
+        rcnn_head_cfg=[list(h) for h in net.SECOND_STAGE.HEAD],
+        pooler_cfg=list(net.FIRST_STAGE.POINTS_POOLER),
+        max_translate_range=list(cfg.MODEL.MAX_TRANSLATE_RANGE),
+        num_angle_cls=cfg.MODEL.ANGLE_CLS_NUM,
+        rpn_cls_channels=cls_ch(s1), rpn_reg_base=reg_base(s1),
+        rpn_reg_channels=rpn_spec.coder.reg_channels,
+        rcnn_cls_channels=cls_ch(s2), rcnn_reg_base=reg_base(s2),
+        rcnn_reg_channels=rcnn_spec.coder.reg_channels,
+        aggregation_sa_feature=net.AGGREGATION_SA_FEATURE,
+        compute_dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else None,
+    ).to(device).eval()
+    return model, rpn_spec, rcnn_spec

@@ -79,6 +79,17 @@ class PointConv(nn.Module):
         self.bn = BatchNorm(channels) if bn else None
         self.activation = activation
 
+    def fold(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The layer as data for the fused SA kernel: (kernel [c_in, c_out],
+        bias, inv, shift), eval-mode BatchNorm reduced to y * inv + shift with
+        inv = rsqrt(var + eps) * scale, shift = bias - mean * inv (the
+        arithmetic of `BatchNorm.forward` in eval mode)."""
+        if self.bn is None or not self.activation or self.training:
+            raise ValueError("PointConv.fold: needs BatchNorm, ReLU and eval mode")
+        bn = self.bn
+        inv = torch.rsqrt(bn.var + bn.epsilon) * bn.scale
+        return self.conv.kernel, self.conv.bias, inv, bn.bias - bn.mean * inv
+
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
         x = self.conv(x)
         if self.bn is not None:
@@ -99,6 +110,10 @@ class SharedMLP(nn.Module):
             self.add_module(f"conv{i}", PointConv(c_in, ch, bn=bn, compute_dtype=compute_dtype))
             c_in = ch
         self.out_channels = c_in
+
+    def fold(self) -> list[tuple]:
+        """Every layer's `PointConv.fold`, in order."""
+        return [getattr(self, f"conv{i}").fold() for i in range(self.n_layers)]
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
         for i in range(self.n_layers):

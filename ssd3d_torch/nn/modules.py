@@ -1,6 +1,14 @@
 """PointNet++-family modules (counterpart of `ssd3d/nn/modules.py`): the
-unfused, non-attention set abstraction with fusion sampling, and the
-candidate-generation vote layer, in train and eval mode.
+non-attention set abstraction with fusion sampling, the candidate-generation
+vote layer, feature propagation (PointRCNN's decoder) and global SSG
+pooling, in train and eval mode.
+
+An SA layer takes the fused kernel (`ops/sa_fused.py`, K7 on the card) in
+the RoI regime the JAX package fuses it in: eval mode, BatchNorm, f32,
+many small clouds (n <= 512, b >= 64, as in the RCNN stage: batch x
+proposals clouds of 512 pooled points), and every scale inside K7's
+envelope. The gate looks at shapes and mode only, so a CPU run takes the
+same route with the fused op's plain version.
 
 Sampling and ball-query inputs go through `.detach()`: those ops return
 integers and have no gradient, and without the detach the CPU plain F-FPS
@@ -16,7 +24,9 @@ import torch
 from torch import nn
 
 from ssd3d_torch.nn.layers import PointConv, SharedMLP
+from ssd3d_torch.ops import sa_fused
 from ssd3d_torch.ops.grouping import ball_query_multi, group_points
+from ssd3d_torch.ops.interpolate import inverse_distance_weights, three_interpolate, three_nn
 from ssd3d_torch.ops.sampling import (
     farthest_point_sample,
     farthest_point_sample_features,
@@ -102,6 +112,9 @@ class PointnetSAModuleMSG(nn.Module):
         self.npoint_list = list(npoint_list)
         self.dilated_group = dilated_group
         self.n_scales = len(self.radius_list)
+        self.mlp_list = [list(m) for m in mlp_list[:self.n_scales]]
+        self.bn = bn
+        self.compute_dtype = compute_dtype
         out = in_channels
         for i in range(self.n_scales):
             self.add_module(f"mlp{i}", SharedMLP(in_channels + 3, mlp_list[i], bn=bn,
@@ -114,6 +127,16 @@ class PointnetSAModuleMSG(nn.Module):
                                          compute_dtype=compute_dtype)
             out = aggregation_channel
         self.out_channels = out
+
+    def _use_fused(self, packed_src: torch.Tensor, queries) -> bool:
+        """The fused route: inference, BatchNorm, f32 (K7 computes in f32), the
+        RoI regime (n <= 512 clouds, b >= 64 of them) and K7's envelope. The
+        RoI gate is the JAX package's, chosen from TPU measurements; both
+        routes are timed on the H100 in `chip_smoke.py`."""
+        b, n, cp = packed_src.shape
+        return (not self.training and self.bn and self.compute_dtype is None
+                and packed_src.dtype == torch.float32 and n <= 512 and b >= 64
+                and sa_fused.supports(cp, [idx.shape[2] for idx, _ in queries], self.mlp_list))
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
                 former_fps_idx: torch.Tensor | None = None,
@@ -139,6 +162,14 @@ class PointnetSAModuleMSG(nn.Module):
                                    new_xyz.detach(), dilated=self.dilated_group)
         # one packed gather per scale instead of separate xyz / feature gathers
         packed_src = torch.cat([features, xyz], dim=-1)
+        if self._use_fused(packed_src, queries):
+            idx_list = [idx * (cnt > 0).to(torch.int32)[..., None] for idx, cnt in queries]
+            masks = torch.stack([(cnt > 0).float() for _, cnt in queries], dim=-1)
+            new_features = sa_fused.sa_fused_multi(
+                packed_src, idx_list, new_xyz, masks,
+                [getattr(self, f"mlp{i}").fold() for i in range(self.n_scales)],
+                self.aggregation.fold() if self.aggregation is not None else None)
+            return new_xyz, new_features, fps_idx
         scale_feats = []
         for i, (idx, cnt) in enumerate(queries):
             has_pts = (cnt > 0).to(torch.int32)
@@ -175,3 +206,40 @@ class VoteLayer(nn.Module):
         offsets = self.vote_offsets(x, bn_momentum)
         limited = torch.clamp(offsets, torch.minimum(self.limit, -self.limit), self.limit.abs())
         return xyz + limited, x, offsets
+
+
+class PointnetFPModule(nn.Module):
+    """Feature propagation: 3-NN inverse-distance interpolation of the sparse
+    layer's features onto the dense points, concatenated with the dense
+    points' own features, then a shared MLP (`mlp`)."""
+
+    def __init__(self, in_channels: int, mlp, bn: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.mlp = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype)
+        self.out_channels = self.mlp.out_channels
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor, feat1: torch.Tensor | None,
+                feat2: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
+        """xyz1: dense points [b, n, 3]; xyz2: sparse [b, m, 3]; feat1:
+        [b, n, c1] or None; feat2: [b, m, c2] -> [b, n, mlp[-1]]."""
+        dist2, idx = three_nn(xyz1, xyz2)
+        interp = three_interpolate(feat2, idx, inverse_distance_weights(dist2))
+        if feat1 is not None:
+            interp = torch.cat([interp, feat1], dim=-1)
+        return self.mlp(interp, bn_momentum)
+
+
+class PointnetSAModuleGlobal(nn.Module):
+    """Global SSG pooling: a shared MLP (`mlp`) over concat(xyz, features),
+    then the max over all points: [b, n, *] -> [b, mlp[-1]]."""
+
+    def __init__(self, in_channels: int, mlp, bn: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.mlp = SharedMLP(in_channels + 3, mlp, bn=bn, compute_dtype=compute_dtype)
+        self.out_channels = self.mlp.out_channels
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor,
+                bn_momentum: float = 0.9) -> torch.Tensor:
+        return self.mlp(torch.cat([xyz, features], dim=-1), bn_momentum).amax(dim=1)

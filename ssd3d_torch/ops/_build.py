@@ -137,7 +137,10 @@ BALL_QUERY = Kernel("ball_query", "ssd3d_ball_query",
                     [P, P, P, P, I, I, I, I, P, P, P, P])
 GATHER = Kernel("gather", "ssd3d_gather_rows", [P, P, P, I, I, I, I])
 SCATTER_ADD = Kernel("scatter_add", "ssd3d_scatter_add_rows", [P, P, P, I, I, I, I])
-KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD)
+THREE_NN = Kernel("three_nn", "ssd3d_three_nn", [P, P, P, P, I, I, I])
+SA_FUSED = Kernel("sa_fused", "ssd3d_sa_fused",
+                  [P, P, P, P, P, I, I, I, I, I, P, P, P, I, P, P, P])
+KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD, THREE_NN, SA_FUSED)
 
 
 def reset_launches() -> None:
@@ -147,6 +150,20 @@ def reset_launches() -> None:
 
 def launches() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """An entry point's device. The entry points default to "cuda"; asking
+    for the card where there is none raises here, instead of carrying on
+    quietly on the CPU or failing later inside `.to()`."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "ssd3d_torch: device 'cuda' was asked for (the default of every entry "
+            "point) but torch.cuda.is_available() is false. Pass device='cpu' to run "
+            "the plain PyTorch versions on the CPU."
+        )
+    return dev
 
 
 def require_cuda(op: str, *tensors: torch.Tensor) -> bool:

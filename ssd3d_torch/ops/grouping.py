@@ -1,10 +1,13 @@
-"""Neighbourhood grouping: the multi-ring ball query and the grouping gather.
+"""Neighbourhood grouping: the multi-ring ball query, the grouping gather and
+the rotated-box interior query of the RoI pool.
 
-Counterpart of `ssd3d/ops/grouping.py` (`ball_query_multi`, `group_points`).
+Counterpart of `ssd3d/ops/grouping.py` (`ball_query_multi`, `group_points`,
+`query_boxes_3d_points`).
 Each function dispatches on the device of its inputs: CUDA tensors launch the
 hand-written kernel (`csrc/ball_query.cu`, `csrc/gather.cu`, and for the
 gather's backward `csrc/scatter_add.cu`), CPU tensors take the plain PyTorch
-version beside it.
+version beside it. `query_boxes_3d_points` is plain PyTorch on every device,
+as it is plain XLA in the JAX package.
 
 The ball-query contract is the reference CUDA one (tf_grouping_g.cu:215-255,
 :308-357): per ring, the first `ns` points in index order inside the ring,
@@ -20,6 +23,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ssd3d_torch.core.geometry import canonicalize_points
 from ssd3d_torch.ops import _build
 
 _QUERY_CHUNK = 256  # plain version: queries per chunk, bounds the [b, chunk, n] tensors
@@ -119,6 +123,20 @@ def ball_query_multi(radius_list, nsample_list, xyz: torch.Tensor,
     if _build.require_cuda("ball_query_multi", xyz, new_xyz):
         return _ball_query_cuda(specs, xyz, new_xyz)
     return ball_query_multi_plain(specs, xyz, new_xyz)
+
+
+def query_boxes_3d_points(xyz: torch.Tensor, boxes: torch.Tensor, nsample: int):
+    """First `nsample` interior points per rotated box (the reference CUDA
+    op's contract, tf_grouping_g.cu:46). xyz: [b, n, 3]; boxes: [b, m, 7]
+    -> (idx int32 [b, m, nsample], cnt int32 [b, m]). A point is inside when,
+    in the box's frame, |x| <= l/2, -h <= y <= 0 and |z| <= w/2."""
+    b, n, _ = xyz.shape
+    m = boxes.shape[1]
+    canon = canonicalize_points(xyz[:, None].expand(b, m, n, 3), boxes)  # [b, m, n, 3]
+    l, h, w = boxes[..., 3:4], boxes[..., 4:5], boxes[..., 5:6]
+    valid = ((canon[..., 0].abs() <= l / 2.0) & (canon[..., 2].abs() <= w / 2.0)
+             & (canon[..., 1] <= 0.0) & (canon[..., 1] >= -h))
+    return _first_k(valid, nsample)
 
 
 def gather_rows_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

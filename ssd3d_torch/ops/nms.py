@@ -4,14 +4,18 @@ The same greedy score-ordered suppression as the JAX package: a stable sort
 by score, the K x K IoU matrix, a sequential keep sweep, then the first
 `max_output` kept entries in score order. Every sort is stable, as
 `jnp.argsort` is, so equal scores keep their index order. All classes and
-batch elements sweep together in one loop of K steps.
+batch elements sweep together in one loop of K steps, on the host: the
+proposal NMS of PointRCNN (`class_unaware_nms`, 2,048 candidates after the
+top-k prefilter) runs 2,048 such steps for a batch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ssd3d_torch.core.geometry import boxes_to_bev_aabb
 from ssd3d_torch.core.iou import aabb_iou
+from ssd3d_torch.ops.topk import top_k_set
 
 
 def _nms_rows(bev_boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
@@ -49,6 +53,34 @@ def nms_bev(bev_boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
     -> (idx int32 [max_output] into the input, valid bool [max_output])."""
     idx, valid = _nms_rows(bev_boxes[None], scores[None], max_output, iou_threshold)
     return idx[0], valid[0]
+
+
+def class_unaware_nms(boxes_3d: torch.Tensor, scores: torch.Tensor, max_output: int,
+                      iou_threshold: float, pre_topk: int = 0):
+    """Class-agnostic proposal NMS (the RPN's). boxes_3d: [b, n, cls, 7];
+    scores: [b, n, cls]. Each candidate keeps its best class's score and box.
+    With pre_topk > 0 and n > pre_topk, only the pre_topk best candidates
+    (`top_k_set`) enter the suppression, in index order; the stable sort in
+    `_nms_rows` then orders them exactly as an unfiltered run would.
+
+    -> (boxes [b, max_output, 7], scores [b, max_output] (0 where not
+    valid), valid bool [b, max_output])."""
+    b, n, _ = scores.shape
+    best_score = scores.amax(-1)
+    if boxes_3d.shape[2] == 1:
+        boxes = boxes_3d[:, :, 0]
+    else:
+        best_cls = scores.argmax(-1)
+        boxes = boxes_3d.gather(2, best_cls[..., None, None].expand(b, n, 1, 7))[:, :, 0]
+    if pre_topk and n > pre_topk:
+        top_i = top_k_set(best_score, pre_topk)[0].long()
+        boxes = boxes.gather(1, top_i[..., None].expand(-1, -1, 7))
+        best_score = best_score.gather(1, top_i)
+    idx, valid = _nms_rows(boxes_to_bev_aabb(boxes), best_score, max_output, iou_threshold)
+    gidx = idx.long()
+    out_boxes = boxes.gather(1, gidx[..., None].expand(-1, -1, 7))
+    out_scores = torch.where(valid, best_score.gather(1, gidx), torch.zeros_like(best_score[:, :1]))
+    return out_boxes, out_scores, valid
 
 
 def batched_class_nms(boxes_3d: torch.Tensor, bev_boxes: torch.Tensor,

@@ -109,7 +109,7 @@ def test_training_mode_runs_forward_and_backward():
     statistics by the momentum."""
     from ssd3d_torch.ops import _build
 
-    model = flagship(shrink=8)[1].train()
+    model = flagship(shrink=8, device="cpu")[1].train()
     before = {k: v.clone() for k, v in model.named_buffers() if k.endswith((".mean", ".var"))}
     pts = torch.from_numpy((np.random.RandomState(4).randn(2, 2048, 4) * 10).astype(np.float32))
     _build.reset_launches()
@@ -126,20 +126,20 @@ def test_training_mode_runs_forward_and_backward():
 
 
 def test_unported_layer_types_raise():
-    cfg = flagship(shrink=8)[0]
+    cfg = flagship(shrink=8, device="cpu")[0]
     row = list(cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE[0])
-    row[11] = "FP_Layer"
+    row[10] = True  # attention grouping (FP and global SA layers are ported)
     cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE = [row]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_detector(cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        build_detector(cfg, device="cpu")
 
 
 # -------------------------------------------------------- decode and NMS
 
 def test_decode_and_nms_matches_jax():
-    cfg = flagship(shrink=8)[0]
+    cfg = flagship(shrink=8, device="cpu")[0]
     _, jspec = jax_build_detector(cfg)
-    _, tspec = build_detector(cfg)
+    _, tspec = build_detector(cfg, device="cpu")
     rng = np.random.RandomState(2)
     b, n = 2, 256
     outputs = {
@@ -185,7 +185,7 @@ def _run_both(cfg, variables, pts, dtype):
         return out, jspec.decode_and_nms(out), {k: net[k] for k in ("fps_idx", "features")}
 
     jax_side = jax.jit(fwd)(variables, jnp.asarray(pts))
-    _, tmodel, tspec, _ = flagship(shrink=8, compute_dtype=dtype)
+    _, tmodel, tspec, _ = flagship(shrink=8, compute_dtype=dtype, device="cpu")
     tmodel.load_state_dict(flax_to_state_dict(variables), strict=True)
     with torch.inference_mode():
         out_t = tmodel(_t(pts))
@@ -198,7 +198,7 @@ def test_converter_loads_every_flagship_leaf(shrunk_flagship):
     _, variables, _ = shrunk_flagship
     sd = flax_to_state_dict(variables)
     assert len(jax.tree_util.tree_leaves(variables)) == len(sd) == 252
-    model = flagship(shrink=8)[1]
+    model = flagship(shrink=8, device="cpu")[1]
     assert set(model.state_dict()) == set(sd)
     model.load_state_dict(sd, strict=True)
     kernel = "backbone.layer1.mlp0.conv0.conv.kernel"

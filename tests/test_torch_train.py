@@ -384,7 +384,7 @@ def flagship_step():
                 grads=flax_to_state_dict({"params": _np(grads)}),
                 stats=flax_to_state_dict({"batch_stats": _np(stats)}))
 
-    _, model, spec, _ = flagship(shrink=16, compute_dtype="float32")
+    _, model, spec, _ = flagship(shrink=16, compute_dtype="float32", device="cpu")
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     graph = TrainGraph.build(cfg, model, spec)
     model.train()
@@ -533,7 +533,7 @@ def test_schedules_match_jax():
 # ---------------------------------------------------- training, end to end
 
 def test_a_few_bf16_steps_lower_the_total_loss():
-    step, batch = train_entry(shrink=16, batch=2)
+    step, batch = train_entry(shrink=16, batch=2, device="cpu")
     state = step.args[0]
     assert state.model.training and state.step == 0
     before = {k: v.clone() for k, v in state.model.named_buffers() if k.endswith(".mean")}
