@@ -10,14 +10,16 @@ Nine phases, each of which raises on failure (no error is caught):
    (one nvcc per source, in parallel).
 2. Each kernel against its plain PyTorch version on the card, at the
    flagship's shapes (batch 8), with the kernel's and the plain version's
-   median times; for the scatter-add (the gather's backward, whose float
+   times (`cuda_ms`: events around back-to-back calls); K1 on both of its
+   routes at every D-FPS shape of the three paths; K4 against
+   `torch.gather`; for the scatter-add (the gather's backward, whose float
    atomics add in no fixed order) also the difference between two launches.
 3. The main path: flagship 3DSSD inference (KITTI Car,
    `configs/kitti/3dssd/3dssd.yaml`, 16,384-point scans, bf16 as shipped,
    seeded weights) on a batch of 8 synthetic KITTI-like scans: forward,
    decode and NMS. Asserts finite outputs, at most 100 boxes per scan and
    that every kernel was launched; prints scans/s at batch 8 and the median
-   batch-1 latency.
+   batch-1 latency, and scans/s and a profile with K1 on each of its routes.
 4. The card against the CPU on one scan: the kernel path on the GPU and the
    plain path on the CPU, same weights, compared pick by pick and box by box.
 5. The training path: the flagship train step (`train_entry`, batch 8 =
@@ -30,13 +32,15 @@ Nine phases, each of which raises on failure (no error is caught):
    sampling picks, losses, every gradient leaf and the new BatchNorm
    statistics.
 7. PointRCNN's kernels against their plain versions on the card, on the
-   inputs of every launch in one PointRCNN forward (batch 4): K1 D-FPS
-   (RPN and the RCNN's 400 clouds), K3 ball query, K4 gather (RPN grouping,
-   RegionPool's xyz, features and mask) equal or bit-identical; K6
+   inputs of every launch in one PointRCNN forward (batch 4): K1 D-FPS on
+   both routes (RPN and the RCNN's 400 clouds), K3 ball query, K4 gather
+   (RPN grouping, RegionPool's xyz, features and mask, the last three timed
+   against `torch.gather`) equal or bit-identical; K6
    three_nn at the four FP layers' shapes (indices equal, distances within
    1 ulp); K7 fused SA at the RCNN's SA1 and SA2 (and once with one scale,
-   unmasked), with the kernel's and the plain version's times, the bound,
-   and the SA module's own forward on the fused and the unfused route.
+   unmasked, timed too), with the kernel's and the plain version's times,
+   the bound, and the SA module's own forward on the fused and the unfused
+   route.
 8. The PointRCNN path: inference (`two_stage_entry`, KITTI Car,
    `configs/kitti/pointrcnn/pointrcnn_test.yaml`, full widths and depth,
    f32, 16,384-point scans, 100 proposals, seeded weights) at batch 4.
@@ -45,7 +49,8 @@ Nine phases, each of which raises on failure (no error is caught):
    none); prints scans/s, the median batch-1 latency, peak memory, a
    profile; then at batch 1, 2, 4, 8 and 16 the median of nine timed
    passes and the device busy time of a profiled one, and the fixed and
-   per-scan costs fitted to them.
+   per-scan costs fitted to them. The batch of 4 is profiled again with K1
+   on its one-block route.
 9. PointRCNN on the card against the CPU on one scan: RPN picks, head
    outputs, candidates, and the proposal NMS's keep sets (a candidate kept
    on one leg only must be a near-tie on the CPU's values); then the card's
@@ -56,7 +61,11 @@ Nine phases, each of which raises on failure (no error is caught):
 The second line from the end is a JSON object with one entry per kernel:
 `launches_by_path` counts its launches in one run of each path (flagship
 inference, phase 3; one training step, phase 5; PointRCNN inference, phase
-8), `launches` is their sum; times and bounds are of the shape in `shape`.
+8), `launches` is their sum; times and bounds are of the shape in `shape`
+(K1's on the route that shape takes; `routes` holds both routes' times at
+every D-FPS shape, and `launches_by_route` its launches by route on each
+path, which phases 3, 5 and 8 hold to the route each call's shape takes).
+The profiles of phases 3 and 8 list each D-FPS launch.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 1 and prints no result.
 """
@@ -83,7 +92,7 @@ from ssd3d_torch.models import two_stage
 from ssd3d_torch.nn import modules
 from ssd3d_torch.nn.modules import ffps_segments
 from ssd3d_torch.nn.modules import max_pool as _max_pool
-from ssd3d_torch.ops import _build, grouping, sa_fused
+from ssd3d_torch.ops import _build, grouping, sa_fused, sampling
 from ssd3d_torch.ops.grouping import (
     ball_query_multi,
     ball_query_multi_plain,
@@ -102,11 +111,13 @@ from ssd3d_torch.ops.sampling import (
     ffps_plain,
     fps_pick_shortfall,
     fps_plain,
+    fps_route,
     gather_points,
 )
 from ssd3d_torch.ops.topk import top_k_set
 from ssd3d_torch.train.schedules import bn_momentum
 from ssd3d_torch.train.train_step import TrainGraph
+from ssd3d_torch.utils.timing import cuda_ms
 
 BATCH = 8
 N_POINTS = 16384
@@ -168,19 +179,18 @@ def log(msg: str = "") -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Median device time of fn() in ms, from CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def on_route(route: str):
+    """K1 forced onto `route` ("block" or "cluster") while the context holds:
+    for timing and for holding both routes to the plain version."""
+    return mock.patch.object(sampling, "fps_route", lambda b: route)
+
+
+def check_fps_routes(path: str, want: dict[str, int]) -> dict[str, int]:
+    """K1's launches by route since the last reset, held to `want`."""
+    got = _build.route_launches()["fps"]
+    log(f"K1 launches by route in {path}: {got}")
+    check(got == want, f"{path}: K1 launches by route {got}, want {want}")
+    return got
 
 
 # ----------------------------------------------------------------- phase 1
@@ -224,24 +234,51 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
     xyz = scans[..., :3].contiguous()
     report = []
 
-    # K1: D-FPS, SA1 16,384 -> 4,096 (the other D-FPS calls are smaller)
+    # K1: D-FPS on both routes at every D-FPS shape of the three paths
+    # (3DSSD inference and training share theirs), on points of these scans
+    # (3DSSD, the RPN) and on RoI-sized gaussian clouds (the RCNN's 400)
     picks = farthest_point_sample(xyz, 4096)
-    plain = fps_plain(xyz, 4096)
-    check(torch.equal(picks, plain), "D-FPS kernel disagrees with its plain version")
-    ms = cuda_ms(lambda: farthest_point_sample(xyz, 4096), 5)
+    xyz1 = gather_points(xyz, picks)
+    rois = torch.randn(400, 512, 3, generator=gen).to(dev) * torch.tensor([2.0, 0.8, 1.0], device=dev)
+    big = torch.cat([xyz, xyz.flip(1)])  # 16 clouds: the RPN's SA1 at phase 8's batch 16
+    fps_shapes = [("3DSSD SA1", xyz, 4096), ("3DSSD SA2", xyz1, 512),
+                  ("3DSSD SA3", xyz1[:, 512:1024].contiguous(), 256),
+                  ("RPN SA1", xyz[:4].contiguous(), 4096), ("RPN SA2", xyz1[:4].contiguous(), 1024),
+                  ("RPN SA3", xyz1[:4, :1024].contiguous(), 256),
+                  ("RPN SA4", xyz1[:4, :256].contiguous(), 64), ("RPN SA1 batch 16", big, 4096),
+                  ("RCNN SA1", rois, 128), ("RCNN SA2", rois[:, :128].contiguous(), 32)]
+    k1, k1_err = {}, 0
+    for name, pts, m in fps_shapes:
+        b, n = pts.shape[:2]
+        plain = fps_plain(pts, m)
+        times = {}
+        for route in ("block", "cluster"):
+            with on_route(route):
+                got = farthest_point_sample(pts, m)
+                k1_err = max(k1_err, int((got - plain).abs().max()))
+                check(torch.equal(got, plain), f"D-FPS {route} route disagrees with plain at {name}")
+                times[route] = cuda_ms(lambda: farthest_point_sample(pts, m),
+                                       5 if m >= 4096 else 20)
+        size = _build.dfps_cluster_size(b, n)
+        k1[name] = dict(shape=f"{list(pts.shape)} -> {m}", block_ms=times["block"],
+                        cluster_ms=times["cluster"], cluster_size=size, route=fps_route(b))
+        log(f"K1 D-FPS {name} {list(pts.shape)} -> {m}: picks equal on both routes; one block a "
+            f"cloud {times['block']:.3f} ms, a cluster of {size} a cloud {times['cluster']:.3f} ms "
+            f"({times['block'] / times['cluster']:.2f}x); takes the {fps_route(b)} route")
+    sa1 = k1["3DSSD SA1"]
+    ms = sa1[f"{sa1['route']}_ms"]
     plain_ms = cuda_ms(lambda: fps_plain(xyz, 4096), 3)
-    log(f"K1 D-FPS {list(xyz.shape)} -> 4096: picks equal; {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    log(f"K1 D-FPS at 3DSSD SA1: {ms:.3f} ms on its route vs plain {plain_ms:.3f} ms; the cluster "
+        f"route is {sa1['block_ms'] / sa1['cluster_ms']:.2f}x the one-block route's speed")
     b, n = xyz.shape[:2]
     # per pick and point: 3 sub, 3 mul, 2 add, a min and a compare
     report.append(dict(name="fps", route="cuda", source="ssd3d_torch/csrc/fps.cu",
                        replaces="ssd3d/ops/pallas/fps.py:126", launches=0,
-                       max_abs_err=float((picks - plain).abs().max()), ms=ms,
-                       plain_ms=plain_ms, **bound(4 * (b * n * 3 + b * 4096),
-                                                  b * 4095 * n * 10),
-                       library_ms=None, shape=f"{list(xyz.shape)} -> 4096", check="equal"))
+                       max_abs_err=float(k1_err), ms=ms, plain_ms=plain_ms,
+                       **bound(4 * (b * n * 3 + b * 4096), b * 4095 * n * 10),
+                       library_ms=None, shape=sa1["shape"], routes=k1, check="equal"))
 
     # K2: F-FPS at SA2 (4,096 x 67 -> 512) and SA3 (512 x 131 -> 256)
-    xyz1 = gather_points(xyz, picks)
     worst, k2_times = 0.0, []
     for n, c, m in ((4096, 67, 512), (512, 131, 256)):
         feat = torch.randn(BATCH, n, c - 3, generator=gen).to(dev).relu()
@@ -286,8 +323,9 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
             check(torch.equal(gc, rc), f"ball query cnt differs at {name}")
             check(torch.equal(gi, ri), f"ball query idx differs at {name}")
         idx_sa[name] = got[-1][0]
-        ms = cuda_ms(lambda: ball_query_multi(radii, ns, pts, q, dilated=dilated), 10)
-        plain_ms = cuda_ms(lambda: ball_query_multi_plain(specs, pts, q), 3)
+        ms = cuda_ms(lambda: ball_query_multi(radii, ns, pts, q, dilated=dilated), 20)
+        plain_ms = cuda_ms(lambda: ball_query_multi_plain(specs, pts, q),
+                           3 if pts.shape[1] >= 4096 else 20)
         # per pair examined: d2 (3 sub, 3 mul, 2 add) and one compare a ring
         pairs = ball_query_pairs(got, pts.shape[1], ns)
         k3_times.append((ms, plain_ms, f"{name} {list(q.shape)} x {list(pts.shape)}",
@@ -320,12 +358,15 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
         k4_times.append((ms, plain_ms, f"{list(src.shape)} x {rows} rows", lib_ms,
                          bound(4 * (BATCH * min(rows, src.shape[1]) * c + BATCH * rows
                                     + BATCH * rows * c), 0)))
-        log(f"K4 gather {list(src.shape)} x {rows} rows: bit-identical; {ms:.3f} ms vs plain "
-            f"{plain_ms:.3f} ms, torch.gather {lib_ms:.3f} ms")
+        log(f"K4 gather {list(src.shape)} x {rows} rows: bit-identical; {ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms, torch.gather {lib_ms:.4f} ms (K4 / torch.gather "
+            f"{ms / lib_ms:.2f}), bound {k4_times[-1][4]['bound_ms']:.4f} ms")
     report.append(dict(name="gather", route="cuda", source="ssd3d_torch/csrc/gather.cu",
                        replaces="ssd3d/ops/pallas/gather.py:57", launches=0, max_abs_err=0.0,
                        ms=k4_times[0][0], plain_ms=k4_times[0][1], **k4_times[0][4],
                        library_ms=k4_times[0][3], shape=k4_times[0][2],
+                       other_shapes={e[2]: dict(ms=e[0], plain_ms=e[1], library_ms=e[3],
+                                                bound_ms=e[4]["bound_ms"]) for e in k4_times[1:]},
                        check="bit-identical"))
 
     # K5: the gather's backward at each layer's largest backward shape, on
@@ -360,7 +401,7 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
 
 # ----------------------------------------------------------------- phase 3
 
-def phase_main_path(scans: torch.Tensor) -> dict[str, int]:
+def phase_main_path(scans: torch.Tensor) -> dict:
     log(f"== phase 3: flagship 3DSSD inference, batch {BATCH}, {N_POINTS} points, bf16")
     _, model, spec, _ = flagship(device="cuda", seed=0)
 
@@ -378,6 +419,8 @@ def phase_main_path(scans: torch.Tensor) -> dict[str, int]:
     check(launches["scatter_add"] == 0, "inference launched the gather's backward")
     check(launches["three_nn"] == 0 and launches["sa_fused"] == 0,
           "3DSSD launched a PointRCNN kernel")
+    # D-FPS at SA1-SA3, 8 clouds each: the cluster route
+    launches["fps_routes"] = check_fps_routes("3DSSD inference", {"cluster": 3})
     valid = det["valid"]
     check(det["boxes"].shape == (BATCH, 100, 7) and valid.shape == (BATCH, 100),
           f"detections have shape {tuple(det['boxes'].shape)}")
@@ -406,30 +449,66 @@ def phase_main_path(scans: torch.Tensor) -> dict[str, int]:
         f"batch-1 latency median {statistics.median(lat[1:]):.2f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    profile_once(lambda: infer(scans), f"batch of {BATCH}")
+    profile_once(lambda: infer(scans), f"batch of {BATCH}", each="dfps")
+    # K1's one-block route (the first design) against the cluster route, in
+    # turns: scans/s of `iters` batches each, then one profiled batch
+    rates = []
+    for route in ("block", "cluster", "cluster", "block"):
+        with on_route(route):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                infer(scans)
+            torch.cuda.synchronize()
+            rates.append(f"{route} {BATCH * iters / (time.perf_counter() - t0):.2f}")
+    log(f"scans/s at batch {BATCH} with K1 on each route, in turns: {', '.join(rates)}")
+    with on_route("block"):
+        profile_once(lambda: infer(scans), f"batch of {BATCH}, K1 on the one-block route", top=0,
+                     each="dfps")
     return launches
 
 
-def profile_once(fn, what: str, top: int = 12) -> tuple[float, float]:
+def profile_once(fn, what: str, top: int = 12, each: str | None = None) -> tuple[float, float]:
     """Where the device time of one call goes (torch.profiler): wall, device
-    busy share and the `top` kernels that take most of it.
-    -> (wall ms, device busy ms) under the profiler."""
+    busy share and the `top` kernels that take most of it; with `each`, also
+    every launch of the kernels whose name holds it, in launch order.
+    -> (wall ms, device busy ms) under the profiler.
+
+    The trace has lost a call's first launches when the call came first
+    under a profiler started late in a long process (phase 8 lost its first
+    D-FPS launch, 2.4 ms, even after a fill kernel and a pause), so fn runs
+    twice under the profiler, with a spin kernel between, and the second
+    call's kernels are read: those that start after the spin kernel ends."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda._sleep(100_000)  # the marker
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # a user annotation (the optimizer's step) spans kernels already counted
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    device = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start)
+    spin = [e for e in device if "spin_kernel" in e.name]
+    check(len(spin) == 1, f"the profile of {what} holds {len(spin)} marker kernels")
+    device = [e for e in device if e.time_range.start >= spin[0].time_range.end]
+    by_name: dict[str, list[float]] = {}
+    for e in device:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    busy_us = sum(sum(t) for t in by_name.values())
     log(f"profiled {what}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
-        f"{sum(e.count for e in kernels)} kernel launches of {len(kernels)} names")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        f"{len(device)} kernel launches of {len(by_name)} names")
+    for name, t in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]:
+        log(f"  {sum(t) / 1e3:8.3f} ms  x{len(t):<5d} {name[:90]}")
+    if each:
+        launches = [e for e in device if each in e.name]
+        log(f"  each {each} launch in order ({len(launches)} in the trace): " + "; ".join(
+            f"{re.sub(r'^.*::|[(].*$', '', e.name)} {e.time_range.elapsed_us() / 1e3:.3f} ms"
+            for e in launches))
     return wall_us / 1e3, busy_us / 1e3
 
 
@@ -535,7 +614,7 @@ def phase_card_vs_cpu(scans: torch.Tensor) -> None:
 LOSS_KEYS = ("cls", "offset", "angle", "corner", "vote")
 
 
-def phase_training() -> dict[str, int]:
+def phase_training() -> dict:
     log(f"== phase 5: flagship 3DSSD training, batch {BATCH}, {N_POINTS} points, bf16, Adam")
     step, batch = train_entry(device="cuda", seed=0, batch=BATCH)
     state = step.args[0]
@@ -552,6 +631,7 @@ def phase_training() -> dict[str, int]:
           "3DSSD training launched a PointRCNN kernel")
     check(launches["scatter_add"] == 8, "the gather's backward did not run once per "
           "gradient-carrying grouping gather (3 + 3 + 2)")
+    launches["fps_routes"] = check_fps_routes("3DSSD training", {"cluster": 3})
     torch.cuda.reset_peak_memory_stats()
     metrics, times = [], []
     for _ in range(TRAIN_STEPS):
@@ -783,15 +863,21 @@ def capture_two_stage_inputs(forward, points: torch.Tensor, sa_layers) -> dict:
     return seen
 
 
-def check_path_kernels(seen: dict) -> None:
+def check_path_kernels(seen: dict) -> dict:
     """K1, K3 and K4 against their plain versions on the card, at every call
-    of one PointRCNN forward (phase 2 holds them at 3DSSD's shapes)."""
+    of one PointRCNN forward (phase 2 holds them at 3DSSD's shapes); K1 on
+    both routes. -> K4's and torch.gather's times at RegionPool's gathers
+    (the calls whose source has other widths than the RPN's)."""
     shapes = []
     for (xyz, npoint), _ in seen["fps"]:
-        check(torch.equal(farthest_point_sample(xyz, npoint), fps_plain(xyz, npoint)),
-              f"D-FPS kernel disagrees with its plain version at {list(xyz.shape)} -> {npoint}")
-        shapes.append(f"{list(xyz.shape)}->{npoint}")
-    log(f"K1 D-FPS at the path's {len(shapes)} calls, picks equal: {', '.join(shapes)}")
+        plain = fps_plain(xyz, npoint)
+        for route in ("block", "cluster"):
+            with on_route(route):
+                check(torch.equal(farthest_point_sample(xyz, npoint), plain),
+                      f"D-FPS {route} route disagrees with plain at {list(xyz.shape)} -> {npoint}")
+        shapes.append(f"{list(xyz.shape)}->{npoint} ({fps_route(xyz.shape[0])})")
+    log(f"K1 D-FPS at the path's {len(shapes)} calls, picks equal on both routes: "
+        f"{', '.join(shapes)}")
     shapes = []
     for (radii, ns, xyz, new_xyz), kwargs in seen["ball_query"]:
         dilated = kwargs.get("dilated", False)
@@ -802,17 +888,35 @@ def check_path_kernels(seen: dict) -> None:
                   f"ball query differs from plain at {list(new_xyz.shape)} x {list(xyz.shape)}")
         shapes.append(f"{list(new_xyz.shape)}x{xyz.shape[1]} ns {list(ns)}")
     log(f"K3 ball query at the path's {len(shapes)} calls, idx and cnt equal: {', '.join(shapes)}")
-    shapes = []
-    for (src, idx), _ in seen["gather"]:
+    shapes, pool = [], {}
+    # the forward's last three gathers are RegionPool's: xyz, features, mask
+    check([src.shape[2] for (src, _), _ in seen["gather"][-3:]] == [3, 128, 1],
+          "RegionPool's gathers are not the forward's last three")
+    for k, ((src, idx), _) in enumerate(seen["gather"]):
         got, ref = grouping._gather_rows(src, idx), gather_rows_plain(src, idx)
         check(got.dtype == ref.dtype and torch.equal(got.view(torch.int32), ref.view(torch.int32)),
               f"gather not bit-identical at {list(src.shape)} x {idx.shape[1]} rows")
-        shapes.append(f"{list(src.shape)}x{idx.shape[1]}")
+        shape = f"{list(src.shape)} x {idx.shape[1]} rows"
+        shapes.append(shape)
+        if k >= len(seen["gather"]) - 3:
+            wide = idx.long().clamp(0, src.shape[1] - 1)[..., None].expand(-1, -1, src.shape[2])
+            b, rows, c = idx.shape[0], idx.shape[1], src.shape[2]
+            pool[shape] = dict(ms=cuda_ms(lambda: grouping._gather_rows(src, idx), 20),
+                               library_ms=cuda_ms(lambda: src.gather(1, wide), 20),
+                               **bound(4 * (b * min(rows, src.shape[1]) * c + b * rows
+                                            + b * rows * c), 0))
+            log(f"K4 gather RegionPool {shape}: {pool[shape]['ms']:.4f} ms vs torch.gather "
+                f"{pool[shape]['library_ms']:.4f} ms (K4 / torch.gather "
+                f"{pool[shape]['ms'] / pool[shape]['library_ms']:.2f}), bound "
+                f"{pool[shape]['bound_ms']:.4f} ms")
     log(f"K4 gather at the path's {len(shapes)} calls, bit-identical: {', '.join(shapes)}")
+    return pool
 
 
 @torch.inference_mode()
-def phase_two_stage_kernels() -> list[dict]:
+def phase_two_stage_kernels(gather_entry: dict) -> list[dict]:
+    """-> the report's entries of K6 and K7; RegionPool's K4 times go into
+    phase 2's `gather_entry`."""
     log(f"== phase 7: PointRCNN's kernels against their plain versions, on the inputs "
         f"of one forward at batch {TWO_STAGE_BATCH}")
     _, model, rpn_spec, _, n = pointrcnn(device="cuda", seed=0)
@@ -823,7 +927,7 @@ def phase_two_stage_kernels() -> list[dict]:
     check(len(seen["three_nn"]) == 4 and len(seen["sa_fused"]) == 2
           and len(seen["sa_module"]) == 2,
           f"captured {len(seen['three_nn'])} three_nn and {len(seen['sa_fused'])} fused-SA calls")
-    check_path_kernels(seen)
+    gather_entry["other_shapes"].update(check_path_kernels(seen))
     report = []
 
     # K6 at the four FP shapes, FP4 (256 x 64) to FP1 (16,384 x 4,096)
@@ -835,7 +939,7 @@ def phase_two_stage_kernels() -> list[dict]:
         ulps = int((got_d.view(torch.int32) - want_d.view(torch.int32)).abs().max())
         check(ulps <= 1, f"three_nn distances {ulps} ulp apart at {list(xyz1.shape)}")
         ms = cuda_ms(lambda: three_nn(xyz1, xyz2), 20)
-        plain_ms = cuda_ms(lambda: three_nn_plain(xyz1, xyz2), 3)
+        plain_ms = cuda_ms(lambda: three_nn_plain(xyz1, xyz2), 3 if xyz1.shape[1] >= 16384 else 20)
         b, n, m = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
         # per pair: d2 (3 sub, 3 mul, 2 add) and one compare
         k6.append(dict(ms=ms, plain_ms=plain_ms, ulps=ulps, shape=f"{n} x {m}",
@@ -901,7 +1005,11 @@ def phase_two_stage_kernels() -> list[dict]:
     want = sa_fused.sa_fused_multi_plain(src, idx_list, centers, ones, layers_list)
     err = float((single - want).abs().max())
     check(err <= K7_TOL * float(want.abs().max()), f"single-scale K7 differs by {err:.3g}")
-    log(f"K7 single scale, unmasked (R = 1) at SA2: max |K7 - plain| {err:.3g}")
+    single_ms = cuda_ms(lambda: sa_fused.sa_fused(src, idx_list[0], centers, layers_list[0]), 5)
+    single_plain_ms = cuda_ms(
+        lambda: sa_fused.sa_fused_multi_plain(src, idx_list, centers, ones, layers_list), 5)
+    log(f"K7 single scale, unmasked (R = 1) at SA2: max |K7 - plain| {err:.3g}; "
+        f"{single_ms:.3f} ms vs plain {single_plain_ms:.3f} ms")
     sa1 = k7[0]
     report.append(dict(name="sa_fused", route="cuda", source="ssd3d_torch/csrc/sa_fused.cu",
                        replaces="ssd3d/ops/pallas/sa_fused.py:306", launches=0,
@@ -910,6 +1018,7 @@ def phase_two_stage_kernels() -> list[dict]:
                        bound_by=sa1["bound_by"], library_ms=None, shape=sa1["shape"],
                        module_ms_fused_unfused={e["name"]: e["module_ms"] for e in k7},
                        other_shapes={e["shape"]: [e["ms"], e["plain_ms"]] for e in k7[1:]},
+                       single_scale_sa2_ms=[single_ms, single_plain_ms],
                        check=f"max |K7 - plain| <= {K7_TOL:g} x max |plain|"))
     return report
 
@@ -924,7 +1033,7 @@ def timed_pass(fn, points) -> float:
     return time.perf_counter() - t0
 
 
-def phase_two_stage() -> dict[str, int]:
+def phase_two_stage() -> dict:
     log(f"== phase 8: PointRCNN inference, batch {TWO_STAGE_BATCH}, {N_POINTS} points, f32")
     fn, (points,) = two_stage_entry(device="cuda", seed=0, batch=TWO_STAGE_BATCH)
     _build.reset_launches()
@@ -935,6 +1044,8 @@ def phase_two_stage() -> dict[str, int]:
     want = dict(three_nn=4, sa_fused=2, fps=6, ffps=0, scatter_add=0)
     check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
     check(launches["ball_query"] > 0 and launches["gather"] > 0, "K3 or K4 was not launched")
+    # the RPN's SA1-SA4 over 4 clouds, the RCNN's SA1-SA2 over 400
+    launches["fps_routes"] = check_fps_routes("PointRCNN inference", {"cluster": 4, "block": 2})
     b = TWO_STAGE_BATCH
     check(det["boxes"].shape == (b, 100, 7) and det["proposals"].shape == (b, 100, 7),
           f"detections {tuple(det['boxes'].shape)}, proposals {tuple(det['proposals'].shape)}")
@@ -956,7 +1067,10 @@ def phase_two_stage() -> dict[str, int]:
     log(f"PointRCNN throughput at batch {b}: {b * PASSES / sum(t):.2f} scans/s over {PASSES} "
         f"passes (median pass {statistics.median(t) * 1e3:.2f} ms); batch-1 latency median "
         f"{statistics.median(lat[1:]):.2f} ms of {PASSES}; peak memory {peak:.2f} GiB")
-    profile_once(lambda: fn(points), f"PointRCNN batch of {b}", top=16)
+    profile_once(lambda: fn(points), f"PointRCNN batch of {b}", top=16, each="dfps")
+    with on_route("block"):
+        profile_once(lambda: fn(points), f"PointRCNN batch of {b}, K1 on the one-block route",
+                     top=0, each="dfps")
 
     # batch scaling on other scans: at each batch a warm-up, PASSES timed
     # passes (the host-side NMS sweep moves one pass by ~20%) and one
@@ -971,7 +1085,8 @@ def phase_two_stage() -> dict[str, int]:
         dts = sorted(timed_pass(fn, chunk) * 1e3 for _ in range(PASSES))
         peak = torch.cuda.max_memory_allocated() / 2**30
         walls.append(statistics.median(dts))
-        busies.append(profile_once(lambda: fn(chunk), f"PointRCNN batch of {bb}", top=0)[1])
+        busies.append(profile_once(lambda: fn(chunk), f"PointRCNN batch of {bb}", top=0,
+                                   each="dfps")[1])
         log(f"PointRCNN batch {bb}: median {walls[-1]:.2f} ms of {PASSES} passes (min "
             f"{dts[0]:.2f}, max {dts[-1]:.2f}); {bb * 1e3 / walls[-1]:.2f} scans/s; device busy "
             f"{busies[-1]:.2f} ms; peak memory {peak:.2f} GiB")
@@ -1297,13 +1412,15 @@ def main() -> int:
     timed(phase_card_vs_cpu, scans)
     train_launches = timed(phase_training)
     timed(phase_train_card_vs_cpu)
-    report += timed(phase_two_stage_kernels)
+    report += timed(phase_two_stage_kernels, next(e for e in report if e["name"] == "gather"))
     two_stage_launches = timed(phase_two_stage)
     timed(phase_two_stage_card_vs_cpu, scans)
     paths = {"inference": infer_launches, "train": train_launches, "two_stage": two_stage_launches}
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
+        if entry["name"] == "fps":
+            entry["launches_by_route"] = {p: n["fps_routes"] for p, n in paths.items()}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

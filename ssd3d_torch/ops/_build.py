@@ -106,16 +106,19 @@ class Kernel:
     """One C entry point of the library, with its launch count.
 
     `launches` goes up by one each time the kernel is launched, and nowhere
-    else; `chip_smoke.py` reads it to show the main path went through it."""
+    else; `chip_smoke.py` reads it to show the main path went through it. A
+    kernel with routes (K1) also counts each launch under the route the
+    caller names, in `by_route`."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.by_route: dict[str, int] = {}
         self._fn = None
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, route: str | None = None) -> None:
         if self._fn is None:
             fn = getattr(library(), self.symbol)
             fn.argtypes = self.argtypes + [ctypes.c_void_p]  # + the stream
@@ -128,10 +131,14 @@ class Kernel:
                 f"launch: cudaError {err}"
             )
         self.launches += 1
+        if route is not None:
+            self.by_route[route] = self.by_route.get(route, 0) + 1
 
 
 P, I = ctypes.c_void_p, ctypes.c_int
-FPS = Kernel("fps", "ssd3d_dfps", [P, P, I, I, I])
+# both D-FPS routes, counted apart in FPS.by_route (the last int: 0 one block
+# a cloud, 1 a cluster a cloud)
+FPS = Kernel("fps", "ssd3d_dfps", [P, P, I, I, I, I])
 FFPS = Kernel("ffps", "ssd3d_ffps", [P, P, I, I, I, I])
 BALL_QUERY = Kernel("ball_query", "ssd3d_ball_query",
                     [P, P, P, P, I, I, I, I, P, P, P, P])
@@ -146,10 +153,25 @@ KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD, THREE_NN, SA_FUSED)
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.by_route = {}
 
 
 def launches() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def route_launches() -> dict[str, dict[str, int]]:
+    """Launches by route of the kernels that have routes: {"fps": {...}}."""
+    return {"fps": dict(FPS.by_route)}
+
+
+def dfps_cluster_size(b: int, n: int) -> int:
+    """The cluster size K1's cluster route takes for b clouds of n points on
+    this card (an occupancy query; nothing is launched)."""
+    size = library().ssd3d_dfps_cluster_size(b, n)
+    if size <= 0:
+        raise RuntimeError(f"ssd3d_torch: cluster occupancy query failed: cudaError {-size}")
+    return size
 
 
 def resolve_device(device: torch.device | str) -> torch.device:

@@ -155,7 +155,8 @@ def _gather_rows_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     points = points.contiguous()
     idx = idx.to(torch.int32).contiguous()
     out = torch.empty(b, rows, c, dtype=points.dtype, device=points.device)
-    _build.GATHER(points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, rows, c)
+    if out.numel():  # nothing to launch for zero rows
+        _build.GATHER(points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, rows, c)
     return out
 
 

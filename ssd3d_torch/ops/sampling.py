@@ -46,13 +46,32 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+# K1 has two routes (csrc/fps.cu): one cloud over a thread-block cluster of up
+# to 16 SMs, or one block a cloud. At every D-FPS shape of the three paths
+# with at most 16 clouds (256 to 16,384 points) the cluster route was faster;
+# at the RCNN's 400 clouds the one-block route was (chip_smoke.py phase 2;
+# PERF.md §6).
+FPS_CLUSTER_MAX_CLOUDS = 16
+
+
+def fps_route(b: int) -> str:
+    """K1's route for b clouds: "cluster" or "block". The count of clouds
+    decides; the number of points did not, at any measured shape."""
+    return "cluster" if b <= FPS_CLUSTER_MAX_CLOUDS else "block"
+
+
 def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """K1 on the route `fps_route` picks (tests and timing patch it to force
+    one)."""
     b, n, _ = xyz.shape
     if n > 16384:
         raise ValueError(f"farthest_point_sample: kernel takes n <= 16384, got {n}")
+    route = fps_route(b)
+    if route not in ("cluster", "block"):
+        raise ValueError(f"farthest_point_sample: unknown route {route!r}")
     xyz = xyz.contiguous()
     out = torch.empty(b, npoint, dtype=torch.int32, device=xyz.device)
-    _build.FPS(xyz.data_ptr(), out.data_ptr(), b, n, npoint)
+    _build.FPS(xyz.data_ptr(), out.data_ptr(), b, n, npoint, int(route == "cluster"), route=route)
     return out
 
 

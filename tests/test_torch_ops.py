@@ -56,6 +56,52 @@ def test_dfps_matches_jax(kind):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_fps_route_follows_the_shape(monkeypatch):
+    # a few clouds spread over clusters: 3DSSD's SA1-SA3 at batch 8, the
+    # RPN's SA1-SA4 at batch 4 and 1, and the RPN's SA1 at batch 16
+    for b in (1, 2, 4, 8, 16):
+        assert sampling.fps_route(b) == "cluster"
+    # many clouds keep one block each: the RCNN's 400 at batch 4, 100 at batch 1
+    for b in (17, 100, 400):
+        assert sampling.fps_route(b) == "block"
+    monkeypatch.setattr(sampling, "fps_route", lambda b: "warp")
+    with pytest.raises(ValueError, match="unknown route"):
+        sampling._fps_cuda(torch.zeros(1, 8, 3), 4)
+
+
+def _fps_key(d, i):
+    """K1's cluster-route key (csrc/fps.cu `fps_key`) in numpy: the f32
+    distance's bits over 0xFFFFFFFF - index."""
+    bits = np.asarray(d, np.float32).view(np.uint32).astype(np.uint64)
+    return (bits << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - np.asarray(i, np.uint64))
+
+
+def _better(a, b):
+    """csrc/common.cuh `better`: larger distance, then smaller index."""
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def test_fps_key_orders_candidates_as_the_tie_rule():
+    rng = np.random.RandomState(21)
+    tiny = np.float32(1e-45)  # the smallest subnormal
+    d = np.concatenate([np.array([0.0, 0.0, tiny, 1.0, 1.0, np.nextafter(np.float32(1), 2),
+                                  3.4e38, np.inf, np.inf], np.float32),
+                        rng.choice(np.float32([0.0, 0.25, 2.0, 7.5]), 40)])
+    i = np.concatenate([[5, 0, 3, 7, 2, 7, 1, 9, 16383], rng.randint(0, 16384, 40)])
+    cands = [(np.float32(a), int(b)) for a, b in zip(d, i)]
+    keys = _fps_key(d, i)
+    for ka, a in zip(keys, cands):
+        for kb, b in zip(keys, cands):
+            if a != b:
+                assert (ka > kb) == _better(a, b), (a, b)
+    assert (keys > 0).all()  # a padding slot (key 0) loses to every point
+    # the largest key of a distance field is its argmax, first index on ties
+    dist = rng.choice(np.float32([0.0, 1.0, 4.0]), size=(6, 500))
+    top = _fps_key(dist, np.arange(500)).max(1)
+    np.testing.assert_array_equal(0xFFFFFFFF - (top & np.uint64(0xFFFFFFFF)),
+                                  torch.from_numpy(dist).argmax(1).numpy())
+
+
 # ------------------------------------------------------------------ F-FPS
 
 @pytest.mark.parametrize("n,c,m", [(512, 67, 96), (300, 131, 64)])
@@ -243,11 +289,42 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "block", "cluster"])
 @pytest.mark.parametrize("n,m", [(16384, 512), (1000, 200), (4096, 512)])
-def test_fps_kernel_equals_plain(cuda, n, m):
+def test_fps_kernel_equals_plain(cuda, n, m, route, monkeypatch):
+    if route is not None:
+        monkeypatch.setattr(sampling, "fps_route", lambda b: route)
     xyz = _t(_cloud(13, 3, n, scale=20.0))
+    _build.reset_launches()
     got = sampling.farthest_point_sample(xyz.to(cuda), m)
     np.testing.assert_array_equal(got.cpu().numpy(), sampling.fps_plain(xyz, m).numpy())
+    assert _build.route_launches()["fps"] == {route or "cluster": 1}
+
+
+def _fps_cloud(kind, b, n):
+    rng = np.random.RandomState(22)
+    if kind == "gaussian":
+        return _cloud(23, b, n, scale=20.0)
+    if kind == "grid_ties":  # integer lattice: equal distances everywhere
+        return rng.randint(-6, 7, size=(b, n, 3)).astype(np.float32)
+    half = _cloud(24, b, (n + 1) // 2)  # every point twice
+    return np.concatenate([half, half[:, ::-1]], axis=1)[:, :n].copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "grid_ties", "duplicates"])
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("n", [16384, 16383, 4096, 1000])
+def test_fps_cluster_route_equals_plain(cuda, n, b, kind):
+    """Ties across CTAs and warps, a partial last slice (16,383, 1,000) and
+    the cluster sizes the occupancy query gives at 1, 2 and 8 clouds."""
+    xyz = _t(_fps_cloud(kind, b, n)).to(cuda)
+    m = 4096 if (n, b, kind) == (16384, 8, "gaussian") else 512  # the flagship's SA1
+    _build.reset_launches()
+    got = sampling.farthest_point_sample(xyz, m)  # b <= 16: the cluster route
+    assert _build.launches()["fps"] == 1
+    assert _build.route_launches()["fps"] == {"cluster": 1}
+    assert torch.equal(got, sampling.fps_plain(xyz, m))
 
 
 @pytest.mark.cuda
@@ -274,7 +351,7 @@ def test_ball_query_kernel_equals_plain(cuda, dilated):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [4, 67, 131, 259])
+@pytest.mark.parametrize("c", [1, 4, 67, 128, 131, 259])
 def test_gather_kernel_bit_identical(cuda, c):
     rng = np.random.RandomState(17)
     pts = _t(rng.randn(2, 300, c).astype(np.float32))
@@ -282,6 +359,51 @@ def test_gather_kernel_bit_identical(cuda, c):
     got = grouping.group_points(pts.to(cuda), idx.to(cuda))
     want = grouping.group_points(pts, idx)
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    ints = pts.view(torch.int32)  # i32 rows are copied as they are
+    assert torch.equal(grouping.group_points(ints.to(cuda), idx.to(cuda)).cpu(),
+                       grouping.group_points(ints, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 4, 128])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_gather_kernel_misaligned_source(cuda, c, offset):
+    """A contiguous source whose storage offset breaks the 16-byte alignment
+    of the vector copies."""
+    rng = np.random.RandomState(25)
+    flat = _t(rng.randn(2 * 300 * c + offset).astype(np.float32)).to(cuda)
+    pts = flat[offset:].view(2, 300, c)
+    assert pts.is_contiguous() and pts.data_ptr() % 16 != 0
+    idx = _t(rng.randint(0, 300, size=(2, 1000)).astype(np.int32)).to(cuda)
+    got = grouping.gather_rows(pts, idx)
+    assert torch.equal(got.view(torch.int32), grouping.gather_rows_plain(pts, idx).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_clamps_indices_and_takes_zero_rows(cuda):
+    rng = np.random.RandomState(26)
+    pts = _t(rng.randn(3, 50, 67).astype(np.float32)).to(cuda)
+    idx = _t(rng.randint(-40, 90, size=(3, 777)).astype(np.int32)).to(cuda)
+    idx[0, :4] = torch.tensor([-2**31, 2**31 - 1, -1, 50], dtype=torch.int32)
+    _build.reset_launches()
+    got = grouping.gather_rows(pts, idx)
+    want = pts.cpu()[torch.arange(3)[:, None], idx.cpu().long().clamp(0, 49)]
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    empty = grouping.gather_rows(pts, idx[:, :0])
+    assert empty.shape == (3, 0, 67)
+    assert _build.launches()["gather"] == 1  # nothing to launch for zero rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 4])
+def test_gather_kernel_takes_more_batch_rows_than_a_grid_column(cuda, c):
+    """b > 65,535 (the grid's y limit), on the word and the vector route."""
+    rng = np.random.RandomState(27)
+    b = 65535 + 7
+    pts = _t(rng.randn(b, 3, c).astype(np.float32)).to(cuda)
+    idx = _t(rng.randint(0, 3, size=(b, 2)).astype(np.int32)).to(cuda)
+    got = grouping.gather_rows(pts, idx)
+    assert torch.equal(got.view(torch.int32), grouping.gather_rows_plain(pts, idx).view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -326,5 +448,9 @@ def test_kernels_count_their_launches(cuda):
     xyz = torch.randn(1, 256, 3, device=cuda)
     sampling.farthest_point_sample(xyz, 8)
     sampling.farthest_point_sample(xyz, 8)
-    assert _build.launches()["fps"] == 2
+    with pytest.MonkeyPatch.context() as mp:  # both routes are the one kernel's
+        mp.setattr(sampling, "fps_route", lambda b: "block")
+        sampling.farthest_point_sample(xyz, 8)
+    assert _build.launches()["fps"] == 3
+    assert _build.route_launches()["fps"] == {"cluster": 2, "block": 1}
     assert os.path.exists(_build.library_path())
