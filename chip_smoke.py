@@ -11,29 +11,37 @@ Nine phases, each of which raises on failure (no error is caught):
 2. Each kernel against its plain PyTorch version on the card, at the
    flagship's shapes (batch 8), with the kernel's and the plain version's
    times (`cuda_ms`: events around back-to-back calls); K1 on both of its
-   routes at every D-FPS shape of the three paths; K4 against
+   routes at every D-FPS shape of the three paths; K2 on every route its
+   shape admits (picks equal to the plain version's) at SA2 and SA3 and at
+   SA2's shape over 1, 2 and 16 clouds, and at every cluster size that
+   fits at SA2 and SA3; K3 on both routes at SA1-SA3 and CG-SA; K4 against
    `torch.gather`; for the scatter-add (the gather's backward, whose float
    atomics add in no fixed order) also the difference between two launches.
 3. The main path: flagship 3DSSD inference (KITTI Car,
    `configs/kitti/3dssd/3dssd.yaml`, 16,384-point scans, bf16 as shipped,
    seeded weights) on a batch of 8 synthetic KITTI-like scans: forward,
    decode and NMS. Asserts finite outputs, at most 100 boxes per scan and
-   that every kernel was launched; prints scans/s at batch 8 and the median
-   batch-1 latency, and scans/s and a profile with K1 on each of its routes.
+   that every kernel was launched, each K1, K2 and K3 launch on the route
+   its shape takes; prints scans/s at batch 8 and the median batch-1
+   latency, and scans/s and a profile with K1 on each of its routes and
+   with K2 and K3 on their first designs' routes (one block a cloud; brute
+   force).
 4. The card against the CPU on one scan: the kernel path on the GPU and the
    plain path on the CPU, same weights, compared pick by pick and box by box.
 5. The training path: the flagship train step (`train_entry`, batch 8 =
    BATCH_SIZE 4 x GPU_NUM 2, bf16, Adam, fixed batch of synthetic scenes):
    a warm-up step and ten timed ones. Asserts finite losses, a lower total
    after the last step than after the first, moved BatchNorm statistics and
-   that every kernel launched in one step (the scatter-add 8 times); prints
+   that every kernel launched in one step (the scatter-add 8 times; K1-K3
+   by route as in phase 3); prints
    the step time, training scans/s, peak memory and a profile of one step.
 6. One f32 train step on the card against the CPU on 2 scans, same weights:
    sampling picks, losses, every gradient leaf and the new BatchNorm
    statistics.
 7. PointRCNN's kernels against their plain versions on the card, on the
    inputs of every launch in one PointRCNN forward (batch 4): K1 D-FPS on
-   both routes (RPN and the RCNN's 400 clouds), K3 ball query, K4 gather
+   both routes (RPN and the RCNN's 400 clouds), K3 ball query on both
+   routes (timed), K4 gather
    (RPN grouping, RegionPool's xyz, features and mask, the last three timed
    against `torch.gather`) equal or bit-identical; K6
    three_nn at the four FP layers' shapes (indices equal, distances within
@@ -46,11 +54,11 @@ Nine phases, each of which raises on failure (no error is caught):
    f32, 16,384-point scans, 100 proposals, seeded weights) at batch 4.
    Asserts finite outputs, at most 100 boxes and proposals per scan and the
    launches of one forward (K6 4, K7 2, K1 6, K3 and K4 some, K2 and K5
-   none); prints scans/s, the median batch-1 latency, peak memory, a
-   profile; then at batch 1, 2, 4, 8 and 16 the median of nine timed
-   passes and the device busy time of a profiled one, and the fixed and
-   per-scan costs fitted to them. The batch of 4 is profiled again with K1
-   on its one-block route.
+   none; K1 and K3 by route); prints scans/s, the median batch-1 latency,
+   peak memory, a profile; then at batch 1, 2, 4, 8 and 16 the median of
+   nine timed passes and the device busy time of a profiled one, and the
+   fixed and per-scan costs fitted to them. The batch of 4 is profiled
+   again with K1 on its one-block route and with K3 on brute force.
 9. PointRCNN on the card against the CPU on one scan: RPN picks, head
    outputs, candidates, and the proposal NMS's keep sets (a candidate kept
    on one leg only must be a near-tie on the CPU's values); then the card's
@@ -62,9 +70,11 @@ The second line from the end is a JSON object with one entry per kernel:
 `launches_by_path` counts its launches in one run of each path (flagship
 inference, phase 3; one training step, phase 5; PointRCNN inference, phase
 8), `launches` is their sum; times and bounds are of the shape in `shape`
-(K1's on the route that shape takes; `routes` holds both routes' times at
-every D-FPS shape, and `launches_by_route` its launches by route on each
-path, which phases 3, 5 and 8 hold to the route each call's shape takes).
+(K1's, K2's and K3's on the route that shape takes; `routes` holds every
+route's times at each shape of theirs, and `launches_by_route` their
+launches by route on each path, which phases 3, 5 and 8 hold to the route
+each call's shape takes). K3's bound counts the pairs inside the outer
+ring only.
 The profiles of phases 3 and 8 list each D-FPS launch.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -159,14 +169,15 @@ def bound(n_bytes: float, flops: float) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def ball_query_pairs(idx_cnt, n: int, ns_list) -> int:
-    """(query, point) pairs K3 examines on this data: a query stops at the
-    point where its last ring fills (the ns-th hit), else scans all n."""
-    last = None
-    for (idx, cnt), ns in zip(idx_cnt, ns_list):
-        stop = torch.where(cnt >= ns, idx[..., ns - 1].long() + 1, torch.full_like(cnt, n).long())
-        last = stop if last is None else torch.maximum(last, stop)
-    return int(last.sum())
+def ball_query_ring_pairs(specs, xyz: torch.Tensor, q: torch.Tensor) -> int:
+    """(query, point) pairs inside the outer ring on this data: the pairs
+    whose d2 and ring tests the contract needs (K3's bound counts these
+    only; a pair outside every ring takes no work once a grid rules it out)."""
+    hi2 = max(s[1] for s in specs)
+    pairs = 0
+    for q0 in range(0, q.shape[1], 256):
+        pairs += int((grouping._pairwise_dist2(q[:, q0:q0 + 256], xyz) < hi2).sum())
+    return pairs
 
 
 def check(ok: bool, what: str) -> None:
@@ -185,11 +196,52 @@ def on_route(route: str):
     return mock.patch.object(sampling, "fps_route", lambda b: route)
 
 
-def check_fps_routes(path: str, want: dict[str, int]) -> dict[str, int]:
-    """K1's launches by route since the last reset, held to `want`."""
-    got = _build.route_launches()["fps"]
-    log(f"K1 launches by route in {path}: {got}")
-    check(got == want, f"{path}: K1 launches by route {got}, want {want}")
+def on_ffps_route(route: str):
+    """K2 forced onto `route` ("block" or "cluster")."""
+    return mock.patch.object(sampling, "ffps_route", lambda b, n, c: route)
+
+
+def on_ball_route(route: str):
+    """K3 forced onto `route` ("grid" or "brute")."""
+    return mock.patch.object(grouping, "ball_query_route", lambda n: route)
+
+
+def on_first_routes():
+    """K2 on its one-block route and K3 on its brute-force route: the first
+    designs of both, the yardstick of this run's end-to-end comparisons."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(on_ffps_route("block"))
+    stack.enter_context(on_ball_route("brute"))
+    return stack
+
+
+# The calls of each path to the kernels with routes: D-FPS clouds a call,
+# F-FPS (clouds, points, channels) a call, ball-query points a cloud a call
+# (3DSSD inference and its train step: SA1-SA3 and CG-SA at batch 8;
+# PointRCNN at batch 4: RPN SA1-SA4, then the RCNN's SA1-SA2 over 400 RoIs).
+PATH_CALLS = {
+    "3DSSD": dict(fps=[8, 8, 8], ffps=[(8, 4096, 67), (8, 512, 131)],
+                  ball_query=[16384, 4096, 1024, 512]),
+    "PointRCNN": dict(fps=[4, 4, 4, 4, 400, 400], ffps=[],
+                      ball_query=[16384, 4096, 1024, 256, 512, 128]),
+}
+
+
+def path_routes(path: str) -> dict[str, dict[str, int]]:
+    """The launches by route that the shape rules give a path's calls."""
+    calls = PATH_CALLS[path]
+    routes = {"fps": [fps_route(b) for b in calls["fps"]],
+              "ffps": [sampling.ffps_route(*shape) for shape in calls["ffps"]],
+              "ball_query": [grouping.ball_query_route(n) for n in calls["ball_query"]]}
+    return {k: {r: v.count(r) for r in sorted(set(v))} for k, v in routes.items()}
+
+
+def check_routes(what: str, path: str) -> dict[str, dict[str, int]]:
+    """K1's, K2's and K3's launches by route since the last reset, held to
+    what the shape rules give `path`."""
+    got, want = _build.route_launches(), path_routes(path)
+    log(f"launches by route in {what}: {got}")
+    check(got == want, f"{what}: launches by route {got}, want {want}")
     return got
 
 
@@ -226,6 +278,41 @@ def phase_environment() -> str:
 
 
 # ----------------------------------------------------------------- phase 2
+
+def ball_query_routes(name: str, pts, q, radii, ns, dilated: bool, plain: bool = True) -> dict:
+    """K3 on both routes against its plain version at one shape (idx and cnt
+    equal), each route timed; the plain version timed too with `plain`."""
+    specs = ring_specs(radii, ns, dilated)
+    ref = ball_query_multi_plain(specs, pts, q)
+    times = {}
+    for route in ("grid", "brute"):
+        with on_ball_route(route):
+            got = ball_query_multi(radii, ns, pts, q, dilated=dilated)
+            for (gi, gc), (ri, rc) in zip(got, ref):
+                check(torch.equal(gc, rc), f"ball query cnt differs on the {route} route at {name}")
+                check(torch.equal(gi, ri), f"ball query idx differs on the {route} route at {name}")
+            times[route] = cuda_ms(lambda: ball_query_multi(radii, ns, pts, q, dilated=dilated), 20)
+    route = grouping.ball_query_route(pts.shape[1])
+    b, m = q.shape[:2]
+    pairs = ball_query_ring_pairs(specs, pts, q)
+    # bytes: points and queries read once, idx and cnt written once; operations:
+    # per pair inside the outer ring, d2 (3 sub, 3 mul, 2 add) and a test a ring
+    out = dict(shape=f"{name} {list(q.shape)} x {list(pts.shape)}", route=route,
+               ms=times[route], times=times, ring_pairs=pairs,
+               **bound(4 * (pts.numel() + q.numel() + b * m * (sum(ns) + len(ns))),
+                       pairs * (8 + len(ns))))
+    if plain:
+        out["plain_ms"] = cuda_ms(lambda: ball_query_multi_plain(specs, pts, q),
+                                  3 if pts.shape[1] >= 4096 else 20)
+    fill = [f"{float(c.float().mean()):.1f}" for _, c in ref]
+    log(f"K3 ball query {out['shape']} rings {list(radii)} ns {list(ns)}: idx and cnt equal on "
+        f"both routes (mean cnt {fill}); grid {times['grid']:.4f} ms, brute force "
+        f"{times['brute']:.4f} ms ({times['brute'] / times['grid']:.2f}x); takes the {route} "
+        f"route" + (f"; plain {out['plain_ms']:.3f} ms" if plain else "")
+        + f"; {pairs} pairs inside the outer ring, bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']})")
+    return out
+
 
 def phase_kernels(scans: torch.Tensor) -> list[dict]:
     log(f"== phase 2: kernels against their plain versions (batch {BATCH})")
@@ -278,66 +365,84 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
                        **bound(4 * (b * n * 3 + b * 4096), b * 4095 * n * 10),
                        library_ms=None, shape=sa1["shape"], routes=k1, check="equal"))
 
-    # K2: F-FPS at SA2 (4,096 x 67 -> 512) and SA3 (512 x 131 -> 256)
-    worst, k2_times = 0.0, []
-    for n, c, m in ((4096, 67, 512), (512, 131, 256)):
-        feat = torch.randn(BATCH, n, c - 3, generator=gen).to(dev).relu()
-        fused = torch.cat([xyz1[:, :n], feat], -1)
-        got = farthest_point_sample_features(fused, m)
-        ref = ffps_plain(fused, m)
-        check(bool((got[:, 0] == 0).all()), "F-FPS pick 0 is not index 0")
-        short = fps_pick_shortfall(fused, got)
-        check(short <= FFPS_TIE_RTOL, f"F-FPS pick {short:.3g} below the farthest point")
+    # K2: F-FPS at SA2 (4,096 x 67 -> 512) and SA3 (512 x 131 -> 256), and at
+    # SA2's shape over 1, 2 and 16 clouds, on every route the shape admits
+    feat16 = torch.randn(16, 4096, 64, generator=gen).to(dev).relu()
+    sa2 = torch.cat([torch.cat([xyz1, xyz1.flip(0)]), feat16], -1)  # [16, 4096, 67]
+    sa3 = torch.cat([xyz1[:, :512], torch.randn(BATCH, 512, 128, generator=gen).to(dev).relu()],
+                    -1)
+    k2_shapes = [("SA2", sa2[:BATCH].contiguous(), 512), ("SA3", sa3, 256),
+                 ("SA2 batch 1", sa2[:1].contiguous(), 512),
+                 ("SA2 batch 2", sa2[:2].contiguous(), 512), ("SA2 batch 16", sa2, 512)]
+    k2, worst = {}, 0.0
+    for name, fused, m in k2_shapes:
+        b, n, c = fused.shape
+        plain = ffps_plain(fused, m)
+        size = sampling.ffps_cluster_size(b, n, c)
+        times = {}
+        for route in ("block", "cluster") if size else ("block",):
+            with on_ffps_route(route):
+                got = farthest_point_sample_features(fused, m)
+                check(torch.equal(got, plain), f"F-FPS {route} route disagrees with plain at {name}")
+                times[route] = cuda_ms(lambda: farthest_point_sample_features(fused, m), 5)
+        route = sampling.ffps_route(b, n, c)
+        short = fps_pick_shortfall(fused, farthest_point_sample_features(fused, m))
+        check(short <= FFPS_TIE_RTOL, f"F-FPS pick {short:.3g} below the farthest point at {name}")
         worst = max(worst, short)
-        same = int((got == ref).sum())
-        ms = cuda_ms(lambda: farthest_point_sample_features(fused, m), 5)
-        plain_ms = cuda_ms(lambda: ffps_plain(fused, m), 3)
+        # the cluster route at each size that fits (sizes past residency run in waves)
+        sizes = {}
+        for s in ((16, 8, 4, 2) if size else ()):
+            if sampling.ffps_cluster_fits(n, c, s):
+                with on_ffps_route("cluster"), mock.patch.object(
+                        sampling, "ffps_cluster_size", lambda b_, n_, c_, s=s: s):
+                    check(torch.equal(farthest_point_sample_features(fused, m), plain),
+                          f"F-FPS cluster route of size {s} disagrees with plain at {name}")
+                    sizes[s] = cuda_ms(lambda: farthest_point_sample_features(fused, m), 5)
+        chosen = times[route]
         # per pick, point and channel: sub, mul, add; per pick and point a min
-        k2_times.append((ms, plain_ms, f"{list(fused.shape)} -> {m}",
-                         bound(4 * (BATCH * n * c + BATCH * m), BATCH * (m - 1) * n * (3 * c + 2))))
-        log(f"K2 F-FPS {list(fused.shape)} -> {m}: worst relative shortfall {short:.3g}; "
-            f"{same}/{got.numel()} picks equal to plain; {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-            f"bound {k2_times[-1][3]['bound_ms']:.4f} ms ({k2_times[-1][3]['bound_by']})")
+        k2[name] = dict(shape=f"{list(fused.shape)} -> {m}", route=route, cluster_size=size,
+                        ms=chosen, times=times, sizes=sizes,
+                        **bound(4 * (b * n * c + b * m), b * (m - 1) * n * (3 * c + 2)))
+        log(f"K2 F-FPS {name} {list(fused.shape)} -> {m}: picks equal to plain on "
+            f"{len(times)} route(s); worst relative shortfall {short:.3g}; "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+            + (f"; cluster of {size} is {times['block'] / chosen:.2f}x the one-block route"
+               if size else "; no cluster size fits and stays resident")
+            + (f"; by cluster size: " + ", ".join(f"{k} {v:.3f} ms" for k, v in sizes.items())
+               if sizes else "")
+            + f"; takes the {route} route, bound {k2[name]['bound_ms']:.4f} ms "
+              f"({k2[name]['bound_by']})")
+    plain_ms = {name: cuda_ms(lambda: ffps_plain(fused, m), 3)
+                for name, fused, m in k2_shapes[:2]}
+    log(f"K2 plain at SA2 / SA3: {plain_ms['SA2']:.3f} / {plain_ms['SA3']:.3f} ms")
     report.append(dict(name="ffps", route="cuda", source="ssd3d_torch/csrc/ffps.cu",
-                       replaces="ssd3d/ops/pallas/fps.py:310", launches=0, max_abs_err=worst,
-                       ms=k2_times[0][0], plain_ms=k2_times[0][1], **k2_times[0][3],
-                       library_ms=None, shape=k2_times[0][2],
-                       check="tie-aware: max relative shortfall of a pick"))
+                       replaces="ssd3d/ops/pallas/fps.py:310", launches=0, max_abs_err=0.0,
+                       ms=k2["SA2"]["ms"], plain_ms=plain_ms["SA2"],
+                       bound_ms=k2["SA2"]["bound_ms"], bound_by=k2["SA2"]["bound_by"],
+                       library_ms=None, shape=k2["SA2"]["shape"], routes=k2,
+                       sa3_plain_ms=plain_ms["SA3"], worst_relative_shortfall=worst,
+                       check="picks equal to plain on every route; tie-aware shortfall"))
 
-    # K3: ball query at all four SA layers' shapes
+    # K3: ball query at all four SA layers' shapes, on both routes
     cg_pts = xyz1[:, :512].contiguous()
     cg_q = (cg_pts[:, :256] + torch.randn(BATCH, 256, 3, generator=gen).to(dev)).contiguous()
-    k3 = [
+    k3_shapes = [
         ("SA1", xyz, xyz1, [0.2, 0.4, 0.8], [32, 32, 64], True),
         ("SA2", xyz1, xyz1[:, :1024].contiguous(), [0.4, 0.8, 1.6], [32, 32, 64], True),
         ("SA3", xyz1[:, :1024].contiguous(), xyz1[:, :512].contiguous(),
          [1.6, 3.2, 4.8], [32, 32, 32], True),
         ("CG-SA", cg_pts, cg_q, [4.8, 6.4], [16, 32], False),
     ]
-    k3_times, idx_sa = [], {}
-    for name, pts, q, radii, ns, dilated in k3:
-        got = ball_query_multi(radii, ns, pts, q, dilated=dilated)
-        specs = ring_specs(radii, ns, dilated)
-        ref = ball_query_multi_plain(specs, pts, q)
-        for (gi, gc), (ri, rc) in zip(got, ref):
-            check(torch.equal(gc, rc), f"ball query cnt differs at {name}")
-            check(torch.equal(gi, ri), f"ball query idx differs at {name}")
-        idx_sa[name] = got[-1][0]
-        ms = cuda_ms(lambda: ball_query_multi(radii, ns, pts, q, dilated=dilated), 20)
-        plain_ms = cuda_ms(lambda: ball_query_multi_plain(specs, pts, q),
-                           3 if pts.shape[1] >= 4096 else 20)
-        # per pair examined: d2 (3 sub, 3 mul, 2 add) and one compare a ring
-        pairs = ball_query_pairs(got, pts.shape[1], ns)
-        k3_times.append((ms, plain_ms, f"{name} {list(q.shape)} x {list(pts.shape)}",
-                         bound(4 * (pts.numel() + q.numel() + BATCH * q.shape[1] * (sum(ns) + len(ns))),
-                               pairs * (8 + len(ns)))))
-        fill = [f"{float(c.float().mean()):.1f}" for _, c in got]
-        log(f"K3 ball query {name} {list(q.shape)} x {list(pts.shape)} rings {radii}: "
-            f"idx and cnt equal (mean cnt {fill}); {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    k3, idx_sa = {}, {}
+    for name, pts, q, radii, ns, dilated in k3_shapes:
+        k3[name] = ball_query_routes(name, pts, q, radii, ns, dilated)
+        idx_sa[name] = ball_query_multi(radii, ns, pts, q, dilated=dilated)[-1][0]
+    sa1 = k3["SA1"]
     report.append(dict(name="ball_query", route="cuda", source="ssd3d_torch/csrc/ball_query.cu",
                        replaces="ssd3d/ops/pallas/ring_words.py:144", launches=0,
-                       max_abs_err=0.0, ms=k3_times[0][0], plain_ms=k3_times[0][1],
-                       **k3_times[0][3], library_ms=None, shape=k3_times[0][2], check="equal"))
+                       max_abs_err=0.0, ms=sa1["ms"], plain_ms=sa1["plain_ms"],
+                       bound_ms=sa1["bound_ms"], bound_by=sa1["bound_by"], library_ms=None,
+                       shape=sa1["shape"], routes=k3, check="idx and cnt equal on both routes"))
 
     # K4: the grouping gather at c = 4, 67, 131, 259 with each layer's index
     k4 = [(scans, idx_sa["SA1"]), (torch.randn(BATCH, 4096, 67, generator=gen).to(dev),
@@ -419,8 +524,8 @@ def phase_main_path(scans: torch.Tensor) -> dict:
     check(launches["scatter_add"] == 0, "inference launched the gather's backward")
     check(launches["three_nn"] == 0 and launches["sa_fused"] == 0,
           "3DSSD launched a PointRCNN kernel")
-    # D-FPS at SA1-SA3, 8 clouds each: the cluster route
-    launches["fps_routes"] = check_fps_routes("3DSSD inference", {"cluster": 3})
+    # K1, K2, K3 on the route each call's shape takes
+    launches["routes"] = check_routes("3DSSD inference", "3DSSD")
     valid = det["valid"]
     check(det["boxes"].shape == (BATCH, 100, 7) and valid.shape == (BATCH, 100),
           f"detections have shape {tuple(det['boxes'].shape)}")
@@ -433,6 +538,7 @@ def phase_main_path(scans: torch.Tensor) -> dict:
     iters = 10
     infer(scans)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the peak of inference, not of phase 2's plain versions
     t0 = time.perf_counter()
     for _ in range(iters):
         infer(scans)
@@ -449,7 +555,7 @@ def phase_main_path(scans: torch.Tensor) -> dict:
         f"batch-1 latency median {statistics.median(lat[1:]):.2f} ms; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    profile_once(lambda: infer(scans), f"batch of {BATCH}", each="dfps")
+    profile_once(lambda: infer(scans), f"batch of {BATCH}", each="fps|ball_query|grid_build")
     # K1's one-block route (the first design) against the cluster route, in
     # turns: scans/s of `iters` batches each, then one profiled batch
     rates = []
@@ -465,13 +571,31 @@ def phase_main_path(scans: torch.Tensor) -> dict:
     with on_route("block"):
         profile_once(lambda: infer(scans), f"batch of {BATCH}, K1 on the one-block route", top=0,
                      each="dfps")
+    # K2 and K3 on their first designs (one block a cloud; a scan of every point)
+    # against their chosen routes, in turns, then one profiled batch
+    rates = []
+    for old in (True, False, False, True):
+        with on_first_routes() if old else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                infer(scans)
+            torch.cuda.synchronize()
+            rates.append(f"{'first routes' if old else 'chosen routes'} "
+                         f"{BATCH * iters / (time.perf_counter() - t0):.2f}")
+    log(f"scans/s at batch {BATCH} with K2 and K3 on their first routes and on their chosen routes, "
+        f"in turns: {', '.join(rates)}")
+    with on_first_routes():
+        profile_once(lambda: infer(scans), f"batch of {BATCH}, K2 and K3 on their first routes",
+                     top=6, each="ffps|ball_query")
     return launches
 
 
 def profile_once(fn, what: str, top: int = 12, each: str | None = None) -> tuple[float, float]:
     """Where the device time of one call goes (torch.profiler): wall, device
-    busy share and the `top` kernels that take most of it; with `each`, also
-    every launch of the kernels whose name holds it, in launch order.
+    busy share and the `top` kernels that take most of it; with `each` (a
+    regular expression), also every launch of the kernels whose name it
+    matches, in launch order.
     -> (wall ms, device busy ms) under the profiler.
 
     The trace has lost a call's first launches when the call came first
@@ -505,7 +629,7 @@ def profile_once(fn, what: str, top: int = 12, each: str | None = None) -> tuple
     for name, t in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]:
         log(f"  {sum(t) / 1e3:8.3f} ms  x{len(t):<5d} {name[:90]}")
     if each:
-        launches = [e for e in device if each in e.name]
+        launches = [e for e in device if re.search(each, e.name)]
         log(f"  each {each} launch in order ({len(launches)} in the trace): " + "; ".join(
             f"{re.sub(r'^.*::|[(].*$', '', e.name)} {e.time_range.elapsed_us() / 1e3:.3f} ms"
             for e in launches))
@@ -631,7 +755,7 @@ def phase_training() -> dict:
           "3DSSD training launched a PointRCNN kernel")
     check(launches["scatter_add"] == 8, "the gather's backward did not run once per "
           "gradient-carrying grouping gather (3 + 3 + 2)")
-    launches["fps_routes"] = check_fps_routes("3DSSD training", {"cluster": 3})
+    launches["routes"] = check_routes("3DSSD training", "3DSSD")
     torch.cuda.reset_peak_memory_stats()
     metrics, times = [], []
     for _ in range(TRAIN_STEPS):
@@ -865,9 +989,10 @@ def capture_two_stage_inputs(forward, points: torch.Tensor, sa_layers) -> dict:
 
 def check_path_kernels(seen: dict) -> dict:
     """K1, K3 and K4 against their plain versions on the card, at every call
-    of one PointRCNN forward (phase 2 holds them at 3DSSD's shapes); K1 on
-    both routes. -> K4's and torch.gather's times at RegionPool's gathers
-    (the calls whose source has other widths than the RPN's)."""
+    of one PointRCNN forward (phase 2 holds them at 3DSSD's shapes); K1 and
+    K3 on both routes. -> (K4's and torch.gather's times at RegionPool's
+    gathers, the calls whose source has other widths than the RPN's; K3's
+    times on both routes at each call)."""
     shapes = []
     for (xyz, npoint), _ in seen["fps"]:
         plain = fps_plain(xyz, npoint)
@@ -878,16 +1003,12 @@ def check_path_kernels(seen: dict) -> dict:
         shapes.append(f"{list(xyz.shape)}->{npoint} ({fps_route(xyz.shape[0])})")
     log(f"K1 D-FPS at the path's {len(shapes)} calls, picks equal on both routes: "
         f"{', '.join(shapes)}")
-    shapes = []
-    for (radii, ns, xyz, new_xyz), kwargs in seen["ball_query"]:
-        dilated = kwargs.get("dilated", False)
-        got = ball_query_multi(radii, ns, xyz, new_xyz, dilated=dilated)
-        ref = ball_query_multi_plain(ring_specs(radii, ns, dilated), xyz, new_xyz)
-        for (gi, gc), (ri, rc) in zip(got, ref):
-            check(torch.equal(gc, rc) and torch.equal(gi, ri),
-                  f"ball query differs from plain at {list(new_xyz.shape)} x {list(xyz.shape)}")
-        shapes.append(f"{list(new_xyz.shape)}x{xyz.shape[1]} ns {list(ns)}")
-    log(f"K3 ball query at the path's {len(shapes)} calls, idx and cnt equal: {', '.join(shapes)}")
+    names = ["RPN SA1", "RPN SA2", "RPN SA3", "RPN SA4", "RCNN SA1", "RCNN SA2"]
+    check(len(seen["ball_query"]) == len(names), f"{len(seen['ball_query'])} ball queries")
+    k3 = {}
+    for name, ((radii, ns, xyz, new_xyz), kwargs) in zip(names, seen["ball_query"]):
+        k3[name] = ball_query_routes(name, xyz, new_xyz, radii, ns, kwargs.get("dilated", False),
+                                     plain=False)
     shapes, pool = [], {}
     # the forward's last three gathers are RegionPool's: xyz, features, mask
     check([src.shape[2] for (src, _), _ in seen["gather"][-3:]] == [3, 128, 1],
@@ -910,13 +1031,13 @@ def check_path_kernels(seen: dict) -> dict:
                 f"{pool[shape]['ms'] / pool[shape]['library_ms']:.2f}), bound "
                 f"{pool[shape]['bound_ms']:.4f} ms")
     log(f"K4 gather at the path's {len(shapes)} calls, bit-identical: {', '.join(shapes)}")
-    return pool
+    return pool, k3
 
 
 @torch.inference_mode()
-def phase_two_stage_kernels(gather_entry: dict) -> list[dict]:
-    """-> the report's entries of K6 and K7; RegionPool's K4 times go into
-    phase 2's `gather_entry`."""
+def phase_two_stage_kernels(report: list[dict]) -> list[dict]:
+    """-> the report's entries of K6 and K7; RegionPool's K4 times and the
+    path's K3 times go into phase 2's entries of K4 and K3 in `report`."""
     log(f"== phase 7: PointRCNN's kernels against their plain versions, on the inputs "
         f"of one forward at batch {TWO_STAGE_BATCH}")
     _, model, rpn_spec, _, n = pointrcnn(device="cuda", seed=0)
@@ -927,7 +1048,9 @@ def phase_two_stage_kernels(gather_entry: dict) -> list[dict]:
     check(len(seen["three_nn"]) == 4 and len(seen["sa_fused"]) == 2
           and len(seen["sa_module"]) == 2,
           f"captured {len(seen['three_nn'])} three_nn and {len(seen['sa_fused'])} fused-SA calls")
-    gather_entry["other_shapes"].update(check_path_kernels(seen))
+    pool, k3 = check_path_kernels(seen)
+    next(e for e in report if e["name"] == "gather")["other_shapes"].update(pool)
+    next(e for e in report if e["name"] == "ball_query")["routes"].update(k3)
     report = []
 
     # K6 at the four FP shapes, FP4 (256 x 64) to FP1 (16,384 x 4,096)
@@ -1045,7 +1168,7 @@ def phase_two_stage() -> dict:
     check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
     check(launches["ball_query"] > 0 and launches["gather"] > 0, "K3 or K4 was not launched")
     # the RPN's SA1-SA4 over 4 clouds, the RCNN's SA1-SA2 over 400
-    launches["fps_routes"] = check_fps_routes("PointRCNN inference", {"cluster": 4, "block": 2})
+    launches["routes"] = check_routes("PointRCNN inference", "PointRCNN")
     b = TWO_STAGE_BATCH
     check(det["boxes"].shape == (b, 100, 7) and det["proposals"].shape == (b, 100, 7),
           f"detections {tuple(det['boxes'].shape)}, proposals {tuple(det['proposals'].shape)}")
@@ -1067,10 +1190,14 @@ def phase_two_stage() -> dict:
     log(f"PointRCNN throughput at batch {b}: {b * PASSES / sum(t):.2f} scans/s over {PASSES} "
         f"passes (median pass {statistics.median(t) * 1e3:.2f} ms); batch-1 latency median "
         f"{statistics.median(lat[1:]):.2f} ms of {PASSES}; peak memory {peak:.2f} GiB")
-    profile_once(lambda: fn(points), f"PointRCNN batch of {b}", top=16, each="dfps")
+    profile_once(lambda: fn(points), f"PointRCNN batch of {b}", top=16,
+                 each="dfps|ball_query|grid_build")
     with on_route("block"):
         profile_once(lambda: fn(points), f"PointRCNN batch of {b}, K1 on the one-block route",
                      top=0, each="dfps")
+    with on_ball_route("brute"):
+        profile_once(lambda: fn(points), f"PointRCNN batch of {b}, K3 on the brute-force route",
+                     top=0, each="ball_query")
 
     # batch scaling on other scans: at each batch a warm-up, PASSES timed
     # passes (the host-side NMS sweep moves one pass by ~20%) and one
@@ -1412,15 +1539,15 @@ def main() -> int:
     timed(phase_card_vs_cpu, scans)
     train_launches = timed(phase_training)
     timed(phase_train_card_vs_cpu)
-    report += timed(phase_two_stage_kernels, next(e for e in report if e["name"] == "gather"))
+    report += timed(phase_two_stage_kernels, report)
     two_stage_launches = timed(phase_two_stage)
     timed(phase_two_stage_card_vs_cpu, scans)
     paths = {"inference": infer_launches, "train": train_launches, "two_stage": two_stage_launches}
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["name"] == "fps":
-            entry["launches_by_route"] = {p: n["fps_routes"] for p, n in paths.items()}
+        if entry["name"] in ("fps", "ffps", "ball_query"):
+            entry["launches_by_route"] = {p: n["routes"][entry["name"]] for p, n in paths.items()}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,23 +9,59 @@
 // Where the TPU built the [n, n] distance matrix first (512 MB at the
 // flagship's SA2 segment, batch 8), this kernel computes the picked point's
 // row on the fly: d2 = sum_c (f_c - f_pick,c)^2 with exact differences and
-// the channels accumulated in order, the same arithmetic as the plain PyTorch
-// version in ssd3d_torch/ops/sampling.py. One pick costs n * c multiply-adds
-// and reads the cloud's n * c floats once (1.1 MB at n = 4,096, c = 67; the
-// batch's 8.8 MB stays in the 50 MB L2).
+// the channels accumulated in order by one thread, the same arithmetic as the
+// plain PyTorch version in ssd3d_torch/ops/sampling.py. One pick costs
+// n * c subtract-multiply-add chains.
 //
-// What bounds it on the H100: the per-pick read of the cloud from L2 by one
-// SM, plus the two block barriers of the argmax. Design: one block of 1,024
-// threads per cloud; the fused vectors arrive channel-major ([b, c, n]) so a
-// warp reads 32 consecutive points of one channel per load (coalesced); the
-// picked vector is staged in shared memory; the distance field stays in
-// registers (PPT points a thread). Splitting a cloud over several SMs, and
-// keeping the SA3 cloud (512 x 131 floats = 268 KB) on chip, is later work.
+// What bounds it on the H100: the m picks are sequential, and each needs the
+// whole cloud's n * c chains and then an argmax over the cloud. One SM alone
+// re-reads the cloud from L2 every pick (1.1 MB at SA2: ~9.6 us a pick). Over
+// a cluster, a pick costs the slice's chains (about 0.4 us at SA2 on 64
+// SMs: 3 f32 operations a channel, none fused), the key exchange (~0.6 us,
+// as K1's) and the winner's row reaching every CTA (an L2 round trip).
+//
+// Two routes, chosen by the wrapper from the shape (ops/sampling.py,
+// `ffps_cluster_size`):
+//
+// - Cluster route: one cloud over a thread-block cluster of 2 to 16 CTAs,
+//   one CTA an SM. Each CTA keeps its contiguous slice of the points, all c
+//   channels, in shared memory, point-major (a row stride of c rounded up to
+//   a multiple of four floats, an odd number of 16-byte vectors, so a warp's
+//   vector loads of 32 consecutive rows meet no bank conflict), loaded
+//   straight from the [b, n, c] input. A thread owns points of the slice
+//   and sums each point's channels in order; the running distances stay in
+//   shared memory. The argmax is K1's exchange (fps.cu): each warp sends its
+//   64-bit key (distance bits over 0xFFFFFFFF - index) with st.async into
+//   its own slot of every CTA, counted on that CTA's mbarrier of the pick's
+//   parity, and no block or cluster barrier runs in the loop. Every warp
+//   then copies the winner's row from global memory (L2, then L1 for the
+//   CTA's other warps) into its own row buffer, so no block barrier is
+//   needed for the broadcast either. (Two other ways to move the row were
+//   slower at every path shape, PERF.md §6: reading it from the owning
+//   CTA's shared memory over DSMEM, and each CTA sending its best key with
+//   that point's row to every CTA, behind a block barrier.) The wrapper
+//   takes the largest cluster size whose
+//   slice fits in shared memory and at which all b clusters are resident at
+//   once (cudaOccupancyMaxActiveClusters).
+// - One-block route, where no cluster size satisfies both (SA2's shape at
+//   16 clouds): one block of 1,024 threads per cloud, the fused vectors
+//   channel-major ([b, c, n], transposed by the wrapper) so a warp reads 32
+//   consecutive points of one channel per load; the picked vector staged in
+//   shared memory; the distances in registers; a block-wide argmax with two
+//   barriers a pick.
 #include <climits>
 
+#include <cooperative_groups.h>
+
+#include "cluster.cuh"
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+using namespace ssd3d;
+
 namespace {
+
+// ------------------------------------------------------- one-block route
 
 constexpr int kThreads = 1024;
 constexpr int kMaxPoints = 8192;
@@ -95,18 +131,246 @@ cudaError_t launch(const float* feat, int* out, int b, int n, int c, int m,
   return cudaGetLastError();
 }
 
+cudaError_t launch_block_route(const float* feat, int* out, int b, int n, int c, int m,
+                               cudaStream_t stream) {
+  if (n > kMaxPoints || c > kMaxChannels) return cudaErrorInvalidValue;
+  const int ppt = (n + kThreads - 1) / kThreads;
+  if (ppt <= 1) return launch<1>(feat, out, b, n, c, m, stream);
+  if (ppt <= 2) return launch<2>(feat, out, b, n, c, m, stream);
+  if (ppt <= 4) return launch<4>(feat, out, b, n, c, m, stream);
+  return launch<8>(feat, out, b, n, c, m, stream);
+}
+
+// -------------------------------------------------------- cluster route
+//
+// The plan below (slice, threads, row stride, shared memory) is mirrored by
+// ops/sampling.py `ffps_cluster_plan`, which decides whether a size fits.
+
+constexpr int kCtaThreads = 512;                           // at most, a CTA
+constexpr int kMaxCluster = 16;
+constexpr int kMaxSlots = kMaxCluster * kCtaThreads / 32;  // one a warp of the cluster
+constexpr int kSpreadSmem = 120 * 1024;                    // > half an SM: one CTA an SM
+constexpr int kMaxSmem = 232448;                           // a block's shared memory
+constexpr int kRowLoads = 8;                               // a lane, copying a row
+// the kernel's static shared memory: keys and two barriers
+constexpr int kStaticSmem = 8 * (2 * kMaxSlots + 2);
+
+struct Plan {
+  int slice;    // points a CTA
+  int threads;  // a CTA
+  int stride;   // floats a row
+  size_t smem;  // dynamic shared memory
+};
+
+// c rounded up to whole 16-byte vectors, and to an odd number of them
+__host__ __device__ inline int row_stride(int c) {
+  int vec = (c + 3) / 4;
+  if (vec % 2 == 0) ++vec;
+  return 4 * vec;
+}
+
+Plan plan(int n, int c, int csize) {
+  Plan p;
+  p.slice = (n + csize - 1) / csize;
+  const int want = (p.slice + 31) / 32 * 32;
+  p.threads = want > kCtaThreads ? kCtaThreads : want;
+  p.stride = row_stride(c);
+  const size_t need = sizeof(float) * ((size_t)p.slice * p.stride +
+                                       (size_t)(p.threads / 32) * p.stride + p.slice);
+  p.smem = need > (size_t)kSpreadSmem ? need : (size_t)kSpreadSmem;
+  return p;
+}
+
+// One cloud over one cluster; see the file's header.
+__global__ void __launch_bounds__(kCtaThreads)
+    ffps_cluster_kernel(const float* __restrict__ feat, int n, int c, int m, int slice,
+                        int stride, int* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned long long s_key[2][kMaxSlots];  // a pick's keys (by parity), one a warp
+  __shared__ __align__(8) unsigned long long s_bar[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int nslots = csize * nwarps;
+  const int slot = rank * nwarps + warp;
+  float* s_pts = smem;                                // [slice][stride]
+  float* s_rows = s_pts + (size_t)slice * stride;     // [nwarps][stride]
+  float* s_dist = s_rows + (size_t)nwarps * stride;   // [slice]
+  float* my_row = s_rows + (size_t)warp * stride;
+  const float* f = feat + (size_t)(blockIdx.x / csize) * n * c;
+  int* o = out + (size_t)(blockIdx.x / csize) * m;
+  const int first = rank * slice;
+  const int count = max(0, min(slice, n - first));
+
+  // this CTA's slice, point-major, zero in the padding columns
+  for (int e = threadIdx.x; e < slice * stride; e += blockDim.x) {
+    const int p = e / stride;
+    const int ch = e - p * stride;
+    s_pts[e] = (p < count && ch < c) ? f[(size_t)(first + p) * c + ch] : 0.0f;
+  }
+  for (int p = threadIdx.x; p < slice; p += blockDim.x) s_dist[p] = INFINITY;
+  if (threadIdx.x == 0) {
+    mbar_init(smem_addr(&s_bar[0]), 1);
+    mbar_init(smem_addr(&s_bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every slice and barrier is ready before the first st.async
+  cluster.sync();
+
+  // the warp's copy of point j's row from global memory (its lanes finished
+  // with the last one), kRowLoads loads a lane in flight at once
+  auto load_row = [&](int j) {
+    __syncwarp();
+    const float* g = f + (size_t)j * c;
+    for (int ch0 = 0; ch0 < c; ch0 += 32 * kRowLoads) {
+      float v[kRowLoads];
+#pragma unroll
+      for (int k = 0; k < kRowLoads; ++k) {
+        const int ch = ch0 + 32 * k + lane;
+        if (ch < c) v[k] = __ldg(g + ch);
+      }
+#pragma unroll
+      for (int k = 0; k < kRowLoads; ++k) {
+        const int ch = ch0 + 32 * k + lane;
+        if (ch < c) my_row[ch] = v[k];
+      }
+    }
+    __syncwarp();
+  };
+
+  // where this warp's key lands in CTA `lane` (lanes < csize send)
+  const uint32_t to = lane % csize;
+  const uint32_t to_slot0 = cluster_addr(smem_addr(&s_key[0][slot]), to);
+  const uint32_t to_slot1 = cluster_addr(smem_addr(&s_key[1][slot]), to);
+  const uint32_t to_bar0 = cluster_addr(smem_addr(&s_bar[0]), to);
+  const uint32_t to_bar1 = cluster_addr(smem_addr(&s_bar[1]), to);
+  if (rank == 0 && threadIdx.x == 0) o[0] = 0;
+  load_row(0);  // pick 0 is index 0
+  const int full4 = c & ~3;
+
+  for (int s = 1; s < m; ++s) {
+    const int par = s & 1;
+    // this buffer's previous phase (pick s - 2) has ended: arm it for pick s
+    if (threadIdx.x == 0) mbar_expect_tx(smem_addr(&s_bar[par]), nslots * 8);
+    unsigned long long best = 0ull;
+    for (int p = threadIdx.x; p < count; p += blockDim.x) {
+      const float* x = s_pts + (size_t)p * stride;
+      float acc = 0.0f;
+      int ch = 0;
+      for (; ch < full4; ch += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(x + ch);
+        const float4 r = *reinterpret_cast<const float4*>(my_row + ch);
+        float d = a.x - r.x;
+        acc = acc + d * d;
+        d = a.y - r.y;
+        acc = acc + d * d;
+        d = a.z - r.z;
+        acc = acc + d * d;
+        d = a.w - r.w;
+        acc = acc + d * d;
+      }
+      for (; ch < c; ++ch) {
+        const float d = x[ch] - my_row[ch];
+        acc = acc + d * d;
+      }
+      const float nd = fminf(s_dist[p], acc);
+      s_dist[p] = nd;
+      const unsigned long long key = fps_key(nd, first + p);
+      best = key > best ? key : best;
+    }
+    const unsigned long long wbest = warp_max_key(best);
+    if (lane < csize) st_async(par ? to_slot1 : to_slot0, wbest, par ? to_bar1 : to_bar0);
+    mbar_wait(smem_addr(&s_bar[par]), ((s - 1) >> 1) & 1);
+
+    unsigned long long win = 0ull;
+    for (int i = lane; i < nslots; i += 32) {
+      const unsigned long long key = s_key[par][i];
+      win = key > win ? key : win;
+    }
+    const int j = fps_key_index(warp_max_key(win));
+    if (rank == 0 && threadIdx.x == 0) o[s] = j;
+    if (s + 1 < m) load_row(j);
+  }
+  cluster.sync();  // no CTA exits while a store into it may be in flight
+}
+
+cudaError_t cluster_config(const Plan& pl, int csize, int b, cudaLaunchAttribute* attr,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg) {
+  if (pl.smem + kStaticSmem > (size_t)kMaxSmem) {
+    return cudaErrorInvalidValue;  // the slice does not fit
+  }
+  *cfg = {};
+  cfg->gridDim = dim3(b * csize);
+  cfg->blockDim = dim3(pl.threads);
+  cfg->dynamicSmemBytes = pl.smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+cudaError_t prepare() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const void* f = reinterpret_cast<const void*>(ffps_cluster_kernel);
+  cudaError_t err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMaxSmem - kStaticSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(f, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  done = err == cudaSuccess;
+  return err;
+}
+
+bool valid_size(int csize) {
+  return csize == 2 || csize == 4 || csize == 8 || csize == 16;
+}
+
 }  // namespace
 
-// feat: f32 [b, c, n] contiguous (channel-major); out: i32 [b, m].
-// n <= 8,192, c <= 4,096.
-extern "C" int ssd3d_ffps(const float* feat, int* out, int b, int n, int c, int m,
+// F-FPS. out: i32 [b, m].
+// csize 0, the one-block route: feat f32 [b, c, n] contiguous (channel-major),
+//   n <= 8,192, c <= 4,096.
+// csize 2, 4, 8 or 16, the cluster route over clusters of that size: feat f32
+//   [b, n, c] contiguous (point-major); the slice must fit in shared memory
+//   (ops/sampling.py `ffps_cluster_plan`).
+extern "C" int ssd3d_ffps(const float* feat, int* out, int b, int n, int c, int m, int csize,
                           cudaStream_t stream) {
-  if (b <= 0 || n <= 0 || c <= 0 || m <= 0 || n > kMaxPoints || c > kMaxChannels) {
-    return (int)cudaErrorInvalidValue;
+  if (b <= 0 || n <= 0 || c <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  if (csize == 0) return (int)launch_block_route(feat, out, b, n, c, m, stream);
+  if (!valid_size(csize)) return (int)cudaErrorInvalidValue;
+  const Plan pl = plan(n, c, csize);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = cluster_config(pl, csize, b, &attr, stream, &cfg);
+  if (err == cudaSuccess) err = prepare();
+  if (err == cudaSuccess) {
+    err = cudaLaunchKernelEx(&cfg, ffps_cluster_kernel, feat, n, c, m, pl.slice, pl.stride, out);
   }
-  const int ppt = (n + kThreads - 1) / kThreads;
-  if (ppt <= 1) return (int)launch<1>(feat, out, b, n, c, m, stream);
-  if (ppt <= 2) return (int)launch<2>(feat, out, b, n, c, m, stream);
-  if (ppt <= 4) return (int)launch<4>(feat, out, b, n, c, m, stream);
-  return (int)launch<8>(feat, out, b, n, c, m, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of csize CTAs, each holding a slice of an n x c cloud,
+// are resident at once on this card (no launch), or minus the cudaError.
+extern "C" int ssd3d_ffps_max_clusters(int n, int c, int csize) {
+  if (n <= 0 || c <= 0 || !valid_size(csize)) return -(int)cudaErrorInvalidValue;
+  const Plan pl = plan(n, c, csize);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = cluster_config(pl, csize, 1, &attr, nullptr, &cfg);
+  if (err == cudaSuccess) err = prepare();
+  int active = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveClusters(&active, reinterpret_cast<const void*>(ffps_cluster_kernel),
+                                         &cfg);
+  }
+  return err == cudaSuccess ? active : -(int)err;
 }

@@ -107,7 +107,7 @@ class Kernel:
 
     `launches` goes up by one each time the kernel is launched, and nowhere
     else; `chip_smoke.py` reads it to show the main path went through it. A
-    kernel with routes (K1) also counts each launch under the route the
+    kernel with routes (K1, K2, K3) also counts each launch under the route the
     caller names, in `by_route`."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
@@ -139,9 +139,12 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # both D-FPS routes, counted apart in FPS.by_route (the last int: 0 one block
 # a cloud, 1 a cluster a cloud)
 FPS = Kernel("fps", "ssd3d_dfps", [P, P, I, I, I, I])
-FFPS = Kernel("ffps", "ssd3d_ffps", [P, P, I, I, I, I])
+# both F-FPS routes (the last int: the cluster size, 0 for one block a cloud)
+FFPS = Kernel("ffps", "ssd3d_ffps", [P, P, I, I, I, I, I])
+# both ball-query routes (the int after the ring arrays: 1 for the grid, with
+# its scratch, cell cap and least cell edge)
 BALL_QUERY = Kernel("ball_query", "ssd3d_ball_query",
-                    [P, P, P, P, I, I, I, I, P, P, P, P])
+                    [P, P, P, P, I, I, I, I, P, P, P, P, I, P, P, P, I, ctypes.c_double])
 GATHER = Kernel("gather", "ssd3d_gather_rows", [P, P, P, I, I, I, I])
 SCATTER_ADD = Kernel("scatter_add", "ssd3d_scatter_add_rows", [P, P, P, I, I, I, I])
 THREE_NN = Kernel("three_nn", "ssd3d_three_nn", [P, P, P, P, I, I, I])
@@ -161,8 +164,8 @@ def launches() -> dict[str, int]:
 
 
 def route_launches() -> dict[str, dict[str, int]]:
-    """Launches by route of the kernels that have routes: {"fps": {...}}."""
-    return {"fps": dict(FPS.by_route)}
+    """Launches by route of the kernels that have routes (K1, K2, K3)."""
+    return {k.name: dict(k.by_route) for k in (FPS, FFPS, BALL_QUERY)}
 
 
 def dfps_cluster_size(b: int, n: int) -> int:
@@ -172,6 +175,22 @@ def dfps_cluster_size(b: int, n: int) -> int:
     if size <= 0:
         raise RuntimeError(f"ssd3d_torch: cluster occupancy query failed: cudaError {-size}")
     return size
+
+
+_ffps_clusters: dict[tuple[int, int, int], int] = {}
+
+
+def ffps_max_clusters(n: int, c: int, size: int) -> int:
+    """How many of K2's clusters of `size` CTAs for an n x c cloud are
+    resident at once on this card (an occupancy query, cached; nothing is
+    launched)."""
+    key = (n, c, size)
+    if key not in _ffps_clusters:
+        active = library().ssd3d_ffps_max_clusters(n, c, size)
+        if active < 0:
+            raise RuntimeError(f"ssd3d_torch: F-FPS occupancy query failed: cudaError {-active}")
+        _ffps_clusters[key] = active
+    return _ffps_clusters[key]
 
 
 def resolve_device(device: torch.device | str) -> torch.device:

@@ -4,10 +4,10 @@ the rotated-box interior query of the RoI pool.
 Counterpart of `ssd3d/ops/grouping.py` (`ball_query_multi`, `group_points`,
 `query_boxes_3d_points`).
 Each function dispatches on the device of its inputs: CUDA tensors launch the
-hand-written kernel (`csrc/ball_query.cu`, `csrc/gather.cu`, and for the
-gather's backward `csrc/scatter_add.cu`), CPU tensors take the plain PyTorch
-version beside it. `query_boxes_3d_points` is plain PyTorch on every device,
-as it is plain XLA in the JAX package.
+hand-written kernel (`csrc/ball_query.cu` on one of its two routes,
+`csrc/gather.cu`, and for the gather's backward `csrc/scatter_add.cu`), CPU
+tensors take the plain PyTorch version beside it. `query_boxes_3d_points` is
+plain PyTorch on every device, as it is plain XLA in the JAX package.
 
 The ball-query contract is the reference CUDA one (tf_grouping_g.cu:215-255,
 :308-357): per ring, the first `ns` points in index order inside the ring,
@@ -19,6 +19,7 @@ express that first-k rule on a TPU and has no counterpart here.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -80,12 +81,53 @@ def ball_query_multi_plain(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
             for ring in parts]
 
 
+# K3 has two routes (csrc/ball_query.cu): a uniform grid built per call, or a
+# brute-force scan of the cloud. The grid's cell is at least the outer radius
+# (from the f32 hi2 it is compared against) times 1 + GRID_MARGIN: a pair
+# inside a ring differs by less than the radius times 1 + 1e-7 along each
+# axis, and cells are computed in double precision, so a 1% margin keeps
+# every hit within one cell of its query. A cloud takes at most
+# grid_cell_cap(n) cells (the build grows the cell past that), and the grid
+# route at most GRID_MAX_POINTS points: the build sorts 16-bit cells and
+# indices in shared memory.
+GRID_MARGIN = 0.01
+GRID_MAX_POINTS = 16384
+GRID_MAX_CELLS = 65536
+# The grid route from this many points a cloud up (chip_smoke.py phases 2
+# and 7 time both routes at every shape of the three paths; PERF.md §6).
+GRID_MIN_POINTS = 2048
+
+
+def grid_cell_min(specs) -> float:
+    """The grid's least cell edge for these rings: the largest sqrt(hi2)
+    times 1 + GRID_MARGIN."""
+    return math.sqrt(max(s[1] for s in specs)) * (1.0 + GRID_MARGIN)
+
+
+def grid_cell_cap(n: int) -> int:
+    """Cells a cloud of n points may take: four a point, at least 64, at
+    most GRID_MAX_CELLS (a cell is a 16-bit key)."""
+    return min(GRID_MAX_CELLS, max(64, 4 * n))
+
+
+def ball_query_route(n: int) -> str:
+    """K3's route for clouds of n points: "grid" or "brute"."""
+    return "grid" if GRID_MIN_POINTS <= n <= GRID_MAX_POINTS else "brute"
+
+
 def _ball_query_cuda(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """K3 on the route `ball_query_route` picks (tests and timing patch it to
+    force one)."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     k = len(specs)
     if k > 4:
         raise ValueError(f"ball_query_multi: kernel takes at most 4 rings, got {k}")
+    route = ball_query_route(n)
+    if route not in ("grid", "brute"):
+        raise ValueError(f"ball_query_multi: unknown route {route!r}")
+    if route == "grid" and n > GRID_MAX_POINTS:
+        raise ValueError(f"ball_query_multi: the grid route takes n <= {GRID_MAX_POINTS}, got {n}")
     xyz, new_xyz = xyz.contiguous(), new_xyz.contiguous()
     ns_list = [s[2] for s in specs]
     idx = torch.empty(b, m, sum(ns_list), dtype=torch.int32, device=xyz.device)
@@ -94,11 +136,21 @@ def _ball_query_cuda(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
     hi2 = (ctypes.c_float * k)(*[s[1] for s in specs])
     ann = (ctypes.c_int * k)(*[int(s[3]) for s in specs])
     nsa = (ctypes.c_int * k)(*ns_list)
+    grids = cell_start = points_by_cell = None  # the grid route's scratch
+    cap, cell_min = 0, 0.0
+    if route == "grid":
+        cap, cell_min = grid_cell_cap(n), grid_cell_min(specs)
+        grids = torch.empty(b, 8, dtype=torch.float64, device=xyz.device)
+        cell_start = torch.empty(b, cap + 1, dtype=torch.int32, device=xyz.device)
+        points_by_cell = torch.empty(b, n, 4, dtype=torch.float32, device=xyz.device)
     _build.BALL_QUERY(
         xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
         b, n, m, k,
         ctypes.cast(lo2, ctypes.c_void_p), ctypes.cast(hi2, ctypes.c_void_p),
         ctypes.cast(ann, ctypes.c_void_p), ctypes.cast(nsa, ctypes.c_void_p),
+        int(route == "grid"),
+        *[t.data_ptr() if t is not None else None for t in (grids, cell_start, points_by_cell)],
+        cap, cell_min, route=route,
     )
     out, off = [], 0
     for r, ns in enumerate(ns_list):

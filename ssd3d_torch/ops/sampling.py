@@ -2,10 +2,10 @@
 
 Counterpart of `ssd3d/ops/sampling.py`. The two FPS functions dispatch on the
 device of their input: a CUDA tensor launches the hand-written kernel
-(`csrc/fps.cu`, `csrc/ffps.cu`), a CPU tensor takes the plain PyTorch version
-beside it. Both follow the JAX package's contract: pick 0 is index 0, the
-running minimum of squared distance decides the next pick, argmax ties go to
-the lowest index.
+(`csrc/fps.cu`, `csrc/ffps.cu`, each with two routes chosen from the shape),
+a CPU tensor takes the plain PyTorch version beside it. Both follow the JAX
+package's contract: pick 0 is index 0, the running minimum of squared
+distance decides the next pick, argmax ties go to the lowest index.
 
 Squared distances are written as separate rounded operations in a fixed
 order, ((dx*dx + dy*dy) + dz*dz) for xyz and a channel-ordered running sum
@@ -118,16 +118,84 @@ def ffps_plain(fused: torch.Tensor, npoint: int) -> torch.Tensor:
     return fps_from_dist_plain(fused_square_distance(fused), npoint)
 
 
+# K2 has two routes (csrc/ffps.cu): one cloud over a thread-block cluster, each
+# CTA holding its slice of the points in shared memory, or one block a cloud.
+# The cluster route's plan mirrors the kernel's `plan`: a CTA takes
+# ceil(n / size) points, a thread each up to 512 threads; rows of c floats
+# rounded up to an odd number of 16-byte vectors; shared memory for its
+# slice's rows, one row a warp (the winner's) and a distance a point, at
+# least 120 KB so that one CTA takes an SM, and 4,112 bytes of keys and
+# barriers on top. A block may use 232,448 bytes (227 KB) of shared memory.
+FFPS_CLUSTER_SIZES = (16, 8, 4, 2)
+FFPS_CTA_THREADS = 512
+FFPS_SPREAD_SMEM = 120 * 1024
+FFPS_STATIC_SMEM = 8 * (2 * 16 * FFPS_CTA_THREADS // 32 + 2)
+FFPS_BLOCK_SMEM = 232_448
+FFPS_BLOCK_MAX_POINTS = 8192
+
+
+def ffps_row_stride(c: int) -> int:
+    """Floats a row of the cluster route's slice: c rounded up to 16-byte
+    vectors, an odd number of them (no bank conflict between 8 rows)."""
+    vec = (c + 3) // 4
+    return 4 * (vec + 1 if vec % 2 == 0 else vec)
+
+
+def ffps_cluster_plan(n: int, c: int, size: int) -> dict:
+    """The cluster route's CTA for n points of c channels over `size` CTAs:
+    points a CTA, threads, row stride (floats) and dynamic shared memory."""
+    slice_ = -(-n // size)
+    threads = min(FFPS_CTA_THREADS, -(-slice_ // 32) * 32)
+    stride = ffps_row_stride(c)
+    need = 4 * (slice_ * stride + (threads // 32) * stride + slice_)
+    return dict(slice=slice_, threads=threads, stride=stride, smem=max(need, FFPS_SPREAD_SMEM))
+
+
+def ffps_cluster_fits(n: int, c: int, size: int) -> bool:
+    """Whether a slice of an n x c cloud over `size` CTAs fits in a block's
+    shared memory."""
+    return ffps_cluster_plan(n, c, size)["smem"] + FFPS_STATIC_SMEM <= FFPS_BLOCK_SMEM
+
+
+def ffps_cluster_size(b: int, n: int, c: int) -> int:
+    """K2's cluster size for b clouds of n x c: the largest of 16, 8, 4 and 2
+    whose slice fits in shared memory and at which all b clusters are
+    resident at once on this card (an occupancy query, nothing launched);
+    0 where none is."""
+    for size in FFPS_CLUSTER_SIZES:
+        if ffps_cluster_fits(n, c, size) and _build.ffps_max_clusters(n, c, size) >= b:
+            return size
+    return 0
+
+
+def ffps_route(b: int, n: int, c: int) -> str:
+    """K2's route for b clouds of n x c: "cluster" where a cluster size fits
+    (`ffps_cluster_size`), else "block"."""
+    return "cluster" if ffps_cluster_size(b, n, c) else "block"
+
+
 def _ffps_cuda(fused: torch.Tensor, npoint: int) -> torch.Tensor:
+    """K2 on the route `ffps_route` picks (tests and timing patch it, or
+    `ffps_cluster_size`, to force one)."""
     b, n, c = fused.shape
-    if n > 8192 or c > 4096:
-        raise ValueError(
-            f"farthest_point_sample_features: kernel takes n <= 8192 and "
-            f"c <= 4096, got n={n}, c={c}"
-        )
-    chan_major = fused.transpose(1, 2).contiguous()  # [b, c, n]: coalesced rows
+    route = ffps_route(b, n, c)
     out = torch.empty(b, npoint, dtype=torch.int32, device=fused.device)
-    _build.FFPS(chan_major.data_ptr(), out.data_ptr(), b, n, c, npoint)
+    if route == "cluster":
+        size = ffps_cluster_size(b, n, c)
+        if not size:
+            raise ValueError(f"farthest_point_sample_features: no cluster size fits "
+                             f"{b} clouds of {n} x {c}")
+        fused = fused.contiguous()  # [b, n, c]: each CTA loads its slice's rows
+        _build.FFPS(fused.data_ptr(), out.data_ptr(), b, n, c, npoint, size, route=route)
+    elif route == "block":
+        if n > FFPS_BLOCK_MAX_POINTS or c > 4096:
+            raise ValueError(
+                f"farthest_point_sample_features: the one-block route takes n <= "
+                f"{FFPS_BLOCK_MAX_POINTS} and c <= 4096, got n={n}, c={c}")
+        chan_major = fused.transpose(1, 2).contiguous()  # [b, c, n]: coalesced rows
+        _build.FFPS(chan_major.data_ptr(), out.data_ptr(), b, n, c, npoint, 0, route=route)
+    else:
+        raise ValueError(f"farthest_point_sample_features: unknown route {route!r}")
     return out
 
 

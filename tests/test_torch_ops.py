@@ -139,6 +139,48 @@ def test_fps_pick_shortfall_flags_a_wrong_pick():
     assert sampling.fps_pick_shortfall(fused, bad) == 1.0
 
 
+def test_ffps_cluster_plan_and_the_slice_fits_rule():
+    """K2's cluster route at the path's shapes: SA2 (4,096 x 67) fits over 8
+    or 16 CTAs (over 8: 512 + 16 rows of 68 floats and 512 distances,
+    145,664 bytes), not over 4;
+    SA3 (512 x 131) fits at every size; rows are an odd number of 16-byte
+    vectors; a CTA asks for at least 120 KB so that one takes an SM."""
+    assert [sampling.ffps_row_stride(c) for c in (3, 10, 67, 131, 256)] == [4, 12, 68, 132, 260]
+    for c in (1, 7, 10, 64, 67, 131, 259):
+        vec = sampling.ffps_row_stride(c) // 4
+        assert vec % 2 == 1 and 4 * vec >= c
+    sa2 = sampling.ffps_cluster_plan(4096, 67, 8)
+    assert sa2 == dict(slice=512, threads=512, stride=68, smem=145_664)
+    assert [sampling.ffps_cluster_fits(4096, 67, s) for s in (16, 8, 4, 2)] == [True, True, False,
+                                                                              False]
+    assert all(sampling.ffps_cluster_fits(512, 131, s) for s in (16, 8, 4, 2))
+    small = sampling.ffps_cluster_plan(512, 131, 16)
+    assert small["threads"] == 32 and small["smem"] == sampling.FFPS_SPREAD_SMEM
+    assert sampling.ffps_cluster_plan(777, 10, 16)["slice"] * 16 >= 777  # a partial last slice
+    assert not sampling.ffps_cluster_fits(8192, 259, 16)  # too wide for any size
+
+
+def test_ffps_route_follows_the_shape(monkeypatch):
+    """The largest fitting size at which all b clusters are resident (the
+    occupancy here is a stand-in for the card's: 16 clusters of 2 or 4, 8 of
+    8, 4 of 16); the one-block route where none is."""
+    resident = {16: 4, 8: 8, 4: 16, 2: 16}
+    monkeypatch.setattr(_build, "ffps_max_clusters", lambda n, c, size: resident[size])
+    assert [sampling.ffps_cluster_size(b, 4096, 67) for b in (1, 2, 4, 8, 16)] == [16, 16, 16, 8, 0]
+    assert [sampling.ffps_route(b, 4096, 67) for b in (8, 16)] == ["cluster", "block"]
+    assert [sampling.ffps_cluster_size(b, 512, 131) for b in (1, 8, 16, 17)] == [16, 8, 4, 0]
+    # a forced cluster route where no size fits raises; so does an unknown route
+    monkeypatch.setattr(sampling, "ffps_route", lambda b, n, c: "cluster")
+    with pytest.raises(ValueError, match="no cluster size fits"):
+        sampling._ffps_cuda(torch.zeros(16, 4096, 67), 8)
+    monkeypatch.setattr(sampling, "ffps_route", lambda b, n, c: "warp")
+    with pytest.raises(ValueError, match="unknown route"):
+        sampling._ffps_cuda(torch.zeros(1, 8, 3), 4)
+    monkeypatch.setattr(sampling, "ffps_route", lambda b, n, c: "block")
+    with pytest.raises(ValueError, match="one-block route takes n <= 8192"):
+        sampling._ffps_cuda(torch.zeros(1, 8193, 3), 4)
+
+
 # -------------------------------------------------------------- ball query
 
 def _queries(xyz, m, seed):
@@ -188,6 +230,85 @@ def test_ball_query_ring_boundaries_are_half_open():
     assert c0.item() == 2 and i0[0, 0].tolist() == [0, 1, 0, 0]
     # annulus 1 <= d < 2 plus the d == 0 self point
     assert c1.item() == 2 and i1[0, 0].tolist() == [0, 2, 0, 0]
+
+
+def test_ball_query_route_follows_the_shape(monkeypatch):
+    # the grid from SA2's 4,096 points up (SA1, the RPN's SA1 and SA2); the
+    # brute-force scan for small clouds (SA3, CG-SA, the RCNN's RoIs)
+    for n in (4096, 16384):
+        assert grouping.ball_query_route(n) == "grid"
+    for n in (64, 512, 1024, 16385):
+        assert grouping.ball_query_route(n) == "brute"
+    xyz = torch.zeros(1, 16385, 3)
+    monkeypatch.setattr(grouping, "ball_query_route", lambda n: "grid")
+    with pytest.raises(ValueError, match="grid route takes n <= 16384"):
+        grouping._ball_query_cuda(grouping.ring_specs([1.0], [4], False), xyz, xyz[:, :2])
+    monkeypatch.setattr(grouping, "ball_query_route", lambda n: "octree")
+    with pytest.raises(ValueError, match="unknown route"):
+        grouping._ball_query_cuda(grouping.ring_specs([1.0], [4], False), xyz, xyz[:, :2])
+
+
+def test_grid_cell_cap_and_least_edge():
+    assert [grouping.grid_cell_cap(n) for n in (1, 16, 512, 4096, 16384)] == [64, 64, 2048,
+                                                                             16384, 65536]
+    for radii, dilated in (([0.2, 0.4, 0.8], True), ([4.8, 6.4], False), ([0.1, 0.5], False)):
+        specs = grouping.ring_specs(radii, [8] * len(radii), dilated)
+        cell = grouping.grid_cell_min(specs)
+        assert cell >= max(radii) * (1 + grouping.GRID_MARGIN) * (1 - 1e-7)
+        assert cell >= np.sqrt(max(s[1] for s in specs)) * (1 + grouping.GRID_MARGIN)
+
+
+@pytest.mark.parametrize("radius", [0.1, 0.2, 0.8, 1.6, 4.8, 6.4])
+def test_grid_cell_holds_every_hit(radius):
+    """Every pair whose f32 d2 lies inside the outer ring is within one cell
+    along each axis, with the cell computed from the f32 hi2 as the wrapper
+    does and each coordinate's cell by the kernel's formula (floor((x - lo) /
+    cell) in double precision): pairs on the ring along each axis, pairs
+    jittered around it, and boundaries of cells at KITTI ranges."""
+    specs = grouping.ring_specs([radius], [8], False)
+    hi2 = np.float32(specs[0][1])
+    cell = grouping.grid_cell_min(specs)
+    rng = np.random.RandomState(31)
+    lo = np.float32(-39.7)
+    q = rng.uniform(-40, 70, size=(20000, 3)).astype(np.float32)
+    q[:2000] = (lo + np.float64(cell) * rng.randint(0, 100, size=(2000, 3))).astype(np.float32)
+    off = rng.randn(20000, 3)
+    off[:5000] = np.eye(3)[rng.randint(0, 3, 5000)] * rng.choice([-1, 1], size=(5000, 1))
+    off /= np.linalg.norm(off, axis=1, keepdims=True)
+    p = (q + off * radius * (1 + rng.uniform(-1e-6, 1e-6, size=(20000, 1)))).astype(np.float32)
+    d = q - p  # f32, as the kernel rounds it
+    d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+    inside = d2 < hi2
+    assert inside.sum() > 1000
+
+    def cell_of(x):
+        return np.floor((x.astype(np.float64) - np.float64(lo)) / cell)
+
+    gap = np.abs(cell_of(q) - cell_of(p))[inside]
+    assert gap.max() <= 1
+    assert (np.abs(q.astype(np.float64) - p)[inside] < cell).all()
+
+
+def test_plain_ball_query_matches_jax_on_a_kitti_scene():
+    """SA1's rings on a synthetic KITTI scene (ground, clutter, car shells),
+    queries on its points: dense car shells fill the rings, so first-k order,
+    capping and padding all count. idx and cnt exactly equal."""
+    from ssd3d_torch.utils.synth import make_scene
+
+    pts, _ = make_scene(np.random.default_rng(41), n_points=16384)
+    xyz = pts[None, :16384, :3].astype(np.float32).copy()
+    rng = np.random.RandomState(42)
+    q = xyz[:, rng.choice(16384, 256, replace=False)].copy()
+    q[:, -64:] = xyz[:, -64:]  # the cloud's last points: car shells or the top-up ground
+    radii, ns = [0.2, 0.4, 0.8], [32, 32, 64]
+    want = jgrouping.ball_query_multi(radii, ns, jnp.asarray(xyz), jnp.asarray(q), dilated=True)
+    got = grouping.ball_query_multi(radii, ns, _t(xyz), _t(q), dilated=True)
+    full = 0
+    for (gi, gc), (wi, wc), k in zip(got, want, ns):
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        full += int((gc.numpy() == k).sum())
+    assert full > 0  # some ring filled
 
 
 def test_group_points_matches_jax():
@@ -336,18 +457,121 @@ def test_ffps_kernel_tie_aware(cuda, n, c, m):
     assert sampling.fps_pick_shortfall(fused, got) <= FFPS_TIE_RTOL
 
 
+def _ffps_cloud(kind, b, n, c):
+    rng = np.random.RandomState(28)
+    if kind == "gaussian":
+        return rng.randn(b, n, c).astype(np.float32)
+    # every row twice, the copy in the other half of the cloud: equal
+    # distances in different CTAs, whose tie the lower index must win
+    half = rng.randn(b, (n + 1) // 2, c).astype(np.float32)
+    return np.concatenate([half, half[:, ::-1]], axis=1)[:, :n].copy()
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["block", "cluster"])
+@pytest.mark.parametrize("b,n,c,m,kind", [
+    (1, 4096, 67, 128, "gaussian"), (2, 4096, 67, 128, "duplicates"),
+    (8, 4096, 67, 512, "gaussian"),    # SA2
+    (16, 4096, 67, 64, "gaussian"),    # SA2's shape at 16 clouds: no cluster size fits
+    (8, 512, 131, 256, "duplicates"),  # SA3
+    (8, 4095, 67, 64, "duplicates"),   # a partial last slice
+    (2, 777, 10, 100, "gaussian"), (16, 512, 131, 64, "gaussian"),
+])
+def test_ffps_kernel_equals_plain(cuda, b, n, c, m, kind, route, monkeypatch):
+    """Picks equal to the plain version's (same arithmetic, channels summed
+    in order) on every route, or a clear error where the route does not fit."""
+    monkeypatch.setattr(sampling, "ffps_route", lambda b_, n_, c_: route)
+    fused = _t(_ffps_cloud(kind, b, n, c)).to(cuda)
+    _build.reset_launches()
+    if route != "block" and not sampling.ffps_cluster_size(b, n, c):
+        with pytest.raises(ValueError, match="no cluster size fits"):
+            sampling.farthest_point_sample_features(fused, m)
+        return
+    got = sampling.farthest_point_sample_features(fused, m)
+    assert _build.route_launches()["ffps"] == {route: 1}
+    assert torch.equal(got, sampling.ffps_plain(fused, m))
+
+
+@pytest.mark.cuda
+def test_ffps_routes_by_shape_on_the_card(cuda):
+    """SA2 and SA3 at 8 clouds take the cluster route, SA2 at 16 the one-block
+    route (no cluster size both fits and keeps 16 clusters resident)."""
+    assert sampling.ffps_cluster_size(8, 4096, 67) in (8, 16)
+    assert sampling.ffps_route(8, 512, 131) == "cluster"
+    assert sampling.ffps_route(16, 4096, 67) == "block"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["grid", "brute"])
 @pytest.mark.parametrize("dilated", [True, False])
-def test_ball_query_kernel_equals_plain(cuda, dilated):
+def test_ball_query_kernel_equals_plain(cuda, dilated, route, monkeypatch):
+    monkeypatch.setattr(grouping, "ball_query_route", lambda n: route)
     xyz = _cloud(15, 2, 5000, scale=3.0)
     q = _queries(xyz, 700, 16)
     want = grouping.ball_query_multi([0.2, 0.4, 0.8], [32, 32, 64], _t(xyz), _t(q),
                                      dilated=dilated)
+    _build.reset_launches()
     got = grouping.ball_query_multi([0.2, 0.4, 0.8], [32, 32, 64], _t(xyz).to(cuda),
                                     _t(q).to(cuda), dilated=dilated)
+    assert _build.route_launches()["ball_query"] == {route: 1}
     for (gi, gc), (wi, wc) in zip(got, want):
         np.testing.assert_array_equal(gc.cpu().numpy(), wc.numpy())
         np.testing.assert_array_equal(gi.cpu().numpy(), wi.numpy())
+
+
+def _ball_case(case):
+    """(xyz [2, n, 3], queries [2, m, 3], radii, ns) for one grid hazard."""
+    rng = np.random.RandomState(29)
+    radii, ns = [0.2, 0.4, 0.8], [32, 32, 64]
+    if case == "edges":
+        # a lattice on multiples of the grid's cell from the cloud's corner
+        # (the cell is the least one: the cloud spans 20 cells an axis), and
+        # points at exactly each ring's radius from a query along each axis
+        cell = grouping.grid_cell_min(grouping.ring_specs(radii, ns, True))
+        lat = np.stack(np.meshgrid(*[np.arange(20)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        on_cells = (lat * cell).astype(np.float32)
+        q = on_cells[rng.choice(len(on_cells), 300, replace=False)]
+        ring = np.concatenate([q + s * r * np.eye(3)[a] for r in radii + [cell]
+                               for a in range(3) for s in (-1, 1)]).astype(np.float32)
+        pts = np.concatenate([on_cells, ring])
+        xyz = np.stack([pts, pts[::-1]])
+        qs = np.stack([q, q[::-1]])
+    elif case == "far":  # queries far outside the grid, and just outside it
+        xyz = _cloud(30, 2, 3000, scale=3.0)
+        qs = _queries(xyz, 400, 31)
+        qs[:, ::5] = xyz.max(1, keepdims=True) + 0.5
+        qs[:, 1::5] = xyz.min(1, keepdims=True) - 0.3
+    elif case == "dense":  # thousands of points in one cell among sparse ones
+        xyz = _cloud(32, 2, 3000, scale=5.0)
+        xyz[:, :2500] = (rng.rand(2, 2500, 3) * 0.05).astype(np.float32)
+        qs = np.concatenate([xyz[:, 2400:2600], xyz[:, -100:]], 1)
+    elif case == "outlier":  # one point 100 km away grows every cell
+        xyz = _cloud(33, 2, 3000, scale=3.0)
+        xyz[:, 1234] = 1e5
+        qs = _queries(xyz, 300, 34)
+    elif case == "identical":  # every point the same
+        xyz = np.full((2, 3000, 3), 1.5, np.float32)
+        qs = np.concatenate([xyz[:, :10], xyz[:, :10] + np.float32(0.3),
+                             xyz[:, :10] + np.float32(0.1)], 1)
+    else:  # "ns > n": 20 points, rings of 32 and 64
+        xyz = _cloud(35, 2, 20, scale=0.3)
+        qs = _queries(xyz, 40, 36)
+    return xyz, qs.astype(np.float32), radii, ns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["grid", "brute"])
+@pytest.mark.parametrize("dilated", [True, False])
+@pytest.mark.parametrize("case", ["edges", "far", "dense", "outlier", "identical", "ns > n"])
+def test_ball_query_kernel_hazards(cuda, case, dilated, route, monkeypatch):
+    monkeypatch.setattr(grouping, "ball_query_route", lambda n: route)
+    xyz, q, radii, ns = _ball_case(case)
+    want = grouping.ball_query_multi(radii, ns, _t(xyz), _t(q), dilated=dilated)
+    got = grouping.ball_query_multi(radii, ns, _t(xyz).to(cuda), _t(q).to(cuda), dilated=dilated)
+    for (gi, gc), (wi, wc) in zip(got, want):
+        np.testing.assert_array_equal(gc.cpu().numpy(), wc.numpy())
+        np.testing.assert_array_equal(gi.cpu().numpy(), wi.numpy())
+    assert int(want[-1][1].sum()) > 0
 
 
 @pytest.mark.cuda
