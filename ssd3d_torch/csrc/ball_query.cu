@@ -55,6 +55,7 @@ namespace {
 constexpr int kMaxRings = 4;
 constexpr int kWarps = 8;
 constexpr int kTile = 1024;
+constexpr int kMaxGridY = 65535;  // clouds on grid.y; more are looped over
 
 struct Rings {
   float lo2[kMaxRings];
@@ -66,13 +67,14 @@ struct Rings {
   int ns_total;
 };
 
-__global__ void __launch_bounds__(kWarps * 32)
-    ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ queries, int n,
-                      int m, Rings rings, int* __restrict__ idx, int* __restrict__ cnt) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile];
+// One cloud's 8 queries (every thread of the block calls it: it holds
+// barriers).
+__device__ void ball_query_cloud(const float* __restrict__ xyz, const float* __restrict__ queries,
+                                 int n, int m, const Rings& rings, int* __restrict__ idx,
+                                 int* __restrict__ cnt, long long b, float* sx, float* sy,
+                                 float* sz) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.y;
   const int qi = blockIdx.x * kWarps + warp;
   const bool active = qi < m;
 
@@ -149,6 +151,15 @@ __global__ void __launch_bounds__(kWarps * 32)
       if (lane == 0) cnt[((size_t)b * m + qi) * rings.count + r] = cr;
     }
   }
+}
+
+// The cloud is blockIdx.y, looped over when b exceeds the grid's 65,535.
+__global__ void __launch_bounds__(kWarps * 32)
+    ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ queries, int b,
+                      int n, int m, Rings rings, int* __restrict__ idx, int* __restrict__ cnt) {
+  __shared__ float sx[kTile], sy[kTile], sz[kTile];
+  for (long long bt = blockIdx.y; bt < b; bt += gridDim.y)
+    ball_query_cloud(xyz, queries, n, m, rings, idx, cnt, bt, sx, sy, sz);
 }
 
 // ------------------------------------------------------------ grid route
@@ -394,17 +405,13 @@ __device__ __forceinline__ bool ring_hit(const Rings& rings, int r, float d2) {
                           : d2 < rings.hi2[r];
 }
 
-// One warp a query: the 27 cells around it, one list a lane, merged in index
-// order (see the file's header).
-__global__ void __launch_bounds__(kWarps * 32)
-    ball_query_grid_kernel(const float4* __restrict__ sorted, const int* __restrict__ cell_start,
+// One warp a query of cloud b: the 27 cells around it, one list a lane,
+// merged in index order (see the file's header).
+__device__ void grid_query(const float4* __restrict__ sorted, const int* __restrict__ cell_start,
                            const double* __restrict__ grids, const float* __restrict__ queries,
-                           int n, int m, int cap, Rings rings, int* __restrict__ idx,
-                           int* __restrict__ cnt) {
+                           int n, int m, int cap, const Rings& rings, int* __restrict__ idx,
+                           int* __restrict__ cnt, long long b, int qi) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (qi >= m) return;  // the whole warp: no barrier below
   const float* q = queries + ((size_t)b * m + qi) * 3;
   const float qx = q[0], qy = q[1], qz = q[2];
   const Grid g = load_grid(grids + (size_t)b * kGridWords);
@@ -490,6 +497,19 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// One warp a query, 8 a block.
+__global__ void __launch_bounds__(kWarps * 32)
+    ball_query_grid_kernel(const float4* __restrict__ sorted, const int* __restrict__ cell_start,
+                           const double* __restrict__ grids, const float* __restrict__ queries,
+                           int nb, int n, int m, int cap, Rings rings, int* __restrict__ idx,
+                           int* __restrict__ cnt) {
+  const int qi = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (qi >= m) return;  // the whole warp: no barrier below
+  // the cloud is blockIdx.y, looped over when nb exceeds the grid's 65,535
+  for (long long b = blockIdx.y; b < nb; b += gridDim.y)
+    grid_query(sorted, cell_start, grids, queries, n, m, cap, rings, idx, cnt, b, qi);
+}
+
 cudaError_t launch_grid_route(const float* xyz, const float* queries, int* idx, int* cnt, int b,
                               int n, int m, const Rings& rings, double* grids, int* cell_start,
                               float* sorted, int cap, double cell_min, cudaStream_t stream) {
@@ -509,10 +529,10 @@ cudaError_t launch_grid_route(const float* xyz, const float* queries, int* idx, 
       xyz, n, cell_min, cap, grids, cell_start, reinterpret_cast<float4*>(sorted));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid((m + kWarps - 1) / kWarps, b);
+  dim3 grid((m + kWarps - 1) / kWarps, b < kMaxGridY ? b : kMaxGridY);
   ball_query_grid_kernel<<<grid, kWarps * 32, 0, stream>>>(
-      reinterpret_cast<const float4*>(sorted), cell_start, grids, queries, n, m, cap, rings, idx,
-      cnt);
+      reinterpret_cast<const float4*>(sorted), cell_start, grids, queries, b, n, m, cap, rings,
+      idx, cnt);
   return cudaGetLastError();
 }
 
@@ -550,7 +570,7 @@ extern "C" int ssd3d_ball_query(const float* xyz, const float* queries, int* idx
     return (int)launch_grid_route(xyz, queries, idx, cnt, b, n, m, rings, grids, cell_start,
                                   sorted, cap, cell_min, stream);
   }
-  dim3 blocks((m + kWarps - 1) / kWarps, b);
-  ball_query_kernel<<<blocks, kWarps * 32, 0, stream>>>(xyz, queries, n, m, rings, idx, cnt);
+  dim3 blocks((m + kWarps - 1) / kWarps, b < kMaxGridY ? b : kMaxGridY);
+  ball_query_kernel<<<blocks, kWarps * 32, 0, stream>>>(xyz, queries, b, n, m, rings, idx, cnt);
   return (int)cudaGetLastError();
 }

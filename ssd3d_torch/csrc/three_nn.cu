@@ -20,7 +20,8 @@
 // the tie rule). A block of 128 unknowns of one cloud stages the knowns
 // through shared memory in tiles of 1,024, coordinate-major (12 KB), so each
 // known is read from device memory once per block and every thread of a warp
-// reads the same shared word (a broadcast).
+// reads the same shared word (a broadcast). The cloud is blockIdx.y, looped
+// over when b exceeds the grid's 65,535, so any batch is taken.
 #include <cmath>
 
 #include "common.cuh"
@@ -29,21 +30,22 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 1024;
+constexpr int kMaxGridY = 65535;
 
-__global__ void __launch_bounds__(kThreads)
-    three_nn_kernel(const float* __restrict__ unknown, const float* __restrict__ known, int n,
-                    int m, float* __restrict__ dist, int* __restrict__ idx) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile];
-  const int b = blockIdx.y;
+// One cloud's block of unknowns (every thread of the block calls it: it
+// holds barriers).
+__device__ void three_nn_cloud(const float* __restrict__ unknown, const float* __restrict__ known,
+                               int n, int m, float* __restrict__ dist, int* __restrict__ idx,
+                               long long b, float* sx, float* sy, float* sz) {
   const int q = blockIdx.x * kThreads + threadIdx.x;
-  const float* u = unknown + ((size_t)b * n + min(q, n - 1)) * 3;
+  const float* u = unknown + (b * n + min(q, n - 1)) * 3;
   const float ux = u[0], uy = u[1], uz = u[2];
-  const float* kb = known + (size_t)b * m * 3;
+  const float* kb = known + b * m * 3;
   float d0 = INFINITY, d1 = INFINITY, d2 = INFINITY;
   int i0 = 0, i1 = 0, i2 = 0;
   for (int t0 = 0; t0 < m; t0 += kTile) {
     const int len = min(kTile, m - t0);
-    __syncthreads();  // the previous tile is consumed
+    __syncthreads();  // the previous tile (or cloud) is consumed
     for (int j = threadIdx.x; j < len; j += kThreads) {
       sx[j] = kb[3 * (t0 + j)];
       sy[j] = kb[3 * (t0 + j) + 1];
@@ -77,7 +79,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (q < n) {
-    const size_t o = ((size_t)b * n + q) * 3;
+    const long long o = (b * n + q) * 3;
     dist[o] = d0;
     dist[o + 1] = d1;
     dist[o + 2] = d2;
@@ -87,14 +89,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The cloud is blockIdx.y, looped over when b exceeds the grid's 65,535.
+__global__ void __launch_bounds__(kThreads)
+    three_nn_kernel(const float* __restrict__ unknown, const float* __restrict__ known, int b,
+                    int n, int m, float* __restrict__ dist, int* __restrict__ idx) {
+  __shared__ float sx[kTile], sy[kTile], sz[kTile];
+  for (long long bt = blockIdx.y; bt < b; bt += gridDim.y)
+    three_nn_cloud(unknown, known, n, m, dist, idx, bt, sx, sy, sz);
+}
+
 }  // namespace
 
 // unknown: f32 [b, n, 3]; known: f32 [b, m, 3], m >= 3; dist: f32 [b, n, 3];
 // idx: i32 [b, n, 3]. All contiguous.
 extern "C" int ssd3d_three_nn(const float* unknown, const float* known, float* dist, int* idx,
                               int b, int n, int m, cudaStream_t stream) {
-  if (b <= 0 || n <= 0 || m < 3 || b > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + kThreads - 1) / kThreads, b);
-  three_nn_kernel<<<grid, kThreads, 0, stream>>>(unknown, known, n, m, dist, idx);
+  if (b <= 0 || n <= 0 || m < 3) return (int)cudaErrorInvalidValue;
+  dim3 grid((n + kThreads - 1) / kThreads, b < kMaxGridY ? b : kMaxGridY);
+  three_nn_kernel<<<grid, kThreads, 0, stream>>>(unknown, known, b, n, m, dist, idx);
   return (int)cudaGetLastError();
 }

@@ -107,7 +107,7 @@ class Kernel:
 
     `launches` goes up by one each time the kernel is launched, and nowhere
     else; `chip_smoke.py` reads it to show the main path went through it. A
-    kernel with routes (K1, K2, K3) also counts each launch under the route the
+    kernel with routes (K1, K2, K3, K7) also counts each launch under the route the
     caller names, in `by_route`."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
@@ -146,10 +146,11 @@ FFPS = Kernel("ffps", "ssd3d_ffps", [P, P, I, I, I, I, I])
 BALL_QUERY = Kernel("ball_query", "ssd3d_ball_query",
                     [P, P, P, P, I, I, I, I, P, P, P, P, I, P, P, P, I, ctypes.c_double])
 GATHER = Kernel("gather", "ssd3d_gather_rows", [P, P, P, I, I, I, I])
-SCATTER_ADD = Kernel("scatter_add", "ssd3d_scatter_add_rows", [P, P, P, I, I, I, I])
+SCATTER_ADD = Kernel("scatter_add", "ssd3d_scatter_add_rows", [P, P, P, P, P, P, I, I, I, I])
 THREE_NN = Kernel("three_nn", "ssd3d_three_nn", [P, P, P, P, I, I, I])
+# both K7 routes (the last int: 0 FMA, 1 wgmma)
 SA_FUSED = Kernel("sa_fused", "ssd3d_sa_fused",
-                  [P, P, P, P, P, I, I, I, I, I, P, P, P, I, P, P, P])
+                  [P, P, P, P, P, I, I, I, I, I, P, P, P, I, P, P, P, P, I])
 KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD, THREE_NN, SA_FUSED)
 
 
@@ -164,8 +165,8 @@ def launches() -> dict[str, int]:
 
 
 def route_launches() -> dict[str, dict[str, int]]:
-    """Launches by route of the kernels that have routes (K1, K2, K3)."""
-    return {k.name: dict(k.by_route) for k in (FPS, FFPS, BALL_QUERY)}
+    """Launches by route of the kernels that have routes (K1, K2, K3, K7)."""
+    return {k.name: dict(k.by_route) for k in (FPS, FFPS, BALL_QUERY, SA_FUSED)}
 
 
 def dfps_cluster_size(b: int, n: int) -> int:

@@ -220,7 +220,9 @@ def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def scatter_add_rows_plain(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     """idx: int [b, rows], g: [b, rows, c] -> dsrc [b, n, c] with
-    dsrc[b, clamp(idx[b, r], 0, n - 1)] += g[b, r]; duplicates accumulate."""
+    dsrc[b, clamp(idx[b, r], 0, n - 1)] += g[b, r]; duplicates accumulate.
+    On the CPU index_add_ adds each destination's rows in ascending row
+    order, the order kernel K5 keeps."""
     b, rows, c = g.shape
     flat = idx.long().clamp(0, n - 1) + n * torch.arange(b, device=idx.device)[:, None]
     out = torch.zeros(b * n, c, dtype=g.dtype, device=g.device)
@@ -233,14 +235,19 @@ def _scatter_add_rows_cuda(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.
     b, rows, c = g.shape
     g = g.contiguous()
     idx = idx.to(torch.int32).contiguous()
-    out = torch.empty(b, n, c, dtype=g.dtype, device=g.device)  # zeroed by the kernel
-    _build.SCATTER_ADD(idx.data_ptr(), g.data_ptr(), out.data_ptr(), b, n, rows, c)
+    out = torch.empty(b, n, c, dtype=g.dtype, device=g.device)  # written whole by the kernel
+    # the kernel's CSR: counts, then cursors [b, n]; offsets [b, n + 1]; rows by destination
+    scratch = torch.empty(b * n + b * (n + 1) + b * rows, dtype=torch.int32, device=g.device)
+    cnt, offs, order = scratch.split([b * n, b * (n + 1), b * rows])
+    _build.SCATTER_ADD(idx.data_ptr(), g.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+                       offs.data_ptr(), order.data_ptr(), b, n, rows, c)
     return out
 
 
 def scatter_add_rows(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     """Row scatter-add, the gather's backward: idx int [b, rows], g [b, rows,
-    c] -> [b, n, c]. On CUDA the sum's order follows the kernel's atomics."""
+    c] -> [b, n, c]. Each destination sums its rows in ascending row order on
+    either device, so the kernel equals the CPU plain version bit for bit."""
     if g.dim() != 3 or idx.shape != g.shape[:2]:
         raise ValueError(f"scatter_add_rows: idx {tuple(idx.shape)}, g {tuple(g.shape)}")
     if _build.require_cuda("scatter_add_rows", idx, g):

@@ -142,6 +142,17 @@ def test_three_nn_kernel_equals_plain(cuda, n, m):
 
 
 @pytest.mark.cuda
+def test_three_nn_kernel_takes_more_clouds_than_a_grid_column(cuda):
+    """b > 65,535 (the grid's y limit): the kernel loops over the clouds."""
+    b = 65535 + 2
+    unknown, known = _clouds(38, b, 5, 4)
+    want_d, want_i = interpolate.three_nn_plain(_t(unknown), _t(known))
+    got_d, got_i = interpolate.three_nn(_t(unknown).to(cuda), _t(known).to(cuda))
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_d.cpu(), want_d)
+
+
+@pytest.mark.cuda
 def test_three_nn_kernel_tie_order(cuda):
     known = np.zeros((1, 64, 3), np.float32)
     known[0, :, 0] = np.arange(64) // 4

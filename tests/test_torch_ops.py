@@ -289,6 +289,43 @@ def test_grid_cell_holds_every_hit(radius):
     assert (np.abs(q.astype(np.float64) - p)[inside] < cell).all()
 
 
+def _scatter_case(seed, n, c, rows):
+    """Two clouds: indices with clamped ends and duplicates, rows of g of
+    magnitudes 1e-3 to 1e3, so that the order of a sum shows in its bits."""
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(-2, n + 2, size=(2, rows)).astype(np.int32)  # clamped ends
+    idx[:, 1::4] = idx[:, ::4][:, :idx[:, 1::4].shape[1]]  # duplicates
+    g = rng.randn(2, rows, c) * 10.0 ** rng.uniform(-3, 3, size=(2, rows, 1))
+    return idx, _t(g.astype(np.float32))
+
+
+@pytest.mark.parametrize("n,c,rows", [(4096, 67, 65536), (7, 5, 1000)])
+def test_scatter_add_plain_adds_rows_in_ascending_order(n, c, rows):
+    """The plain version (index_add_ on the CPU) equals, bit for bit, adding
+    each destination's rows one at a time in ascending row order from zero:
+    the order K5 keeps. The reverse order gives other bits."""
+    idx, g = _scatter_case(40, n, c, rows)
+    got = grouping.scatter_add_rows_plain(_t(idx), g, n).numpy()
+    dest = np.clip(idx, 0, n - 1)
+    g = g.numpy()
+    for order in ("ascending", "descending"):
+        want = np.zeros((2, n, c), np.float32)
+        for bt in range(2):
+            pos = np.argsort(dest[bt], kind="stable")  # each destination's rows, ascending
+            if order == "descending":
+                pos = np.argsort(dest[bt][::-1], kind="stable")
+                pos = rows - 1 - pos
+            seg = dest[bt][pos]
+            rank = np.arange(rows) - np.searchsorted(seg, seg)  # a row's place in its destination
+            for k in range(rank.max() + 1):  # the k-th row of every destination at once
+                at = pos[rank == k]
+                want[bt, dest[bt][at]] += g[bt, at]
+        if order == "ascending":
+            assert np.array_equal(got.view(np.int32), want.view(np.int32))
+        else:
+            assert not np.array_equal(got, want)
+
+
 def test_plain_ball_query_matches_jax_on_a_kitti_scene():
     """SA1's rings on a synthetic KITTI scene (ground, clutter, car shells),
     queries on its points: dense car shells fill the rings, so first-k order,
@@ -575,6 +612,24 @@ def test_ball_query_kernel_hazards(cuda, case, dilated, route, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["grid", "brute"])
+def test_ball_query_kernel_takes_more_clouds_than_a_grid_column(cuda, route, monkeypatch):
+    """b > 65,535 (the grid's y limit): both query kernels loop over the
+    clouds, and every cloud equals the plain version's."""
+    monkeypatch.setattr(grouping, "ball_query_route", lambda n: route)
+    rng = np.random.RandomState(37)
+    b = 65535 + 2
+    xyz = (rng.rand(b, 16, 3) * 0.5).astype(np.float32)
+    q = xyz[:, :2] + np.float32(0.05)
+    want = grouping.ball_query_multi([0.2, 0.4], [4, 8], _t(xyz), _t(q), dilated=True)
+    got = grouping.ball_query_multi([0.2, 0.4], [4, 8], _t(xyz).to(cuda), _t(q).to(cuda),
+                                    dilated=True)
+    for (gi, gc), (wi, wc) in zip(got, want):
+        assert torch.equal(gc.cpu(), wc) and torch.equal(gi.cpu(), wi)
+    assert int(want[-1][1][-1].sum()) > 0  # the last cloud has hits
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c", [1, 4, 67, 128, 131, 259])
 def test_gather_kernel_bit_identical(cuda, c):
     rng = np.random.RandomState(17)
@@ -652,18 +707,38 @@ def test_gather_kernel_gradient_is_the_scatter_add_kernel(cuda):
 @pytest.mark.parametrize("n,c,rows", [(4096, 67, 65536), (1024, 131, 16384), (512, 259, 8192),
                                       (7, 5, 1000)])
 def test_scatter_add_kernel_matches_plain(cuda, n, c, rows):
-    """Within 1e-5 of the largest |entry|: float atomics add in another
-    order than the plain version's index_add_."""
-    rng = np.random.RandomState(19)
-    idx = rng.randint(-2, n + 2, size=(2, rows)).astype(np.int32)  # clamped ends
-    idx[:, 1::4] = idx[:, ::4][:, :idx[:, 1::4].shape[1]]  # duplicates
-    g = _t(rng.randn(2, rows, c).astype(np.float32))
+    """Bit for bit the CPU plain version (index_add_), and two launches bit
+    for bit each other: K5 adds each destination's rows in ascending row
+    order, with no float atomics."""
+    idx, g = _scatter_case(19, n, c, rows)
     want = grouping.scatter_add_rows_plain(_t(idx), g, n)
     got = grouping.scatter_add_rows(_t(idx).to(cuda), g.to(cuda), n)
-    err = float((got.cpu() - want).abs().max())
-    assert err <= 1e-5 * float(want.abs().max()), err
+    again = grouping.scatter_add_rows(_t(idx).to(cuda), g.to(cuda), n)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
     with pytest.raises(ValueError, match="f32"):
         grouping.scatter_add_rows(_t(idx).to(cuda), g.to(cuda).double(), n)
+
+
+@pytest.mark.cuda
+def test_scatter_add_kernel_takes_more_than_2_31_rows(cuda):
+    """b * rows = 2^31 + 2 (two clouds of 2^30 + 1 rows, one channel): every
+    offset into g and the kernel's CSR passes 32 bits. About 35 GB on the
+    card at its peak. The CPU plain version is not run at this size (its
+    index_add_ would take ~50 GB of host memory and minutes); each
+    destination d's rows all carry (d % 3) + 1, so its sum is exact in f32
+    in any order and comes in closed form."""
+    b, rows, n = 2, 2 ** 30 + 1, 2 ** 24
+    r = torch.arange(rows, dtype=torch.int32, device=cuda)
+    idx = torch.stack([r % n, (r + 1) % n])
+    del r
+    g = (idx % 3 + 1).float()[..., None]
+    got = grouping.scatter_add_rows(idx, g, n)
+    del idx, g
+    d = torch.arange(n, device=cuda)
+    count = torch.stack([64 + (d == 0).int(), 64 + (d == 1).int()])  # rows = 64 n + 1
+    want = (count * (d % 3 + 1))[..., None].float()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

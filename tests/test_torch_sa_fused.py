@@ -28,11 +28,13 @@ from jax.experimental import pallas
 from ssd3d_torch.nn import modules
 from ssd3d_torch.nn.layers import SharedMLP
 from ssd3d_torch.ops import _build, sa_fused
+from ssd3d_torch.ops.grouping import gather_rows_plain
 from ssd3d_torch.utils.convert import flax_to_state_dict
 
-# f32 throughout: the two sides sum each dot in another order (XLA's CPU dot,
-# the CPU BLAS, or K7's channel-ordered fmaf), about 1e-7 relative per layer;
-# held within 1e-5 of the output's largest |value|
+# f32 throughout: the two sides sum each dot in another order (XLA's CPU dot
+# or the CPU BLAS), about 1e-7 relative per layer; held within 1e-5 of the
+# output's largest |value|. The `cuda` tests hold K7 (3xTF32 on its wgmma
+# route, fmaf on its FMA route) to its plain version within 1e-4.
 F32_TOL = 1e-5
 
 
@@ -127,12 +129,59 @@ def test_sa_fused_single_scale_matches_jax(jax_sa_fused):
     _close(got.numpy(), want)
 
 
+def _sa_tf32(src, idx_list, centers, masks, layers_list, terms):
+    """The plain version with every scale layer's dot in TF32, as K7's wgmma
+    route computes it: operands split into big = tf32_round(x) and small =
+    tf32_round(x - big); terms 3 is big.big + big.small + small.big summed in
+    f32, terms 1 one TF32 pass (big.big)."""
+    cf = src.shape[-1] - 3
+    feats = []
+    for k, (idx, layers) in enumerate(zip(idx_list, layers_list)):
+        b, m, ns = idx.shape
+        g = gather_rows_plain(src, idx.reshape(b, m * ns)).reshape(b, m, ns, -1)
+        x = torch.cat([g[..., :cf], g[..., cf:] - centers[:, :, None, :]], dim=-1)
+        for w, bias, inv, shift in layers:
+            xb, wb = sa_fused.tf32_round(x), sa_fused.tf32_round(w)
+            dot = xb @ wb
+            if terms == 3:
+                dot = dot + xb @ sa_fused.tf32_round(w - wb) + sa_fused.tf32_round(x - xb) @ wb
+            x = torch.relu((dot + bias) * inv + shift)
+        feats.append(x.amax(2) * masks[..., k:k + 1])
+    return torch.cat(feats, dim=-1)
+
+
+def test_3xtf32_holds_k7_tolerance_at_rcnn_sa1_widths(jax_sa_fused, capsys):
+    """K7's wgmma route in 3xTF32, emulated on the CPU at the RCNN SA1 widths
+    (259 -> 128 -> 128 -> 128, ns 64) against the JAX package's f32 path:
+    within K7_TOL = 1e-4 of the largest |value|, the tolerance chip_smoke.py
+    holds the kernel to. One TF32 pass is logged, not asserted."""
+    rng, src, idx, centers, masks = _inputs(14, 2, 512, 256, 16, [64])
+    layers = [_layers(rng, 259, (128, 128, 128))]
+    want = np.asarray(jax_sa_fused.sa_fused_multi(
+        jnp.asarray(src), [jnp.asarray(i) for i in idx], jnp.asarray(centers),
+        jnp.asarray(masks), [[tuple(map(jnp.asarray, lay)) for lay in ls] for ls in layers],
+        None, dots_bf16=False))
+    args = (_t(src), [_t(i) for i in idx], _t(centers), _t(masks),
+            [[tuple(map(_t, lay)) for lay in ls] for ls in layers])
+    scale = np.abs(want).max()
+    errs = {terms: np.abs(_sa_tf32(*args, terms).numpy() - want).max() / scale
+            for terms in (3, 1)}
+    with capsys.disabled():
+        print(f"\n3xTF32 {errs[3]:.3g}, one TF32 pass {errs[1]:.3g} of the largest |value| "
+              f"(K7_TOL 1e-4)")
+    assert errs[3] <= 1e-4, errs
+
+
 def test_sa_fused_envelope():
-    """ns must divide 128; the two row buffers must fit the H100's shared
-    memory (the RCNN's SA1 and SA2 do); outside it both devices raise."""
+    """ns must divide 128; one route's buffers must fit the H100's shared
+    memory (the RCNN's SA1 and SA2 take the wgmma route); outside it both
+    devices raise."""
     assert sa_fused.supports(259, [64], [[128, 128, 128]])  # RCNN SA1
     assert sa_fused.supports(131, [64], [[128, 128, 256]])  # RCNN SA2
-    assert sa_fused.smem_bytes(259, [64], [[128, 128, 128]]) <= 232448
+    assert sa_fused.sa_fused_route(259, [64], [[128, 128, 128]]) == "wgmma"
+    assert sa_fused.sa_fused_route(131, [64], [[128, 128, 256]]) == "wgmma"
+    assert sa_fused.smem_bytes(259, [64], [[128, 128, 128]], "wgmma") <= 232448
+    assert sa_fused.sa_fused_route(131, [64], [[300]]) == "fma"  # a layer past 256
     assert not sa_fused.supports(259, [48], [[128]])
     assert not sa_fused.supports(259, [64], [[512, 512]])
     assert not sa_fused.supports(16, [16] * 5, [[8]] * 5)
@@ -143,28 +192,73 @@ def test_sa_fused_envelope():
 
 
 def test_envelope_numbers_come_from_the_kernels_header():
-    """`supports` and `smem_bytes` use the numbers K7 compiles with: the
-    header's constants, which `sa_fused.cu` includes and does not redefine."""
+    """`supports`, `smem_bytes` and the weight staging use the numbers K7
+    compiles with: the header's constants, which `sa_fused.cu` includes and
+    does not redefine."""
     header = (_build.CSRC / "sa_fused.cuh").read_text()
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", header)}
     assert consts == {"kRows": 128, "kCols": 128, "kKC": 16, "kMaxScales": 4, "kMaxLayers": 4,
-                      "kMaxSmem": 232448}
+                      "kMaxSmem": 232448, "kTcPasses": 2, "kTcStage": 4096, "kTcStages": 5}
     assert (sa_fused.ROWS, sa_fused.MAX_SCALES, sa_fused.MAX_LAYERS) == (128, 4, 4)
+    assert (sa_fused.TC_PASSES, sa_fused.TC_STAGE, sa_fused.TC_STAGES) == (2, 4096, 5)
     source = (_build.CSRC / "sa_fused.cu").read_text()
     assert '#include "sa_fused.cuh"' in source
     assert not any(re.search(rf"\b{k}\s*=", source) for k in consts)
-    # RCNN SA1: rows of 259 (odd already) and 128 -> 129 words, the 16 x 128
-    # weight chunk, 2 centres x 128 pooled channels
+    # FMA, RCNN SA1: rows of 259 (odd already) and 128 -> 129 words, the
+    # 16 x 128 weight chunk, 2 centres x 128 pooled channels
     assert sa_fused.smem_bytes(259, [64], [[128, 128, 128]]) == 4 * (128 * (259 + 129)
                                                                      + 16 * 128 + 2 * 128)
+    # wgmma, RCNN SA1 and SA2: five 4096-float stages and their two
+    # barriers each, a tile of stride 264 (259 -> 264 = 8 mod 32; SA2's
+    # 256-wide layer also needs 264), 2 x 128 or 256 pooled
+    assert sa_fused.smem_bytes(259, [64], [[128, 128, 128]], "wgmma") == 4 * (
+        5 * 4096 + 128 * 264 + 2 * 128) + 5 * 16
+    assert sa_fused.smem_bytes(131, [64], [[128, 128, 256]], "wgmma") == 4 * (
+        5 * 4096 + 128 * 264 + 2 * 256) + 5 * 16
+    # the wgmma route takes rows up to 264 wide (tile stride 264; 296 is past
+    # the limit), the FMA route the wider ones while its buffers fit
+    assert sa_fused.sa_fused_route(264, [64], [[128]]) == "wgmma"
+    assert sa_fused.sa_fused_route(265, [64], [[128]]) == "fma"
     # supports() turns false at the first width whose buffers pass the limit
-    widths = next(w for w in range(100, 600)
-                  if sa_fused.smem_bytes(w, [64], [[w]]) > consts["kMaxSmem"])
-    assert sa_fused.supports(widths - 1, [64], [[widths - 1]])
-    assert not sa_fused.supports(widths, [64], [[widths]])
+    # on both routes; every shape the FMA route fits is still taken
+    edge = next(cp for cp in range(100, 600) if not sa_fused.supports(cp, [64], [[128]]))
+    assert sa_fused.supports(edge - 1, [64], [[128]])
+    assert min(sa_fused.smem_bytes(edge, [64], [[128]], r) for r in ("fma", "wgmma")) > consts[
+        "kMaxSmem"]
+    assert all(sa_fused.supports(w, [64], [[w]]) for w in range(3, 600)
+               if sa_fused.smem_bytes(w, [64], [[w]]) <= consts["kMaxSmem"])
     assert sa_fused.supports(3, [1] * 4, [[4] * 4] * 4)
     assert not sa_fused.supports(3, [1] * 5, [[4]] * 5)
     assert not sa_fused.supports(3, [1], [[4] * 5])
+
+
+def test_staged_weights_are_the_layout_the_descriptors_read():
+    """`stage_weights` against a read of each wgmma operand the way K7's
+    descriptors and A fragments address it: big + small of every staged
+    weight is W in the fragment's channel order, zero in the padding."""
+    rng = np.random.RandomState(15)
+    for ci, co in [(259, 128), (128, 256), (13, 40)]:
+        w = _t(rng.randn(ci, co).astype(np.float32))
+        staged, ep = sa_fused.stage_weights((w, _t(rng.randn(co).astype(np.float32)),
+                                             torch.ones(co), torch.zeros(co)))
+        kp, np_ = -(-ci // 8) * 8, -(-co // 128)
+        kc = sa_fused.TC_STAGE // (2 * np_ * 128)
+        got = torch.zeros(kp, np_ * 128)
+        for c, k0 in enumerate(range(0, kp, kc)):
+            kcl = min(kc, kp - k0)
+            stage = staged[c * sa_fused.TC_STAGE:]
+            part = kcl // 4 * 512
+            for kb in range(kcl // 8):
+                for p in range(8):  # the A fragment's column p is channel 2p or 2(p - 4) + 1
+                    chan = k0 + 8 * kb + (2 * p if p < 4 else 2 * (p - 4) + 1)
+                    for j in range(np_):
+                        n = torch.arange(128)
+                        at = (j * part + (2 * kb + p // 4) * 512 + n // 8 * 32 + n % 8 * 4 + p % 4)
+                        got[chan, j * 128 + n] = stage[at] + stage[at + np_ * part]
+        assert torch.equal(sa_fused.tf32_round(got[:ci, :co]), sa_fused.tf32_round(w))
+        assert (got[:ci, :co] - w).abs().max() <= 2.0 ** -20 * w.abs().max()
+        assert (got[ci:] == 0).all() and (got[:, co:] == 0).all()
+        assert ep.shape == (3 * np_ * 128,) and (ep.view(3, -1)[:, co:] == 0).all()
 
 
 def test_fold_matches_jax_fold_and_the_eval_forward():
@@ -278,6 +372,7 @@ def cuda():
     (16, 512, 256, 128, [64], [(128, 128, 128)], None),  # RCNN SA1
     (16, 128, 128, 32, [64], [(128, 128, 256)], None),   # RCNN SA2
     (3, 200, 13, 37, [16, 32], [(16, 24), (16, 16, 32)], 40),  # ragged tile, two scales
+    (4, 64, 14, 16, [16], [(300, 8)], None),  # a layer past 256: the FMA route
 ])
 def test_sa_fused_kernel_matches_plain(cuda, b, n, cf, m, ns_list, widths, agg):
     rng, src, idx, centers, masks = _inputs(12, b, n, cf, m, ns_list)
@@ -290,7 +385,8 @@ def test_sa_fused_kernel_matches_plain(cuda, b, n, cf, m, ns_list, widths, agg):
     want = sa_fused.sa_fused_multi_plain(*args)
     _build.reset_launches()
     got = sa_fused.sa_fused_multi(*args)
-    assert _build.launches()["sa_fused"] == 1
+    route = "fma" if max(max(w) for w in widths) > 256 else "wgmma"
+    assert _build.route_launches()["sa_fused"] == {route: 1}
     _close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
 
 
