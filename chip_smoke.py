@@ -10,11 +10,15 @@ Nine phases, each of which raises on failure (no error is caught):
    (one nvcc per source, in parallel).
 2. Each kernel against its plain PyTorch version on the card, at the
    flagship's shapes (batch 8), with the kernel's and the plain version's
-   times (`cuda_ms`: events around back-to-back calls); K1 on both of its
-   routes at every D-FPS shape of the three paths; K2 on every route its
-   shape admits (picks equal to the plain version's) at SA2 and SA3 and at
-   SA2's shape over 1, 2 and 16 clouds, and at every cluster size that
-   fits at SA2 and SA3; K3 on both routes at SA1-SA3 and CG-SA; K4 against
+   times (`cuda_ms`: events around back-to-back calls); K1 on all three of
+   its routes at every D-FPS shape of the three paths, and on its slice
+   route past 16,384 points (nuScenes' SA1 on a 65,536-point synthetic
+   scan, [2, 65536] -> 16384, [32, 32768] -> 1024 at every cluster size,
+   [1, 262144] and [1, 524288], each tier of the slice route); K2 on every
+   route its shape admits (picks equal to the row-wise plain version's) at
+   SA2 and SA3, at SA2's shape over 1, 2 and 16 clouds, at every cluster
+   size that fits, and at [1, 16384, 67], [2, 16384, 131] and
+   [1, 65536, 4]; K3 on both routes at SA1-SA3 and CG-SA; K4 against
    `torch.gather`; K5, the scatter-add (the gather's backward), bit for bit
    the CPU plain version (`index_add_`, which adds each destination's rows
    in ascending order, as K5 does) and a second launch, at the three layer
@@ -50,8 +54,9 @@ Nine phases, each of which raises on failure (no error is caught):
    routes (timed), K4 gather
    (RPN grouping, RegionPool's xyz, features and mask, the last three timed
    against `torch.gather`) equal or bit-identical; K6
-   three_nn at the four FP layers' shapes (indices equal, distances within
-   1 ulp); K7 fused SA at the RCNN's SA1 and SA2 on both of its routes
+   three_nn at the four FP layers' shapes and on a tie-heavy input of each,
+   over 1, 2, 4 and 8 slices of the knowns, each timed (indices equal,
+   distances within 1 ulp); K7 fused SA at the RCNN's SA1 and SA2 on both of its routes
    (wgmma and FMA; and once with one scale, unmasked, timed too), with the
    kernel's and the plain version's times, both bounds (3xTF32 on the
    tensor cores, f32 FMA), the SA module's own forward on the fused and the
@@ -80,10 +85,12 @@ inference, phase 3; one training step, phase 5; PointRCNN inference, phase
 (K1's, K2's and K3's on the route that shape takes; `routes` holds every
 route's times at each shape of theirs, and `launches_by_route` their
 launches by route on each path, which phases 3, 5 and 8 hold to the route
-each call's shape takes; K7's likewise). K3's bound counts the pairs inside
+each call's shape takes; K7's likewise). Operations of the kernels built
+with -fmad=false count at the f32 rate of instructions that are not FFMAs
+(`H100_F32_OP_PER_S`). K3's bound counts the pairs inside
 the outer ring only; K7's is its wgmma route's, three TF32 products a
 multiply-add at the tensor cores' TF32 rate (`bound_fma_ms`: one f32 FMA at
-the f32 rate).
+the f32 FLOP rate).
 The profiles of phases 3 and 8 list each D-FPS launch.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits with code 1 and prints no result.
@@ -111,7 +118,7 @@ from ssd3d_torch.models import two_stage
 from ssd3d_torch.nn import modules
 from ssd3d_torch.nn.modules import ffps_segments
 from ssd3d_torch.nn.modules import max_pool as _max_pool
-from ssd3d_torch.ops import _build, grouping, sa_fused, sampling
+from ssd3d_torch.ops import _build, grouping, interpolate, sa_fused, sampling
 from ssd3d_torch.ops.grouping import (
     ball_query_multi,
     ball_query_multi_plain,
@@ -136,6 +143,7 @@ from ssd3d_torch.ops.sampling import (
 from ssd3d_torch.ops.topk import top_k_set
 from ssd3d_torch.train.schedules import bn_momentum
 from ssd3d_torch.train.train_step import TrainGraph
+from ssd3d_torch.utils import synth
 from ssd3d_torch.utils.timing import cuda_ms
 
 BATCH = 8
@@ -164,19 +172,25 @@ PASSES = 9
 K7_TOL = 1e-4
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM3 bytes/s,
 # f32 FLOP/s outside the tensor cores, and dense TF32 FLOP/s of the tensor
-# cores (K7's wgmma route)
+# cores (K7's wgmma route). The f32 figure counts an FFMA as two FLOPs (132
+# SMs x 128 lanes x 2 x 1.98 GHz): it bounds work written as FFMAs (K7's FMA
+# route). The other kernels are compiled with -fmad=false, so that their
+# arithmetic matches the plain versions bit for bit: each subtract,
+# multiply, add, min or compare is an instruction of its own, at half that
+# rate (H100_F32_OP_PER_S), and their operations are counted against it.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOP_PER_S = 67e12
+H100_F32_OP_PER_S = 33.5e12
 H100_TF32_FLOP_PER_S = 495e12
 
 
-def bound(n_bytes: float, flops: float, rate: float = H100_F32_FLOP_PER_S) -> dict:
+def bound(n_bytes: float, ops: float, rate: float = H100_F32_OP_PER_S) -> dict:
     """The least time the card could take for a kernel's work: the larger of
     its bytes (each input read once, each output written once) over the
-    memory rate and its operations over the rate of their type (f32 unless
-    `rate` says otherwise)."""
+    memory rate and its operations over the rate of their type (f32
+    operations that are not FFMAs unless `rate` says otherwise)."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
+    t_ops = ops / rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -202,13 +216,13 @@ def log(msg: str = "") -> None:
 
 
 def on_route(route: str):
-    """K1 forced onto `route` ("block" or "cluster") while the context holds:
+    """K1 forced onto `route` ("block", "cluster" or "slice") while the context holds:
     for timing and for holding both routes to the plain version."""
-    return mock.patch.object(sampling, "fps_route", lambda b: route)
+    return mock.patch.object(sampling, "fps_route", lambda b, n: route)
 
 
 def on_ffps_route(route: str):
-    """K2 forced onto `route` ("block" or "cluster")."""
+    """K2 forced onto `route` ("block", "cluster" or "stream")."""
     return mock.patch.object(sampling, "ffps_route", lambda b, n, c: route)
 
 
@@ -235,15 +249,16 @@ def on_first_routes():
     return stack
 
 
-# The calls of each path to the kernels with routes: D-FPS clouds a call,
+# The calls of each path to the kernels with routes: D-FPS (clouds, points) a call,
 # F-FPS (clouds, points, channels) a call, ball-query points a cloud a call,
 # fused SA (input width, ns list, widths) a call (3DSSD inference and its
 # train step: SA1-SA3 and CG-SA at batch 8; PointRCNN at batch 4: RPN
 # SA1-SA4, then the RCNN's SA1-SA2 over 400 RoIs).
 PATH_CALLS = {
-    "3DSSD": dict(fps=[8, 8, 8], ffps=[(8, 4096, 67), (8, 512, 131)],
+    "3DSSD": dict(fps=[(8, 16384), (8, 4096), (8, 512)], ffps=[(8, 4096, 67), (8, 512, 131)],
                   ball_query=[16384, 4096, 1024, 512], sa_fused=[]),
-    "PointRCNN": dict(fps=[4, 4, 4, 4, 400, 400], ffps=[],
+    "PointRCNN": dict(fps=[(4, 16384), (4, 4096), (4, 1024), (4, 256), (400, 512), (400, 128)],
+                      ffps=[],
                       ball_query=[16384, 4096, 1024, 256, 512, 128],
                       sa_fused=[(259, [64], [[128, 128, 128]]), (131, [64], [[128, 128, 256]])]),
 }
@@ -252,7 +267,7 @@ PATH_CALLS = {
 def path_routes(path: str) -> dict[str, dict[str, int]]:
     """The launches by route that the shape rules give a path's calls."""
     calls = PATH_CALLS[path]
-    routes = {"fps": [fps_route(b) for b in calls["fps"]],
+    routes = {"fps": [fps_route(*shape) for shape in calls["fps"]],
               "ffps": [sampling.ffps_route(*shape) for shape in calls["ffps"]],
               "ball_query": [grouping.ball_query_route(n) for n in calls["ball_query"]],
               "sa_fused": [sa_fused.sa_fused_route(*shape) for shape in calls["sa_fused"]]}
@@ -339,6 +354,51 @@ def ball_query_routes(name: str, pts, q, radii, ns, dilated: bool, plain: bool =
     return out
 
 
+# K1 past the 16,384 points the whole-cloud routes hold: nuScenes' SA1 at the
+# reference bench's 65,536 points a scan, and clouds that reach each tier of
+# the slice route (ops/sampling.dfps_slice_plan)
+K1_BIG_SHAPES = ((1, 65536, 4096), (2, 65536, 16384), (32, 32768, 1024), (1, 262144, 1024),
+                 (1, 524288, 256))
+
+
+def fps_past_whole_clouds(dev: torch.device, gen: torch.Generator) -> dict:
+    """K1's slice route against the plain version at K1_BIG_SHAPES, picks
+    equal, timed, with the tier each took; at [32, 32768] -> 1024 at every
+    cluster size (those past residency run in waves; a size of 1 is one
+    block a cloud reading its points from global memory)."""
+    scene = synth.make_scene(np.random.default_rng(3), n_points=65536)[0][:65536, :3]
+    out = {}
+    for b, n, m in K1_BIG_SHAPES:
+        if (b, n) == (1, 65536):
+            pts = torch.from_numpy(np.ascontiguousarray(scene))[None].to(dev)
+        else:
+            pts = (torch.randn(b, n, 3, generator=gen) * 20).to(dev)
+        route, size = fps_route(b, n), sampling.dfps_slice_size(b, n)
+        tier = sampling.dfps_slice_plan(n, size)["tier"]
+        plain = fps_plain(pts, m)
+        check(route == "slice", f"D-FPS at {[b, n]} takes the {route} route")
+        got = farthest_point_sample(pts, m)
+        check(torch.equal(got, plain), f"D-FPS slice route disagrees with plain at {[b, n]} -> {m}")
+        name = f"{[b, n, 3]} -> {m}"
+        out[name] = dict(size=size, tier=tier, ms=cuda_ms(lambda: farthest_point_sample(pts, m), 3))
+        if (b, n) == (32, 32768):
+            sizes = {}
+            for s in sampling.DFPS_SLICE_SIZES:
+                with mock.patch.object(sampling, "dfps_slice_size", lambda b_, n_, s=s: s):
+                    check(torch.equal(farthest_point_sample(pts, m), plain),
+                          f"D-FPS slice route over clusters of {s} disagrees with plain at {name}")
+                    sizes[s] = dict(tier=sampling.dfps_slice_plan(n, s)["tier"],
+                                    resident=_build.dfps_slice_clusters(n, s),
+                                    ms=cuda_ms(lambda: farthest_point_sample(pts, m), 3))
+            out[name]["by_size"] = sizes
+        log(f"K1 D-FPS {name}: picks equal to plain on the slice route, clusters of {size}, "
+            f"{tier} tier, {out[name]['ms']:.3f} ms"
+            + ("; by cluster size: " + ", ".join(
+                f"{s} ({e['tier']}, {e['resident']} resident) {e['ms']:.3f} ms"
+                for s, e in out[name]["by_size"].items()) if "by_size" in out[name] else ""))
+    return out
+
+
 def phase_kernels(scans: torch.Tensor) -> list[dict]:
     log(f"== phase 2: kernels against their plain versions (batch {BATCH})")
     dev = scans.device
@@ -364,7 +424,7 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
         b, n = pts.shape[:2]
         plain = fps_plain(pts, m)
         times = {}
-        for route in ("block", "cluster"):
+        for route in ("block", "cluster", "slice"):  # every route takes n <= 16,384
             with on_route(route):
                 got = farthest_point_sample(pts, m)
                 k1_err = max(k1_err, int((got - plain).abs().max()))
@@ -372,44 +432,65 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
                 times[route] = cuda_ms(lambda: farthest_point_sample(pts, m),
                                        5 if m >= 4096 else 20)
         size = _build.dfps_cluster_size(b, n)
+        route = fps_route(b, n)
         k1[name] = dict(shape=f"{list(pts.shape)} -> {m}", block_ms=times["block"],
-                        cluster_ms=times["cluster"], cluster_size=size, route=fps_route(b))
-        log(f"K1 D-FPS {name} {list(pts.shape)} -> {m}: picks equal on both routes; one block a "
-            f"cloud {times['block']:.3f} ms, a cluster of {size} a cloud {times['cluster']:.3f} ms "
-            f"({times['block'] / times['cluster']:.2f}x); takes the {fps_route(b)} route")
+                        cluster_ms=times["cluster"], slice_ms=times["slice"], cluster_size=size,
+                        route=route)
+        log(f"K1 D-FPS {name} {list(pts.shape)} -> {m}: picks equal on all three routes; one "
+            f"block a cloud {times['block']:.3f} ms, a cluster of {size} a cloud "
+            f"{times['cluster']:.3f} ms ({times['block'] / times['cluster']:.2f}x), slices over "
+            f"clusters of {sampling.dfps_slice_size(b, n)} {times['slice']:.3f} ms; takes the "
+            f"{route} route")
     sa1 = k1["3DSSD SA1"]
     ms = sa1[f"{sa1['route']}_ms"]
     plain_ms = cuda_ms(lambda: fps_plain(xyz, 4096), 3)
+    rpn_plain_ms = cuda_ms(lambda: fps_plain(xyz[:4].contiguous(), 4096), 3)
+    k1["RPN SA1"]["plain_ms"] = rpn_plain_ms
     log(f"K1 D-FPS at 3DSSD SA1: {ms:.3f} ms on its route vs plain {plain_ms:.3f} ms; the cluster "
-        f"route is {sa1['block_ms'] / sa1['cluster_ms']:.2f}x the one-block route's speed")
+        f"route is {sa1['block_ms'] / sa1['cluster_ms']:.2f}x the one-block route's speed; plain "
+        f"at RPN SA1 {rpn_plain_ms:.3f} ms")
+    k1_big = fps_past_whole_clouds(dev, gen)
     b, n = xyz.shape[:2]
     # per pick and point: 3 sub, 3 mul, 2 add, a min and a compare
     report.append(dict(name="fps", route="cuda", source="ssd3d_torch/csrc/fps.cu",
                        replaces="ssd3d/ops/pallas/fps.py:126", launches=0,
                        max_abs_err=float(k1_err), ms=ms, plain_ms=plain_ms,
                        **bound(4 * (b * n * 3 + b * 4096), b * 4095 * n * 10),
-                       library_ms=None, shape=sa1["shape"], routes=k1, check="equal"))
+                       library_ms=None, shape=sa1["shape"], routes=k1, past_16384=k1_big,
+                       check="equal"))
 
-    # K2: F-FPS at SA2 (4,096 x 67 -> 512) and SA3 (512 x 131 -> 256), and at
-    # SA2's shape over 1, 2 and 16 clouds, on every route the shape admits
+    # K2: F-FPS at SA2 (4,096 x 67 -> 512) and SA3 (512 x 131 -> 256), at
+    # SA2's shape over 1, 2 and 16 clouds, and at shapes past what the first
+    # two routes take (a full scan with SA1's 64 features; 131 channels over
+    # two scans; nuScenes' 65,536 points of xyz and intensity), on every
+    # route the shape admits
     feat16 = torch.randn(16, 4096, 64, generator=gen).to(dev).relu()
     sa2 = torch.cat([torch.cat([xyz1, xyz1.flip(0)]), feat16], -1)  # [16, 4096, 67]
     sa3 = torch.cat([xyz1[:, :512], torch.randn(BATCH, 512, 128, generator=gen).to(dev).relu()],
                     -1)
+    scan_sa1 = torch.cat([xyz[:1], torch.randn(1, N_POINTS, 64, generator=gen).to(dev).relu()], -1)
+    scans_131 = torch.cat([xyz[:2], torch.randn(2, N_POINTS, 128, generator=gen).to(dev).relu()],
+                          -1)
+    scene = synth.make_scene(np.random.default_rng(4), n_points=65536)[0][:65536]
     k2_shapes = [("SA2", sa2[:BATCH].contiguous(), 512), ("SA3", sa3, 256),
                  ("SA2 batch 1", sa2[:1].contiguous(), 512),
-                 ("SA2 batch 2", sa2[:2].contiguous(), 512), ("SA2 batch 16", sa2, 512)]
+                 ("SA2 batch 2", sa2[:2].contiguous(), 512), ("SA2 batch 16", sa2, 512),
+                 ("full scan, 64 features", scan_sa1, 512), ("two scans, 128 features", scans_131, 256),
+                 ("nuScenes scan", torch.from_numpy(np.ascontiguousarray(scene))[None].to(dev), 4096)]
     k2, worst = {}, 0.0
     for name, fused, m in k2_shapes:
         b, n, c = fused.shape
         plain = ffps_plain(fused, m)
         size = sampling.ffps_cluster_size(b, n, c)
+        routes = [r for r, ok in (("cluster", size), ("block", sampling.ffps_block_fits(n, c)),
+                                  ("stream", True)) if ok]
+        iters = 5 if n * m <= 4096 * 512 else 3
         times = {}
-        for route in ("block", "cluster") if size else ("block",):
+        for route in routes:
             with on_ffps_route(route):
                 got = farthest_point_sample_features(fused, m)
                 check(torch.equal(got, plain), f"F-FPS {route} route disagrees with plain at {name}")
-                times[route] = cuda_ms(lambda: farthest_point_sample_features(fused, m), 5)
+                times[route] = cuda_ms(lambda: farthest_point_sample_features(fused, m), iters)
         route = sampling.ffps_route(b, n, c)
         short = fps_pick_shortfall(fused, farthest_point_sample_features(fused, m))
         check(short <= FFPS_TIE_RTOL, f"F-FPS pick {short:.3g} below the farthest point at {name}")
@@ -422,17 +503,16 @@ def phase_kernels(scans: torch.Tensor) -> list[dict]:
                         sampling, "ffps_cluster_size", lambda b_, n_, c_, s=s: s):
                     check(torch.equal(farthest_point_sample_features(fused, m), plain),
                           f"F-FPS cluster route of size {s} disagrees with plain at {name}")
-                    sizes[s] = cuda_ms(lambda: farthest_point_sample_features(fused, m), 5)
+                    sizes[s] = cuda_ms(lambda: farthest_point_sample_features(fused, m), iters)
         chosen = times[route]
         # per pick, point and channel: sub, mul, add; per pick and point a min
         k2[name] = dict(shape=f"{list(fused.shape)} -> {m}", route=route, cluster_size=size,
                         ms=chosen, times=times, sizes=sizes,
                         **bound(4 * (b * n * c + b * m), b * (m - 1) * n * (3 * c + 2)))
         log(f"K2 F-FPS {name} {list(fused.shape)} -> {m}: picks equal to plain on "
-            f"{len(times)} route(s); worst relative shortfall {short:.3g}; "
+            f"{', '.join(times)}; worst relative shortfall {short:.3g}; "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
-            + (f"; cluster of {size} is {times['block'] / chosen:.2f}x the one-block route"
-               if size else "; no cluster size fits and stays resident")
+            + (f"; cluster of {size}" if size else "; no cluster size fits and stays resident")
             + (f"; by cluster size: " + ", ".join(f"{k} {v:.3f} ms" for k, v in sizes.items())
                if sizes else "")
             + f"; takes the {route} route, bound {k2[name]['bound_ms']:.4f} ms "
@@ -1075,7 +1155,7 @@ def check_path_kernels(seen: dict) -> dict:
             with on_route(route):
                 check(torch.equal(farthest_point_sample(xyz, npoint), plain),
                       f"D-FPS {route} route disagrees with plain at {list(xyz.shape)} -> {npoint}")
-        shapes.append(f"{list(xyz.shape)}->{npoint} ({fps_route(xyz.shape[0])})")
+        shapes.append(f"{list(xyz.shape)}->{npoint} ({fps_route(*xyz.shape[:2])})")
     log(f"K1 D-FPS at the path's {len(shapes)} calls, picks equal on both routes: "
         f"{', '.join(shapes)}")
     names = ["RPN SA1", "RPN SA2", "RPN SA3", "RPN SA4", "RCNN SA1", "RCNN SA2"]
@@ -1128,31 +1208,58 @@ def phase_two_stage_kernels(report: list[dict]) -> list[dict]:
     next(e for e in report if e["name"] == "ball_query")["routes"].update(k3)
     report = []
 
-    # K6 at the four FP shapes, FP4 (256 x 64) to FP1 (16,384 x 4,096)
-    k6 = []
+    # K6 at the four FP shapes, FP4 (256 x 64) to FP1 (16,384 x 4,096), with
+    # the slices of the knowns `three_nn_slices` gives, and every other
+    # slicing timed beside it; then on a tie-heavy input of each shape
+    # (knowns on a lattice, each repeated a third of the cloud apart, so
+    # equal distances cross slice borders) at every slicing
+    k6, gen = [], torch.Generator().manual_seed(7)
     for (xyz1, xyz2), _ in seen["three_nn"]:
-        got_d, got_i = three_nn(xyz1, xyz2)
-        want_d, want_i = three_nn_plain(xyz1, xyz2)
-        check(torch.equal(got_i, want_i), f"three_nn indices differ at {list(xyz1.shape)}")
-        ulps = int((got_d.view(torch.int32) - want_d.view(torch.int32)).abs().max())
-        check(ulps <= 1, f"three_nn distances {ulps} ulp apart at {list(xyz1.shape)}")
-        ms = cuda_ms(lambda: three_nn(xyz1, xyz2), 20)
-        plain_ms = cuda_ms(lambda: three_nn_plain(xyz1, xyz2), 3 if xyz1.shape[1] >= 16384 else 20)
         b, n, m = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
-        # per pair: d2 (3 sub, 3 mul, 2 add) and one compare
-        k6.append(dict(ms=ms, plain_ms=plain_ms, ulps=ulps, shape=f"{n} x {m}",
+        chosen = interpolate.three_nn_slices(b, n, m)
+        lattice = torch.randint(-3, 4, (b, -(-m // 3), 3), generator=gen).float()
+        tied = (torch.randint(-6, 7, (b, n, 3), generator=gen).float() * 0.5,
+                torch.cat([lattice, lattice.flip(1), lattice], 1)[:, :m])
+        tied = tuple(t.to(xyz1.device).contiguous() for t in tied)
+        wants = [((xyz1, xyz2), three_nn_plain(xyz1, xyz2)), (tied, three_nn_plain(*tied))]
+        by_slices, ulps = {}, 0
+        for sl in (1, 2, 4, 8):
+            with mock.patch.object(interpolate, "three_nn_slices", lambda b_, n_, m_: sl):
+                for inputs, (want_d, want_i) in wants:
+                    got_d, got_i = three_nn(*inputs)
+                    check(torch.equal(got_i, want_i),
+                          f"three_nn indices differ at {list(inputs[0].shape)} over {sl} slices")
+                    ulp = int((got_d.view(torch.int32) - want_d.view(torch.int32)).abs().max())
+                    check(ulp <= 1, f"three_nn distances {ulp} ulp apart at "
+                          f"{list(inputs[0].shape)} over {sl} slices")
+                    ulps = max(ulps, ulp)
+                by_slices[sl] = cuda_ms(lambda: three_nn(xyz1, xyz2), 20)
+        ms = cuda_ms(lambda: three_nn(xyz1, xyz2), 20)
+        plain_ms = cuda_ms(lambda: three_nn_plain(xyz1, xyz2), 3 if n >= 16384 else 20)
+        # per pair: d2 (3 sub, 3 mul, 2 add) and one compare, none an FFMA
+        k6.append(dict(ms=ms, plain_ms=plain_ms, ulps=ulps, shape=f"{n} x {m}", slices=chosen,
+                       by_slices=by_slices,
                        **bound(4 * (b * n * 3 + b * m * 3 + 2 * b * n * 3), b * n * m * 9)))
+        best = min(by_slices, key=by_slices.get)
         log(f"K6 three_nn {list(xyz1.shape)} x {list(xyz2.shape)}: indices equal, distances "
-            f"{ulps} ulp apart at most; {ms:.3f} ms vs plain {plain_ms:.3f} ms "
-            f"(bound {k6[-1]['bound_ms']:.4f} ms)")
+            f"{ulps} ulp apart at most over 1, 2, 4 and 8 slices, on the path's input and a "
+            f"tie-heavy one; over {chosen} slice(s) (the plan): {ms:.4f} ms vs plain "
+            f"{plain_ms:.3f} ms (bound {k6[-1]['bound_ms']:.4f} ms, "
+            f"{100 * k6[-1]['bound_ms'] / ms:.0f}%); fastest over {best} slice(s), "
+            f"{by_slices[best]:.4f} ms; by slices: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in by_slices.items()))
     fp1 = max(k6, key=lambda e: e["bound_ms"])
     report.append(dict(name="three_nn", route="cuda", source="ssd3d_torch/csrc/three_nn.cu",
                        replaces="ssd3d/ops/pallas/three_nn.py:90", launches=0,
                        max_abs_err=0.0, ms=fp1["ms"], plain_ms=fp1["plain_ms"],
                        bound_ms=fp1["bound_ms"], bound_by=fp1["bound_by"], library_ms=None,
                        shape=f"FP1 {fp1['shape']} (batch {TWO_STAGE_BATCH})",
-                       other_shapes={e["shape"]: [e["ms"], e["plain_ms"]] for e in k6},
-                       check="indices equal, distances within 1 ulp"))
+                       slices=fp1["slices"],
+                       other_shapes={e["shape"]: dict(ms=e["ms"], plain_ms=e["plain_ms"],
+                                                      bound_ms=e["bound_ms"], slices=e["slices"],
+                                                      by_slices=e["by_slices"]) for e in k6},
+                       check="indices equal, distances within 1 ulp, over 1, 2, 4 and 8 "
+                             "slices, on the path's inputs and on tie-heavy ones"))
 
     # K7 at the RCNN's SA1 and SA2, on the ball queries of the pooled RoIs,
     # on each of its routes; the yardstick is the same SA module's forward
@@ -1197,7 +1304,8 @@ def phase_two_stage_kernels(report: list[dict]) -> list[dict]:
                        + masks.numel() + params + got.numel())
         # the wgmma route does three TF32 products a multiply-add; the FMA
         # route one f32 FMA
-        tc, fma = bound(n_bytes, 3 * flops, H100_TF32_FLOP_PER_S), bound(n_bytes, flops)
+        tc = bound(n_bytes, 3 * flops, H100_TF32_FLOP_PER_S)
+        fma = bound(n_bytes, flops, H100_F32_FLOP_PER_S)
         k7.append(dict(name=name, route=route, ms=times[route], plain_ms=plain_ms,
                        route_ms=times, module_ms=[module_ms, unfused_ms], err=max(err.values()),
                        shape=f"{name} b {b}, n {n}, cp {cp}, m {m}, ns {idx_list[0].shape[2]}",

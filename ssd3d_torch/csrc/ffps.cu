@@ -20,8 +20,8 @@
 // SMs: 3 f32 operations a channel, none fused), the key exchange (~0.6 us,
 // as K1's) and the winner's row reaching every CTA (an L2 round trip).
 //
-// Two routes, chosen by the wrapper from the shape (ops/sampling.py,
-// `ffps_cluster_size`):
+// Three routes, chosen by the wrapper from the shape (ops/sampling.py
+// `ffps_route`):
 //
 // - Cluster route: one cloud over a thread-block cluster of 2 to 16 CTAs,
 //   one CTA an SM. Each CTA keeps its contiguous slice of the points, all c
@@ -49,6 +49,18 @@
 //   consecutive points of one channel per load; the picked vector staged in
 //   shared memory; the distances in registers; a block-wide argmax with two
 //   barriers a pick.
+// - Stream route, for shapes that no cluster slice fits and the one-block
+//   route does not take (n > 8,192 or c > 4,096 with a slice too large for
+//   shared memory: a full 16,384-point scan with SA1's 64 features): one
+//   cloud over a cluster of 16 CTAs (in waves where not all clusters are
+//   resident), the fused vectors channel-major as the one-block route takes
+//   them. Each thread keeps its points' running distances in registers (in
+//   a scratch buffer in global memory past 8 points a thread of 1,024, a
+//   slice of 8,192) and re-reads its points' channels from global memory at
+//   every pick; every thread reads the winner's channels from global memory
+//   as it sums (one address a warp: a broadcast L1 serves), and the argmax
+//   is the cluster route's key exchange. Slow (each pick streams the cloud
+//   through L2) but it takes any n and c.
 #include <climits>
 
 #include <cooperative_groups.h>
@@ -333,19 +345,168 @@ bool valid_size(int csize) {
   return csize == 2 || csize == 4 || csize == 8 || csize == 16;
 }
 
+// --------------------------------------------------------- stream route
+//
+// The plan below is mirrored by ops/sampling.py `ffps_stream_plan`.
+
+constexpr int kStreamCluster = 16;
+constexpr int kStreamThreads = 1024;
+constexpr int kStreamMaxPpt = 8;
+constexpr int kStreamSlots = kStreamCluster * kStreamThreads / 32;
+
+// One cloud over a cluster of 16 CTAs; see the file's header. feat is
+// channel-major [b, c, n]; PPT points a thread with their distances in
+// registers, or PPT 0: the distances in scratch f32 [b, n].
+template <int PPT>
+__global__ void __launch_bounds__(kStreamThreads)
+    ffps_stream_kernel(const float* __restrict__ feat, int n, int c, int m, int slice,
+                       float* __restrict__ scratch, int* __restrict__ out) {
+  __shared__ unsigned long long s_key[2][kStreamSlots];
+  __shared__ __align__(8) unsigned long long s_bar[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int nslots = csize * nwarps;
+  const int slot = rank * nwarps + (threadIdx.x >> 5);
+  const size_t cloud = blockIdx.x / csize;
+  const float* f = feat + cloud * c * n;
+  int* o = out + cloud * m;
+  const int first = rank * slice;
+  const int count = max(0, min(slice, n - first));
+  float* sd = PPT == 0 ? scratch + cloud * n + first : nullptr;
+  float dist[PPT > 0 ? PPT : 1];
+#pragma unroll
+  for (int k = 0; k < (PPT > 0 ? PPT : 1); ++k) dist[k] = INFINITY;
+  if (threadIdx.x == 0) {
+    mbar_init(smem_addr(&s_bar[0]), 1);
+    mbar_init(smem_addr(&s_bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();  // every CTA's barriers are ready before the first st.async
+
+  const uint32_t to = lane % csize;
+  const uint32_t to_slot0 = cluster_addr(smem_addr(&s_key[0][slot]), to);
+  const uint32_t to_slot1 = cluster_addr(smem_addr(&s_key[1][slot]), to);
+  const uint32_t to_bar0 = cluster_addr(smem_addr(&s_bar[0]), to);
+  const uint32_t to_bar1 = cluster_addr(smem_addr(&s_bar[1]), to);
+  if (rank == 0 && threadIdx.x == 0) o[0] = 0;
+
+  int last = 0;  // pick 0 is index 0
+  for (int s = 1; s < m; ++s) {
+    const int par = s & 1;
+    if (threadIdx.x == 0) mbar_expect_tx(smem_addr(&s_bar[par]), nslots * 8);
+    unsigned long long best = 0ull;
+    if (PPT > 0) {
+      float acc[PPT > 0 ? PPT : 1];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) acc[k] = 0.0f;
+      for (int ch = 0; ch < c; ++ch) {
+        const float* row = f + (size_t)ch * n;
+        const float pv = __ldg(row + last);
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const int e = threadIdx.x + k * kStreamThreads;
+          if (e < count) {
+            const float diff = __ldg(row + first + e) - pv;
+            acc[k] = acc[k] + diff * diff;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int e = threadIdx.x + k * kStreamThreads;
+        const float nd = fminf(dist[k], acc[k]);
+        dist[k] = nd;
+        const unsigned long long key = e < count ? fps_key(nd, first + e) : 0ull;
+        best = key > best ? key : best;
+      }
+    } else {
+      for (int e = threadIdx.x; e < count; e += kStreamThreads) {
+        float acc = 0.0f;
+        for (int ch = 0; ch < c; ++ch) {
+          const float* row = f + (size_t)ch * n;
+          const float diff = __ldg(row + first + e) - __ldg(row + last);
+          acc = acc + diff * diff;
+        }
+        const float nd = fminf(s > 1 ? sd[e] : INFINITY, acc);
+        sd[e] = nd;
+        const unsigned long long key = fps_key(nd, first + e);
+        best = key > best ? key : best;
+      }
+    }
+    const unsigned long long wbest = warp_max_key(best);
+    if (lane < csize) st_async(par ? to_slot1 : to_slot0, wbest, par ? to_bar1 : to_bar0);
+    mbar_wait(smem_addr(&s_bar[par]), ((s - 1) >> 1) & 1);
+
+    unsigned long long win = 0ull;
+    for (int i = lane; i < nslots; i += 32) {
+      const unsigned long long key = s_key[par][i];
+      win = key > win ? key : win;
+    }
+    last = fps_key_index(warp_max_key(win));
+    if (rank == 0 && threadIdx.x == 0) o[s] = last;
+  }
+  cluster.sync();  // no CTA exits while a store into it may be in flight
+}
+
+using StreamFn = void (*)(const float*, int, int, int, int, float*, int*);
+
+// slice = ceil(n / 16) points a CTA, 1,024 threads, and the fewest points a
+// thread (1, 2, 4 or 8) that cover the slice; 0 (the scratch buffer) past 8
+int stream_ppt(int slice) {
+  int ppt = 1;
+  while (ppt * kStreamThreads < slice && ppt < kStreamMaxPpt) ppt *= 2;
+  return ppt * kStreamThreads < slice ? 0 : ppt;
+}
+
+cudaError_t launch_stream_route(const float* feat, int* out, float* scratch, int b, int n, int c,
+                                int m, cudaStream_t stream) {
+  const int slice = (int)(((long long)n + kStreamCluster - 1) / kStreamCluster);
+  const int ppt = stream_ppt(slice);
+  if (ppt == 0 && scratch == nullptr) return cudaErrorInvalidValue;
+  const StreamFn fn = ppt == 0   ? &ffps_stream_kernel<0>
+                      : ppt == 1 ? &ffps_stream_kernel<1>
+                      : ppt == 2 ? &ffps_stream_kernel<2>
+                      : ppt == 4 ? &ffps_stream_kernel<4>
+                                 : &ffps_stream_kernel<8>;
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * kStreamCluster);
+  cfg.blockDim = dim3(kStreamThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kStreamCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, feat, n, c, m, slice, scratch, out);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// F-FPS. out: i32 [b, m].
-// csize 0, the one-block route: feat f32 [b, c, n] contiguous (channel-major),
-//   n <= 8,192, c <= 4,096.
-// csize 2, 4, 8 or 16, the cluster route over clusters of that size: feat f32
+// F-FPS. out: i32 [b, m]. route:
+// 0, the one-block route: feat f32 [b, c, n] contiguous (channel-major),
+//   n <= 8,192, c <= 4,096;
+// 1, the cluster route over clusters of csize (2, 4, 8 or 16) CTAs: feat f32
 //   [b, n, c] contiguous (point-major); the slice must fit in shared memory
-//   (ops/sampling.py `ffps_cluster_plan`).
-extern "C" int ssd3d_ffps(const float* feat, int* out, int b, int n, int c, int m, int csize,
-                          cudaStream_t stream) {
+//   (ops/sampling.py `ffps_cluster_plan`);
+// 2, the stream route, any n and c: feat f32 [b, c, n] contiguous; scratch
+//   f32 [b, n] where ceil(n / 16) > 8,192 (ops/sampling.py
+//   `ffps_stream_plan`), else unused.
+extern "C" int ssd3d_ffps(const float* feat, int* out, float* scratch, int b, int n, int c, int m,
+                          int route, int csize, cudaStream_t stream) {
   if (b <= 0 || n <= 0 || c <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  if (csize == 0) return (int)launch_block_route(feat, out, b, n, c, m, stream);
-  if (!valid_size(csize)) return (int)cudaErrorInvalidValue;
+  if (route == 0) return (int)launch_block_route(feat, out, b, n, c, m, stream);
+  if (route == 2) return (int)launch_stream_route(feat, out, scratch, b, n, c, m, stream);
+  if (route != 1 || !valid_size(csize)) return (int)cudaErrorInvalidValue;
   const Plan pl = plan(n, c, csize);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;

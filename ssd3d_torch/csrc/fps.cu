@@ -13,7 +13,7 @@
 // over 16,384 points at ~10 operations a point, which one SM alone cannot do
 // in under ~2 ms.
 //
-// Two routes, chosen by the wrapper from the shape (ops/sampling.fps_route):
+// Three routes, chosen by the wrapper from the shape (ops/sampling.fps_route):
 //
 // - Cluster route, for a few clouds (every D-FPS call of 3DSSD and of
 //   PointRCNN's RPN): one cloud over a thread-block cluster of up to 16 CTAs,
@@ -40,6 +40,20 @@
 //   threads per cloud (the reference CUDA op, tf_sampling_g.cu:124, is shaped
 //   the same way), the coordinates in shared memory as three planes, the
 //   distances in registers, and a block-wide argmax with two barriers a pick.
+// - Slice route, for clouds past 16,384 points (nuScenes' 65,536 and more),
+//   which neither route above holds in shared memory: one cloud over a
+//   cluster of 1 to 16 CTAs, each CTA holding only its contiguous slice of
+//   the cloud, with the same key exchange; after it, every thread reads the
+//   winner's xyz (12 bytes) from global memory, where L2 serves it, as K2's
+//   cluster route reads its winner's row. Three tiers, by the slice
+//   (ops/sampling.py `dfps_slice_plan` mirrors `slice_plan` below):
+//   registers (xyz and distance, as the cluster route keeps them: up to
+//   8,192 points a CTA, 131,072 a cluster of 16); shared memory (xyz as
+//   three planes, 12 bytes a point, the distances in registers, 16 a thread
+//   of 1,024: up to 16,384 points a CTA, 262,144 a cluster of 16); global
+//   (xyz read from the input at every pick, the distances in a scratch
+//   buffer in global memory: any n, slow but correct). A cluster of one CTA
+//   is one block a cloud reading its points from global memory.
 #include <climits>
 #include <cstdint>
 
@@ -318,15 +332,231 @@ cudaError_t launch_cluster_route(const float* xyz, int* out, int b, int n, int m
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------- slice route
+//
+// The plan below (tier, slice, threads, points a thread, shared memory) is
+// mirrored by ops/sampling.py `dfps_slice_plan`.
+
+constexpr int kSliceThreads = 1024;                            // shared and global tiers
+constexpr int kSliceSlots = kMaxCluster * kSliceThreads / 32;  // one a warp of the cluster
+constexpr int kRegSlice = kCtaThreads * 16;                    // 8,192: the register tier
+constexpr int kSharedSlice = kSliceThreads * 16;               // 16,384: the shared tier
+constexpr int kSliceSmemMax = 3 * kSharedSlice * (int)sizeof(float);
+
+enum Tier { kRegisters = 0, kShared = 1, kGlobal = 2 };
+
+// One cloud over one cluster, each CTA holding its slice only (see the
+// file's header). `slice` points a CTA; `scratch` f32 [b, n], the global
+// tier's running distances.
+template <int TIER, int PPT>
+__global__ void __launch_bounds__(TIER == kRegisters ? kCtaThreads : kSliceThreads)
+    dfps_slice_kernel(const float* __restrict__ xyz, int n, int m, int slice,
+                      float* __restrict__ scratch, int* __restrict__ out) {
+  extern __shared__ float smem[];
+  __shared__ unsigned long long s_key[2][kSliceSlots];
+  __shared__ __align__(8) unsigned long long s_bar[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int nslots = csize * nwarps;
+  const int slot = rank * nwarps + (threadIdx.x >> 5);
+  const size_t cloud = blockIdx.x / csize;
+  const float* p = xyz + cloud * n * 3;
+  int* o = out + cloud * m;
+  const int first = rank * slice;
+  const int count = max(0, min(slice, n - first));
+  float* sx = smem;  // the shared tier's slice, three planes
+  float* sy = sx + slice;
+  float* sz = sy + slice;
+  float* sd = TIER == kGlobal ? scratch + cloud * n + first : nullptr;
+
+  if (TIER == kShared) {
+    for (int e = threadIdx.x; e < count; e += blockDim.x) {
+      const float* q = p + 3 * (size_t)(first + e);
+      sx[e] = q[0];
+      sy[e] = q[1];
+      sz[e] = q[2];
+    }
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(smem_addr(&s_bar[0]), 1);
+    mbar_init(smem_addr(&s_bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the slices and the barriers are ready in every CTA before the first st.async
+  cluster.sync();
+
+  // this thread's points of the slice: threadIdx.x + k * blockDim.x
+  float px[PPT], py[PPT], pz[PPT], dist[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int e = threadIdx.x + k * blockDim.x;
+    const float* q = p + 3 * (size_t)(first + e);
+    px[k] = TIER == kRegisters && e < count ? q[0] : 0.0f;
+    py[k] = TIER == kRegisters && e < count ? q[1] : 0.0f;
+    pz[k] = TIER == kRegisters && e < count ? q[2] : 0.0f;
+    dist[k] = INFINITY;
+  }
+  const uint32_t to = lane % csize;
+  const uint32_t to_slot0 = cluster_addr(smem_addr(&s_key[0][slot]), to);
+  const uint32_t to_slot1 = cluster_addr(smem_addr(&s_key[1][slot]), to);
+  const uint32_t to_bar0 = cluster_addr(smem_addr(&s_bar[0]), to);
+  const uint32_t to_bar1 = cluster_addr(smem_addr(&s_bar[1]), to);
+  float lx = __ldg(p), ly = __ldg(p + 1), lz = __ldg(p + 2);  // pick 0 is index 0
+  if (rank == 0 && threadIdx.x == 0) o[0] = 0;
+
+  for (int s = 1; s < m; ++s) {
+    const int par = s & 1;
+    if (threadIdx.x == 0) mbar_expect_tx(smem_addr(&s_bar[par]), nslots * 8);
+    unsigned long long best = 0ull;
+    if (TIER == kGlobal) {
+      for (int e = threadIdx.x; e < count; e += blockDim.x) {
+        const float* q = p + 3 * (size_t)(first + e);
+        const float dx = __ldg(q) - lx;
+        const float dy = __ldg(q + 1) - ly;
+        const float dz = __ldg(q + 2) - lz;
+        const float d = (dx * dx + dy * dy) + dz * dz;
+        const float nd = fminf(s > 1 ? sd[e] : INFINITY, d);
+        sd[e] = nd;
+        const unsigned long long key = fps_key(nd, first + e);
+        best = key > best ? key : best;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int e = threadIdx.x + k * blockDim.x;
+        const bool in = e < count;
+        const float x = TIER == kRegisters ? px[k] : (in ? sx[e] : 0.0f);
+        const float y = TIER == kRegisters ? py[k] : (in ? sy[e] : 0.0f);
+        const float z = TIER == kRegisters ? pz[k] : (in ? sz[e] : 0.0f);
+        const float dx = x - lx;
+        const float dy = y - ly;
+        const float dz = z - lz;
+        const float d = (dx * dx + dy * dy) + dz * dz;
+        const float nd = fminf(dist[k], d);
+        dist[k] = nd;
+        const unsigned long long key = in ? fps_key(nd, first + e) : 0ull;
+        best = key > best ? key : best;
+      }
+    }
+    const unsigned long long wbest = warp_max_key(best);
+    if (lane < csize) st_async(par ? to_slot1 : to_slot0, wbest, par ? to_bar1 : to_bar0);
+    mbar_wait(smem_addr(&s_bar[par]), ((s - 1) >> 1) & 1);
+
+    unsigned long long win = 0ull;
+    for (int i = lane; i < nslots; i += 32) {
+      const unsigned long long key = s_key[par][i];
+      win = key > win ? key : win;
+    }
+    const int j = fps_key_index(warp_max_key(win));
+    const float* w = p + 3 * (size_t)j;  // the winner's xyz, from L2
+    lx = __ldg(w);
+    ly = __ldg(w + 1);
+    lz = __ldg(w + 2);
+    if (rank == 0 && threadIdx.x == 0) o[s] = j;
+  }
+  cluster.sync();  // no CTA exits while a store into it may be in flight
+}
+
+using SliceFn = void (*)(const float*, int, int, int, float*, int*);
+
+struct SlicePlan {
+  SliceFn fn;
+  int tier, slice, threads;
+  size_t smem;
+};
+
+// The CTA for n points over csize CTAs: the register tier (the cluster
+// route's shape: kTargetPpt points a thread up to kCtaThreads threads, then
+// up to 16) where the slice holds at most kRegSlice points; the shared tier
+// (kSliceThreads threads, 16 points a thread) up to kSharedSlice; else the
+// global tier. Every CTA asks for more than half an SM's shared memory.
+SlicePlan slice_plan(int n, int csize) {
+  constexpr SliceFn kRegFns[5] = {
+      dfps_slice_kernel<kRegisters, 1>, dfps_slice_kernel<kRegisters, 2>,
+      dfps_slice_kernel<kRegisters, 4>, dfps_slice_kernel<kRegisters, 8>,
+      dfps_slice_kernel<kRegisters, 16>};
+  SlicePlan pl;
+  pl.slice = (int)(((long long)n + csize - 1) / csize);
+  pl.smem = kSpreadSmem;
+  if (pl.slice <= kRegSlice) {
+    const int want = ((pl.slice + kTargetPpt - 1) / kTargetPpt + 31) / 32 * 32;
+    pl.threads = want < 32 ? 32 : want > kCtaThreads ? kCtaThreads : want;
+    int log_ppt = 0;
+    while ((pl.threads << log_ppt) < pl.slice) ++log_ppt;
+    pl.fn = kRegFns[log_ppt];
+    pl.tier = kRegisters;
+  } else if (pl.slice <= kSharedSlice) {
+    pl.fn = dfps_slice_kernel<kShared, 16>;
+    pl.tier = kShared;
+    pl.threads = kSliceThreads;
+    const size_t planes = (size_t)3 * pl.slice * sizeof(float);
+    pl.smem = planes > pl.smem ? planes : pl.smem;
+  } else {
+    pl.fn = dfps_slice_kernel<kGlobal, 1>;
+    pl.tier = kGlobal;
+    pl.threads = kSliceThreads;
+  }
+  return pl;
+}
+
+bool valid_slice_size(int csize) {
+  return csize == 1 || csize == 2 || csize == 4 || csize == 8 || csize == 16;
+}
+
+// the launch configuration of b clusters of the plan's CTAs
+cudaError_t slice_config(const SlicePlan& pl, int csize, int b, cudaLaunchAttribute* attr,
+                         cudaStream_t stream, cudaLaunchConfig_t* cfg) {
+  const void* fn = reinterpret_cast<const void*>(pl.fn);
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSliceSmemMax);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  *cfg = {};
+  cfg->gridDim = dim3(b * csize);
+  cfg->blockDim = dim3(pl.threads);
+  cfg->dynamicSmemBytes = pl.smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = csize;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+cudaError_t launch_slice_route(const float* xyz, int* out, float* scratch, int b, int n, int m,
+                               int csize, cudaStream_t stream) {
+  if (!valid_slice_size(csize)) return cudaErrorInvalidValue;
+  const SlicePlan pl = slice_plan(n, csize);
+  if (pl.tier == kGlobal && scratch == nullptr) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = slice_config(pl, csize, b, &attr, stream, &cfg);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, pl.fn, xyz, n, m, pl.slice, scratch, out);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// xyz: f32 [b, n, 3] contiguous; out: i32 [b, m]. n <= 16,384. cluster: 0
-// for the one-block route, 1 for the cluster route.
-extern "C" int ssd3d_dfps(const float* xyz, int* out, int b, int n, int m, int cluster,
-                          cudaStream_t stream) {
-  if (b <= 0 || n <= 0 || m <= 0 || n > kMaxPoints) return (int)cudaErrorInvalidValue;
-  if (cluster) return (int)launch_cluster_route(xyz, out, b, n, m, stream);
-  return (int)launch_block_route(xyz, out, b, n, m, stream);
+// xyz: f32 [b, n, 3] contiguous; out: i32 [b, m]. route: 0 one block a
+// cloud and 1 a cluster a cloud (both n <= 16,384: they hold the whole
+// cloud in shared memory); 2 the slice route, any n, over clusters of csize
+// (1, 2, 4, 8 or 16) CTAs, with scratch f32 [b, n] where the plan's tier is
+// the global one (ops/sampling.py `dfps_slice_plan`), else unused.
+extern "C" int ssd3d_dfps(const float* xyz, int* out, float* scratch, int b, int n, int m,
+                          int route, int csize, cudaStream_t stream) {
+  if (b <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  if (route == 2) return (int)launch_slice_route(xyz, out, scratch, b, n, m, csize, stream);
+  if (n > kMaxPoints) return (int)cudaErrorInvalidValue;  // a forced route that cannot hold it
+  if (route == 1) return (int)launch_cluster_route(xyz, out, b, n, m, stream);
+  if (route == 0) return (int)launch_block_route(xyz, out, b, n, m, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The cluster route's cluster size for b clouds of n points (no launch), or
@@ -336,4 +566,19 @@ extern "C" int ssd3d_dfps_cluster_size(int b, int n) {
   ClusterPlan pl;
   const cudaError_t err = choose_cluster(b, n, &pl);
   return err == cudaSuccess ? pl.csize : -(int)err;
+}
+
+// How many of the slice route's clusters of csize CTAs, for clouds of n
+// points, are resident at once on this card (no launch), or minus the
+// cudaError.
+extern "C" int ssd3d_dfps_slice_clusters(int n, int csize) {
+  if (n <= 0 || !valid_slice_size(csize)) return -(int)cudaErrorInvalidValue;
+  const SlicePlan pl = slice_plan(n, csize);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = slice_config(pl, csize, 1, &attr, nullptr, &cfg);
+  int active = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&active, reinterpret_cast<const void*>(pl.fn), &cfg);
+  return err == cudaSuccess ? active : -(int)err;
 }

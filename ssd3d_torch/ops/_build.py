@@ -136,18 +136,22 @@ class Kernel:
 
 
 P, I = ctypes.c_void_p, ctypes.c_int
-# both D-FPS routes, counted apart in FPS.by_route (the last int: 0 one block
-# a cloud, 1 a cluster a cloud)
-FPS = Kernel("fps", "ssd3d_dfps", [P, P, I, I, I, I])
-# both F-FPS routes (the last int: the cluster size, 0 for one block a cloud)
-FFPS = Kernel("ffps", "ssd3d_ffps", [P, P, I, I, I, I, I])
+# the three D-FPS routes, counted apart in FPS.by_route (the two last ints:
+# the route, 0 one block a cloud, 1 a cluster a cloud, 2 a cluster of slices;
+# and the slice route's cluster size)
+FPS = Kernel("fps", "ssd3d_dfps", [P, P, P, I, I, I, I, I])
+# the three F-FPS routes (the two last ints: the route, 0 one block a cloud,
+# 1 a cluster of slices in shared memory, 2 streamed; and the cluster route's
+# cluster size)
+FFPS = Kernel("ffps", "ssd3d_ffps", [P, P, P, I, I, I, I, I, I])
 # both ball-query routes (the int after the ring arrays: 1 for the grid, with
 # its scratch, cell cap and least cell edge)
 BALL_QUERY = Kernel("ball_query", "ssd3d_ball_query",
                     [P, P, P, P, I, I, I, I, P, P, P, P, I, P, P, P, I, ctypes.c_double])
 GATHER = Kernel("gather", "ssd3d_gather_rows", [P, P, P, I, I, I, I])
 SCATTER_ADD = Kernel("scatter_add", "ssd3d_scatter_add_rows", [P, P, P, P, P, P, I, I, I, I])
-THREE_NN = Kernel("three_nn", "ssd3d_three_nn", [P, P, P, P, I, I, I])
+# the last int: slices of the knowns
+THREE_NN = Kernel("three_nn", "ssd3d_three_nn", [P, P, P, P, I, I, I, I])
 # both K7 routes (the last int: 0 FMA, 1 wgmma)
 SA_FUSED = Kernel("sa_fused", "ssd3d_sa_fused",
                   [P, P, P, P, P, I, I, I, I, I, P, P, P, I, P, P, P, P, I])
@@ -176,6 +180,22 @@ def dfps_cluster_size(b: int, n: int) -> int:
     if size <= 0:
         raise RuntimeError(f"ssd3d_torch: cluster occupancy query failed: cudaError {-size}")
     return size
+
+
+_dfps_slice_clusters: dict[tuple[int, int], int] = {}
+
+
+def dfps_slice_clusters(n: int, size: int) -> int:
+    """How many of K1's slice-route clusters of `size` CTAs for clouds of n
+    points are resident at once on this card (an occupancy query, cached;
+    nothing is launched)."""
+    key = (n, size)
+    if key not in _dfps_slice_clusters:
+        active = library().ssd3d_dfps_slice_clusters(n, size)
+        if active < 0:
+            raise RuntimeError(f"ssd3d_torch: D-FPS occupancy query failed: cudaError {-active}")
+        _dfps_slice_clusters[key] = active
+    return _dfps_slice_clusters[key]
 
 
 _ffps_clusters: dict[tuple[int, int, int], int] = {}

@@ -115,14 +115,28 @@ def ball_query_route(n: int) -> str:
     return "grid" if GRID_MIN_POINTS <= n <= GRID_MAX_POINTS else "brute"
 
 
+# K3 takes at most this many rings a launch (csrc/ball_query.cu)
+KERNEL_MAX_RINGS = 4
+
+
+def ring_groups(specs) -> list:
+    """The rings in groups of at most KERNEL_MAX_RINGS, in order, one launch
+    of K3 each: a ring's idx and cnt depend on its own (lo2, hi2, ns,
+    annulus) only, which each group keeps as `ring_specs` gave them."""
+    return [specs[i:i + KERNEL_MAX_RINGS] for i in range(0, len(specs), KERNEL_MAX_RINGS)]
+
+
 def _ball_query_cuda(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
     """K3 on the route `ball_query_route` picks (tests and timing patch it to
-    force one)."""
+    force one), one launch for each group of `ring_groups`."""
+    return [ring for group in ring_groups(specs) for ring in _ball_query_launch(group, xyz, new_xyz)]
+
+
+def _ball_query_launch(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """One launch of K3 for at most KERNEL_MAX_RINGS rings."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     k = len(specs)
-    if k > 4:
-        raise ValueError(f"ball_query_multi: kernel takes at most 4 rings, got {k}")
     route = ball_query_route(n)
     if route not in ("grid", "brute"):
         raise ValueError(f"ball_query_multi: unknown route {route!r}")

@@ -51,13 +51,36 @@ def three_nn_plain(xyz1: torch.Tensor, xyz2: torch.Tensor):
     return torch.cat(dists, 1), torch.cat(idxs, 1).to(torch.int32)
 
 
+# K6 (csrc/three_nn.cu) takes one unknown a thread; where b * n threads give
+# fewer than about 8 warps on each of the H100's 132 SMs, the knowns split
+# into S slices scanned by neighbouring lanes, each slice keeping at least
+# 8 knowns (the S that won at each FP shape, PERF.md §6).
+THREE_NN_FILL_THREADS = 8 * 32 * 132
+THREE_NN_MAX_SLICES = 8
+THREE_NN_MIN_SLICE = 8
+
+
+def three_nn_slices(b: int, n: int, m: int) -> int:
+    """K6's S for b clouds of n unknowns and m knowns: a power of two up to
+    8, doubled while b * n * S falls short of THREE_NN_FILL_THREADS and each
+    slice keeps THREE_NN_MIN_SLICE knowns."""
+    s = 1
+    while (s < THREE_NN_MAX_SLICES and b * n * s < THREE_NN_FILL_THREADS
+           and m >= 2 * s * THREE_NN_MIN_SLICE):
+        s *= 2
+    return s
+
+
 def _three_nn_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """K6 with the slices `three_nn_slices` gives (timing patches it to
+    force others)."""
     b, n, _ = xyz1.shape
     m = xyz2.shape[1]
     xyz1, xyz2 = xyz1.contiguous(), xyz2.contiguous()
     dist = torch.empty(b, n, 3, dtype=torch.float32, device=xyz1.device)
     idx = torch.empty(b, n, 3, dtype=torch.int32, device=xyz1.device)
-    _build.THREE_NN(xyz1.data_ptr(), xyz2.data_ptr(), dist.data_ptr(), idx.data_ptr(), b, n, m)
+    _build.THREE_NN(xyz1.data_ptr(), xyz2.data_ptr(), dist.data_ptr(), idx.data_ptr(), b, n, m,
+                    three_nn_slices(b, n, m))
     return dist, idx
 
 

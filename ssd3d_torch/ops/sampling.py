@@ -2,7 +2,8 @@
 
 Counterpart of `ssd3d/ops/sampling.py`. The two FPS functions dispatch on the
 device of their input: a CUDA tensor launches the hand-written kernel
-(`csrc/fps.cu`, `csrc/ffps.cu`, each with two routes chosen from the shape),
+(`csrc/fps.cu`, `csrc/ffps.cu`, each with three routes chosen from the
+shape, which together take any n and c),
 a CPU tensor takes the plain PyTorch version beside it. Both follow the JAX
 package's contract: pick 0 is index 0, the running minimum of squared
 distance decides the next pick, argmax ties go to the lowest index.
@@ -46,32 +47,100 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
-# K1 has two routes (csrc/fps.cu): one cloud over a thread-block cluster of up
-# to 16 SMs, or one block a cloud. At every D-FPS shape of the three paths
-# with at most 16 clouds (256 to 16,384 points) the cluster route was faster;
-# at the RCNN's 400 clouds the one-block route was (chip_smoke.py phase 2;
-# PERF.md §6).
+# K1 has three routes (csrc/fps.cu): one cloud over a thread-block cluster of
+# up to 16 SMs, or one block a cloud, both holding the whole cloud in shared
+# memory (so n <= 16,384); and the slice route for larger clouds, a cluster
+# a cloud whose CTAs hold only their slices. At every D-FPS shape of the
+# three paths with at most 16 clouds (256 to 16,384 points) the cluster
+# route was faster; at the RCNN's 400 clouds the one-block route was
+# (chip_smoke.py phase 2; PERF.md §6).
 FPS_CLUSTER_MAX_CLOUDS = 16
+FPS_MAX_POINTS = 16384  # the cluster and one-block routes hold the cloud in shared memory
 
 
-def fps_route(b: int) -> str:
-    """K1's route for b clouds: "cluster" or "block". The count of clouds
-    decides; the number of points did not, at any measured shape."""
+def fps_route(b: int, n: int) -> str:
+    """K1's route for b clouds of n points: "cluster", "block" or "slice"."""
+    if n > FPS_MAX_POINTS:
+        return "slice"
     return "cluster" if b <= FPS_CLUSTER_MAX_CLOUDS else "block"
 
 
+# The slice route's plan mirrors the kernel's `slice_plan` (csrc/fps.cu): a
+# CTA takes ceil(n / size) points. Up to 8,192 (the register tier) it keeps
+# xyz and the running distance of each in registers, the cluster route's
+# shape (8 points a thread up to 512 threads, then up to 16); up to 16,384
+# (the shared tier) xyz in shared memory, 12 bytes a point, and 16
+# distances a thread of 1,024 in registers; past that (the global tier) it
+# reads xyz from the input at every pick and keeps the distances in a
+# scratch buffer of b x n floats. Every CTA asks for at least 120 KB of
+# shared memory, so that one takes an SM.
+DFPS_CTA_THREADS = 512
+DFPS_SLICE_THREADS = 1024
+DFPS_TARGET_PPT = 8
+DFPS_REG_SLICE = DFPS_CTA_THREADS * 16
+DFPS_SHARED_SLICE = DFPS_SLICE_THREADS * 16
+DFPS_SPREAD_SMEM = 120 * 1024
+# cluster sizes of the slice route, largest first; 1 is one block a cloud
+DFPS_SLICE_SIZES = (16, 8, 4, 2, 1)
+# the tiers, fastest first: a pick took ~1, ~3.5 and ~10 us a wave on them
+# at [32, 32768] -> 1024 (chip_smoke.py phase 2; PERF.md §6)
+DFPS_TIERS = ("registers", "shared", "global")
+
+
+def dfps_slice_plan(n: int, size: int) -> dict:
+    """The slice route's CTA for clouds of n points over `size` CTAs: its
+    tier ("registers", "shared" or "global"), points a CTA, threads, points
+    a thread (0 on the global tier) and dynamic shared memory."""
+    slice_ = -(-n // size)
+    if slice_ <= DFPS_REG_SLICE:
+        want = -(-slice_ // DFPS_TARGET_PPT)
+        threads = min(DFPS_CTA_THREADS, max(32, -(-want // 32) * 32))
+        ppt = 1
+        while threads * ppt < slice_:
+            ppt *= 2
+        return dict(tier="registers", slice=slice_, threads=threads, ppt=ppt,
+                    smem=DFPS_SPREAD_SMEM)
+    if slice_ <= DFPS_SHARED_SLICE:
+        return dict(tier="shared", slice=slice_, threads=DFPS_SLICE_THREADS, ppt=16,
+                    smem=max(12 * slice_, DFPS_SPREAD_SMEM))
+    return dict(tier="global", slice=slice_, threads=DFPS_SLICE_THREADS, ppt=0,
+                smem=DFPS_SPREAD_SMEM)
+
+
+def dfps_slice_size(b: int, n: int) -> int:
+    """The slice route's cluster size for b clouds of n points: the size on
+    the fastest tier, then with the fewest waves of clusters (b over how
+    many are resident at once on this card: an occupancy query, nothing
+    launched), then the largest. At [32, 32768] clusters of 4 in two waves
+    beat clusters of 2, all resident, on the shared tier, and one block a
+    cloud reading its points from global memory."""
+    def cost(size: int) -> tuple:
+        waves = -(-b // max(1, _build.dfps_slice_clusters(n, size)))
+        return DFPS_TIERS.index(dfps_slice_plan(n, size)["tier"]), waves, -size
+
+    return min(DFPS_SLICE_SIZES, key=cost)
+
+
 def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """K1 on the route `fps_route` picks (tests and timing patch it to force
-    one)."""
+    """K1 on the route `fps_route` picks (tests and timing patch it, or
+    `dfps_slice_size`, to force one)."""
     b, n, _ = xyz.shape
-    if n > 16384:
-        raise ValueError(f"farthest_point_sample: kernel takes n <= 16384, got {n}")
-    route = fps_route(b)
-    if route not in ("cluster", "block"):
+    route = fps_route(b, n)
+    codes = {"block": 0, "cluster": 1, "slice": 2}
+    if route not in codes:
         raise ValueError(f"farthest_point_sample: unknown route {route!r}")
+    if route != "slice" and n > FPS_MAX_POINTS:
+        raise ValueError(f"farthest_point_sample: the {route} route holds the cloud in shared "
+                         f"memory and takes n <= {FPS_MAX_POINTS}, got {n}")
     xyz = xyz.contiguous()
     out = torch.empty(b, npoint, dtype=torch.int32, device=xyz.device)
-    _build.FPS(xyz.data_ptr(), out.data_ptr(), b, n, npoint, int(route == "cluster"), route=route)
+    size, scratch = 0, None
+    if route == "slice":
+        size = dfps_slice_size(b, n)
+        if dfps_slice_plan(n, size)["tier"] == "global":
+            scratch = torch.empty(b, n, dtype=torch.float32, device=xyz.device)
+    _build.FPS(xyz.data_ptr(), out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+               b, n, npoint, codes[route], size, route=route)
     return out
 
 
@@ -114,13 +183,32 @@ def fps_from_dist_plain(dist: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 def ffps_plain(fused: torch.Tensor, npoint: int) -> torch.Tensor:
-    """Plain F-FPS. fused: f32 [b, n, c] -> int32 [b, npoint]."""
-    return fps_from_dist_plain(fused_square_distance(fused), npoint)
+    """Plain F-FPS. fused: f32 [b, n, c] -> int32 [b, npoint]. Each step
+    computes the last pick's row of squared distances only, channels summed
+    in order from exact differences: bit for bit the row of
+    `fused_square_distance`, without its [b, n, n] matrix."""
+    b, n, c = fused.shape
+    out = torch.zeros(b, npoint, dtype=torch.int64, device=fused.device)
+    min_dist = torch.full((b, n), float("inf"), dtype=fused.dtype, device=fused.device)
+    last = torch.zeros(b, 1, 1, dtype=torch.int64, device=fused.device)
+    for i in range(1, npoint):
+        pick = fused.gather(1, last.expand(b, 1, c))  # [b, 1, c]
+        row = torch.zeros(b, n, dtype=fused.dtype, device=fused.device)
+        for ch in range(c):
+            diff = fused[..., ch] - pick[..., ch]
+            row = row + diff * diff
+        min_dist = torch.minimum(min_dist, row)
+        nxt = min_dist.argmax(dim=1)
+        out[:, i] = nxt
+        last = nxt[:, None, None]
+    return out.to(torch.int32)
 
 
-# K2 has two routes (csrc/ffps.cu): one cloud over a thread-block cluster, each
-# CTA holding its slice of the points in shared memory, or one block a cloud.
-# The cluster route's plan mirrors the kernel's `plan`: a CTA takes
+# K2 has three routes (csrc/ffps.cu): one cloud over a thread-block cluster,
+# each CTA holding its slice of the points in shared memory; one block a
+# cloud (n <= 8,192, c <= 4,096); and the stream route, a cluster of 16 a
+# cloud re-reading its points from global memory at every pick, for any n
+# and c. The cluster route's plan mirrors the kernel's `plan`: a CTA takes
 # ceil(n / size) points, a thread each up to 512 threads; rows of c floats
 # rounded up to an odd number of 16-byte vectors; shared memory for its
 # slice's rows, one row a warp (the winner's) and a distance a point, at
@@ -132,6 +220,12 @@ FFPS_SPREAD_SMEM = 120 * 1024
 FFPS_STATIC_SMEM = 8 * (2 * 16 * FFPS_CTA_THREADS // 32 + 2)
 FFPS_BLOCK_SMEM = 232_448
 FFPS_BLOCK_MAX_POINTS = 8192
+FFPS_BLOCK_MAX_CHANNELS = 4096
+# the stream route: clusters of 16 CTAs of 1,024 threads, up to 8 points a
+# thread with their distances in registers, else in a scratch buffer
+FFPS_STREAM_CLUSTER = 16
+FFPS_STREAM_THREADS = 1024
+FFPS_STREAM_MAX_PPT = 8
 
 
 def ffps_row_stride(c: int) -> int:
@@ -157,6 +251,22 @@ def ffps_cluster_fits(n: int, c: int, size: int) -> bool:
     return ffps_cluster_plan(n, c, size)["smem"] + FFPS_STATIC_SMEM <= FFPS_BLOCK_SMEM
 
 
+def ffps_stream_plan(n: int) -> dict:
+    """The stream route's CTA for clouds of n points (the kernel's
+    `stream_ppt`): points a CTA and points a thread, 0 where the distances
+    go to the scratch buffer (past 8 a thread)."""
+    slice_ = -(-n // FFPS_STREAM_CLUSTER)
+    ppt = 1
+    while ppt * FFPS_STREAM_THREADS < slice_ and ppt < FFPS_STREAM_MAX_PPT:
+        ppt *= 2
+    return dict(slice=slice_, ppt=ppt if ppt * FFPS_STREAM_THREADS >= slice_ else 0)
+
+
+def ffps_block_fits(n: int, c: int) -> bool:
+    """Whether the one-block route takes an n x c cloud."""
+    return n <= FFPS_BLOCK_MAX_POINTS and c <= FFPS_BLOCK_MAX_CHANNELS
+
+
 def ffps_cluster_size(b: int, n: int, c: int) -> int:
     """K2's cluster size for b clouds of n x c: the largest of 16, 8, 4 and 2
     whose slice fits in shared memory and at which all b clusters are
@@ -170,8 +280,11 @@ def ffps_cluster_size(b: int, n: int, c: int) -> int:
 
 def ffps_route(b: int, n: int, c: int) -> str:
     """K2's route for b clouds of n x c: "cluster" where a cluster size fits
-    (`ffps_cluster_size`), else "block"."""
-    return "cluster" if ffps_cluster_size(b, n, c) else "block"
+    (`ffps_cluster_size`), else "block" where the one-block route takes the
+    shape, else "stream"."""
+    if ffps_cluster_size(b, n, c):
+        return "cluster"
+    return "block" if ffps_block_fits(n, c) else "stream"
 
 
 def _ffps_cuda(fused: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -186,14 +299,19 @@ def _ffps_cuda(fused: torch.Tensor, npoint: int) -> torch.Tensor:
             raise ValueError(f"farthest_point_sample_features: no cluster size fits "
                              f"{b} clouds of {n} x {c}")
         fused = fused.contiguous()  # [b, n, c]: each CTA loads its slice's rows
-        _build.FFPS(fused.data_ptr(), out.data_ptr(), b, n, c, npoint, size, route=route)
-    elif route == "block":
-        if n > FFPS_BLOCK_MAX_POINTS or c > 4096:
+        _build.FFPS(fused.data_ptr(), out.data_ptr(), None, b, n, c, npoint, 1, size, route=route)
+    elif route in ("block", "stream"):
+        if route == "block" and not ffps_block_fits(n, c):
             raise ValueError(
                 f"farthest_point_sample_features: the one-block route takes n <= "
-                f"{FFPS_BLOCK_MAX_POINTS} and c <= 4096, got n={n}, c={c}")
+                f"{FFPS_BLOCK_MAX_POINTS} and c <= {FFPS_BLOCK_MAX_CHANNELS}, got n={n}, c={c}")
+        scratch = None
+        if route == "stream" and ffps_stream_plan(n)["ppt"] == 0:
+            scratch = torch.empty(b, n, dtype=torch.float32, device=fused.device)
         chan_major = fused.transpose(1, 2).contiguous()  # [b, c, n]: coalesced rows
-        _build.FFPS(chan_major.data_ptr(), out.data_ptr(), b, n, c, npoint, 0, route=route)
+        _build.FFPS(chan_major.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr() if scratch is not None else None, b, n, c, npoint,
+                    0 if route == "block" else 2, 0, route=route)
     else:
         raise ValueError(f"farthest_point_sample_features: unknown route {route!r}")
     return out

@@ -112,6 +112,87 @@ def test_inverse_distance_weights_and_three_interpolate_match_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
+def _before(d, i, e, j):
+    """csrc/three_nn.cu `before`: (d, i) ahead of (e, j)."""
+    return (d < e) | ((d == e) & (i < j))
+
+
+def _insert_merge(lst, d, k):
+    """csrc/three_nn.cu `insert_merge` on tensors: candidate (d, k) into the
+    sorted 3-list lst = [d0, d1, d2, i0, i1, i2]."""
+    d0, d1, d2, i0, i1, i2 = lst
+    b2 = _before(d, k, d2, i2)
+    b1 = b2 & _before(d, k, d1, i1)
+    b0 = b1 & _before(d, k, d0, i0)
+    return [torch.where(b0, d, d0), torch.where(b0, d0, torch.where(b1, d, d1)),
+            torch.where(b1, d1, torch.where(b2, d, d2)),
+            torch.where(b0, k, i0), torch.where(b0, i0, torch.where(b1, k, i1)),
+            torch.where(b1, i1, torch.where(b2, k, i2))]
+
+
+def three_nn_split_merge(unknown, known, s):
+    """K6's split and merge on the CPU: the knowns in s slices of
+    ceil(m / s) contiguous indices, each slice's 3-best by `three_nn_plain`
+    (a slice's missing slots, as the kernel's, (inf, 0)), then the lanes'
+    butterfly (xor 1, 2, 4) inserting the partner's candidates in order."""
+    b, n, _ = unknown.shape
+    m = known.shape[1]
+    per = -(-m // s)
+    lists = []
+    for sl in range(s):
+        part = known[:, sl * per:(sl + 1) * per]
+        d = torch.full((b, n, 3), float("inf"))
+        i = torch.zeros(b, n, 3, dtype=torch.int32)
+        if part.shape[1]:
+            pd, pi = interpolate.three_nn_plain(unknown, part)
+            k = min(3, part.shape[1])
+            d[..., :k], i[..., :k] = pd[..., :k], pi[..., :k] + sl * per
+        lists.append([d[..., 0], d[..., 1], d[..., 2], i[..., 0], i[..., 1], i[..., 2]])
+    off = 1
+    while off < s:
+        merged = []
+        for sl in range(s):
+            lst, other = lists[sl], lists[sl ^ off]
+            for r in range(3):
+                lst = _insert_merge(lst, other[r], other[3 + r])
+            merged.append(lst)
+        lists, off = merged, 2 * off
+    d0, d1, d2, i0, i1, i2 = lists[0]
+    return torch.stack([d0, d1, d2], -1), torch.stack([i0, i1, i2], -1)
+
+
+def _tied_clouds(seed, b, n, m):
+    """Knowns on a small integer lattice, each repeated at several indices a
+    third of the cloud apart (so copies fall in different slices), unknowns
+    on the lattice and at half steps: equal distances everywhere, across
+    slice borders too."""
+    rng = np.random.RandomState(seed)
+    base = rng.randint(-3, 4, size=(b, -(-m // 3), 3)).astype(np.float32)
+    known = np.concatenate([base, base[:, ::-1], base], axis=1)[:, :m].copy()
+    unknown = (rng.randint(-6, 7, size=(b, n, 3)) * 0.5).astype(np.float32)
+    return unknown, known
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,m", [(256, 64), (200, 96), (130, 65)])
+def test_three_nn_split_merge_equals_one_scan(pallas_three_nn, n, m, s):
+    """K6's S slices merged by (d, index) give one scan's result, ties
+    included: the plain version's and the Pallas kernel's (interpret mode).
+    m = 65 leaves the last of 8 slices two knowns."""
+    unknown, known = _tied_clouds(n + m + s, 2, n, m)
+    got_d, got_i = three_nn_split_merge(_t(unknown), _t(known), s)
+    plain_d, plain_i = interpolate.three_nn_plain(_t(unknown), _t(known))
+    want_d, want_i = pallas_three_nn(jnp.asarray(unknown), jnp.asarray(known))
+    assert torch.equal(got_i, plain_i) and torch.equal(got_d, plain_d)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+    # the input has ties that cross slices: some unknown's kept knowns are
+    # equally near and lie in different slices
+    per = -(-m // s)
+    tied = (got_d[..., 0] == got_d[..., 1]) & (got_i[..., 0] // per != got_i[..., 1] // per)
+    assert s == 1 or bool(tied.any())
+
+
 def test_three_nn_cpu_takes_the_plain_version():
     _build.reset_launches()
     unknown, known = _clouds(6, 1, 20, 8)
@@ -150,6 +231,23 @@ def test_three_nn_kernel_takes_more_clouds_than_a_grid_column(cuda):
     got_d, got_i = interpolate.three_nn(_t(unknown).to(cuda), _t(known).to(cuda))
     assert torch.equal(got_i.cpu(), want_i)
     assert torch.equal(got_d.cpu(), want_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,m", [(4096, 1024), (777, 65), (300, 2500), (5, 16387)])
+def test_three_nn_kernel_every_slicing_on_ties(cuda, n, m, s, monkeypatch):
+    """Every S the kernel takes, on knowns repeated across slice borders
+    (m = 65: a last slice of 2 knowns; 16,387: slices over several tiles
+    with a partial last chunk): indices equal the plain version's,
+    distances bit-identical."""
+    monkeypatch.setattr(interpolate, "three_nn_slices", lambda b, n_, m_: s)
+    unknown, known = _tied_clouds(n + m, 2, n, m)
+    xyz1, xyz2 = _t(unknown).to(cuda), _t(known).to(cuda)
+    want_d, want_i = interpolate.three_nn_plain(xyz1, xyz2)
+    got_d, got_i = interpolate.three_nn(xyz1, xyz2)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d, want_d)
 
 
 @pytest.mark.cuda

@@ -59,12 +59,12 @@ def test_dfps_matches_jax(kind):
 def test_fps_route_follows_the_shape(monkeypatch):
     # a few clouds spread over clusters: 3DSSD's SA1-SA3 at batch 8, the
     # RPN's SA1-SA4 at batch 4 and 1, and the RPN's SA1 at batch 16
-    for b in (1, 2, 4, 8, 16):
-        assert sampling.fps_route(b) == "cluster"
+    for b, n in ((1, 16384), (2, 4096), (4, 1024), (8, 16384), (16, 16384)):
+        assert sampling.fps_route(b, n) == "cluster"
     # many clouds keep one block each: the RCNN's 400 at batch 4, 100 at batch 1
-    for b in (17, 100, 400):
-        assert sampling.fps_route(b) == "block"
-    monkeypatch.setattr(sampling, "fps_route", lambda b: "warp")
+    for b, n in ((17, 16384), (100, 512), (400, 128)):
+        assert sampling.fps_route(b, n) == "block"
+    monkeypatch.setattr(sampling, "fps_route", lambda b, n: "warp")
     with pytest.raises(ValueError, match="unknown route"):
         sampling._fps_cuda(torch.zeros(1, 8, 3), 4)
 
@@ -122,12 +122,27 @@ def test_ffps_tie_aware_against_jax(n, c, m, record_property):
     assert len(set(got[0].tolist())) == m  # no duplicate picks
 
 
-def test_ffps_plain_matches_distance_matrix_recurrence():
-    fused = _t(np.random.RandomState(5).randn(2, 200, 9).astype(np.float32))
-    d = sampling.fused_square_distance(fused)
+@pytest.mark.parametrize("kind,b,n,c,m", [
+    ("gaussian", 2, 200, 9, 50), ("gaussian", 2, 300, 9, 60), ("lattice", 2, 200, 4, 80),
+    ("duplicates", 1, 257, 67, 100), ("lattice", 3, 64, 1, 64), ("gaussian", 1, 50, 131, 50),
+])
+def test_ffps_plain_matches_distance_matrix_recurrence(kind, b, n, c, m):
+    """The plain F-FPS computes the last pick's row of squared distances at
+    each step; its picks equal those of the recurrence over the whole
+    [b, n, n] matrix, ties included (small-integer lattices; every row
+    twice)."""
+    rng = np.random.RandomState(n + c)
+    if kind == "gaussian":
+        fused = rng.randn(b, n, c).astype(np.float32)
+    elif kind == "lattice":
+        fused = rng.randint(-2, 3, size=(b, n, c)).astype(np.float32)
+    else:
+        half = rng.randn(b, (n + 1) // 2, c).astype(np.float32)
+        fused = np.concatenate([half, half[:, ::-1]], axis=1)[:, :n].copy()
+    d = sampling.fused_square_distance(_t(fused))
     np.testing.assert_array_equal(
-        sampling.ffps_plain(fused, 50).numpy(),
-        sampling.fps_from_dist_plain(d, 50).numpy())
+        sampling.ffps_plain(_t(fused), m).numpy(),
+        sampling.fps_from_dist_plain(d, m).numpy())
 
 
 def test_fps_pick_shortfall_flags_a_wrong_pick():
@@ -451,7 +466,7 @@ def cuda():
 @pytest.mark.parametrize("n,m", [(16384, 512), (1000, 200), (4096, 512)])
 def test_fps_kernel_equals_plain(cuda, n, m, route, monkeypatch):
     if route is not None:
-        monkeypatch.setattr(sampling, "fps_route", lambda b: route)
+        monkeypatch.setattr(sampling, "fps_route", lambda b, n: route)
     xyz = _t(_cloud(13, 3, n, scale=20.0))
     _build.reset_launches()
     got = sampling.farthest_point_sample(xyz.to(cuda), m)
@@ -748,7 +763,7 @@ def test_kernels_count_their_launches(cuda):
     sampling.farthest_point_sample(xyz, 8)
     sampling.farthest_point_sample(xyz, 8)
     with pytest.MonkeyPatch.context() as mp:  # both routes are the one kernel's
-        mp.setattr(sampling, "fps_route", lambda b: "block")
+        mp.setattr(sampling, "fps_route", lambda b, n: "block")
         sampling.farthest_point_sample(xyz, 8)
     assert _build.launches()["fps"] == 3
     assert _build.route_launches()["fps"] == {"cluster": 2, "block": 1}
