@@ -1,31 +1,32 @@
-"""Two-stage inference (counterpart of the DoubleStage branch of
-`ssd3d/models/api.py`): `build_pipeline(cfg).infer(points)` runs PointRCNN
-end to end on a batch of scans. The single-stage detector's inference is
-`models.single_stage.build_detector` and `DetectorSpec.decode_and_nms`."""
+"""Model construction and inference dispatch by MODEL.TYPE (counterpart of
+`ssd3d/models/api.py`, the reference's modeling/__init__.py choose_model):
+`build_pipeline(cfg).infer(points)` runs 3DSSD (SingleStage) or PointRCNN
+(DoubleStage) end to end on a batch of scans. Unlike the JAX package's,
+`infer` takes the points only: the weights live in the module."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
-from ssd3d_torch.models.two_stage import (
-    ProposalSpec,
-    StageSpec,
-    build_two_stage,
-    foreground_mask,
-)
+from ssd3d_torch.models.single_stage import build_detector
+from ssd3d_torch.models.two_stage import build_two_stage, foreground_mask
 
 
 @dataclasses.dataclass(frozen=True)
 class Pipeline:
-    """The module, its stage specs and `infer(points) -> detection dict`."""
+    """The module, `infer(points) -> detection dict`, the class list, and
+    the stage specs: `spec` of a single-stage model, `rpn_spec` and
+    `rcnn_spec` of a two-stage one."""
 
     model: torch.nn.Module
     infer: Callable
-    rpn_spec: StageSpec
-    rcnn_spec: ProposalSpec
+    cls_list: tuple
+    spec: Any = None
+    rpn_spec: Any = None
+    rcnn_spec: Any = None
 
 
 def rcnn_chunk(p: int, limit: int) -> int:
@@ -37,12 +38,20 @@ def rcnn_chunk(p: int, limit: int) -> int:
 
 
 def build_pipeline(cfg, nms_pre_topk: int = 2048, device: torch.device | str = "cuda") -> Pipeline:
-    """DoubleStage config -> Pipeline on `device` (the card by default).
-    Weights are left as constructed: fill them with `entry.init_weights` or
-    a state dict."""
+    """Config -> Pipeline on `device` (the card by default; without one it
+    raises), in eval mode. Weights are left as constructed: fill them with
+    `entry.init_weights`, a state dict or a checkpoint."""
     if cfg.MODEL.TYPE != "DoubleStage":
-        raise ValueError(f"build_pipeline: MODEL.TYPE {cfg.MODEL.TYPE!r} is not DoubleStage; "
-                         f"single-stage models come from models.single_stage.build_detector")
+        model, spec = build_detector(cfg, device=device)
+
+        @torch.inference_mode()
+        def infer_single(points: torch.Tensor) -> dict:
+            """points [bs, n, 4] -> detections (boxes, scores, classes,
+            valid, index)."""
+            return spec.decode_and_nms(model(points))
+
+        return Pipeline(model, infer_single, spec.cls_list, spec=spec)
+
     model, rpn_spec, rcnn_spec = build_two_stage(cfg, nms_pre_topk=nms_pre_topk, device=device)
     only_first = cfg.MODEL.ONLY_FIRST_STAGE
     chunk_limit = cfg.TEST.RCNN_INFER_CHUNK
@@ -71,4 +80,4 @@ def build_pipeline(cfg, nms_pre_topk: int = 2048, device: torch.device | str = "
         dets["proposals_valid"] = valid
         return dets
 
-    return Pipeline(model, infer, rpn_spec, rcnn_spec)
+    return Pipeline(model, infer, rpn_spec.cls_list, rpn_spec=rpn_spec, rcnn_spec=rcnn_spec)

@@ -1,6 +1,6 @@
 """The port's own copies of what it used to import from the JAX package (the
-config loader and the synthetic scene generator) against the originals, and
-the entry points' default device."""
+config loader and the synthetic scene and KITTI tree generator) against the
+originals, and the entry points' default device."""
 
 from __future__ import annotations
 
@@ -47,6 +47,37 @@ def test_make_scene_gives_the_same_arrays(seed, n, k_max):
     np.testing.assert_array_equal(got_pts, want_pts)
     np.testing.assert_array_equal(got_boxes, want_boxes)
     assert got_pts.dtype == np.float32 and got_pts.shape[1] == 4 and len(got_boxes) >= 1
+
+
+@pytest.mark.parametrize("hard", [False, True])
+def test_write_tree_gives_the_same_files(tmp_path, hard):
+    """`write_tree` (and the hard-mode multiclass scenes, labels, truncation
+    and 2D projections it writes through) makes a byte-equal KITTI tree."""
+    kw = dict(n_train=3, n_val=2, n_points=3000, seed=5, k_max=4, n_test=2, hard=hard)
+    synth_kitti.write_tree(str(tmp_path / "want"), **kw)
+    synth.write_tree(str(tmp_path / "got"), **kw)
+    want = sorted(p.relative_to(tmp_path / "want") for p in (tmp_path / "want").rglob("*")
+                  if p.is_file())
+    got = sorted(p.relative_to(tmp_path / "got") for p in (tmp_path / "got").rglob("*")
+                 if p.is_file())
+    assert got == want and len(got) == 5 * 5 + 4 * 2 + 3
+    for rel in want:
+        assert (tmp_path / "got" / rel).read_bytes() == (tmp_path / "want" / rel).read_bytes(), rel
+
+
+def test_hard_scene_helpers_give_the_same_values():
+    want = synth_kitti.make_scene_hard(np.random.default_rng(2), n_points=4000, k_max=8)
+    got = synth.make_scene_hard(np.random.default_rng(2), n_points=4000, k_max=8)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert [(o["cls"], o["occ"]) for o in got[1]] == [(o["cls"], o["occ"]) for o in want[1]]
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(a["box"], b["box"])
+    for a, b in zip(got[2], want[2]):
+        np.testing.assert_array_equal(a, b)
+    p2 = np.array([[700, 0, 600, 44.8], [0, 700, 180, 0.1], [0, 0, 1, 0.003]], np.float32)
+    for obj in want[1]:
+        assert synth.truncation_of(obj["box"], p2) == synth_kitti.truncation_of(obj["box"], p2)
+        assert synth.project_box2d(obj["box"], p2) == synth_kitti.project_box2d(obj["box"], p2)
 
 
 @pytest.mark.parametrize("name", ["entry", "train_entry", "two_stage_entry"])
