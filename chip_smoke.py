@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten phases, each of which raises on failure (no error is caught):
+Eleven phases, each of which raises on failure (no error is caught):
 
 1. Environment: the card's name and power limit, torch / CUDA / nvcc
    versions, and the build of the CUDA kernels from `ssd3d_torch/csrc/`
@@ -77,12 +77,35 @@ Ten phases, each of which raises on failure (no error is caught):
    proposals through both legs' RCNN, with the card's RoI decisions
    replayed on the CPU leg, the final boxes and scores, and the final NMS's
    keep sets held the same way.
+10. The CLI chain in-process on a synthetic KITTI tree: `bin.preprocess`,
+   `bin.train` of the flagship (run A unbroken, run B stopped and resumed,
+   equal value for value), `bin.evaluate` at TEST.BATCH_SIZE 1 and 4,
+   `bin.test`, PointRCNN's evaluate and test from a checkpoint, and run A's
+   weights card against CPU.
+11. PointRCNN stage-wise training (`two_stage_train_entry`,
+   `configs/kitti/pointrcnn/pointrcnn_stage{1,2}.yaml`, full widths, f32,
+   batch 4 of 16,384-point scans): stage 1 (the RPN) and stage 2 (the RCNN
+   over 4 x 64 RoIs, the RPN frozen, from stage 1's weights), a warm-up and
+   five timed steps each, with their launches by kernel and route, host
+   share and peak memory; stage 2's rpn_* parameters held bit for bit to
+   stage 1's while the RPN's statistics move; K1, K3 and K4 against their
+   plain versions at every call of a stage-2 step and K5 at its backward's
+   index tensors, the RCNN's shapes timed; one f32 step of each stage card
+   against CPU (stage 1 on the timed batch's first scan, stage 2 on the
+   whole timed batch, whose minibatch must hold positive and negative RoIs
+   with every stage-2 loss live), the card's decisions (ReLU signs, max-pool
+   winners, ball members, D-FPS picks, RoI members, proposal keeps, the
+   context mask, IoU masks) replayed on the CPU leg, each difference a
+   near-tie; then `bin.train` of stage 1, `bin.train` of stage 2 warm-started
+   from it, and `bin.evaluate` of the stage-2 run, with s/it and the loader's
+   share.
 
 The second line from the end is a JSON object with one entry per kernel:
 `launches_by_path` counts its launches in one run of each path (flagship
 inference, phase 3; one training step, phase 5; PointRCNN inference, phase
 8; phase 10's training run A of 20 steps, the flagship's evaluate and test,
-and PointRCNN's evaluate and test), `launches` is their sum; times and bounds are of the shape in `shape`
+and PointRCNN's evaluate and test; one step of each PointRCNN training
+stage and the stage-wise CLI chain, phase 11), `launches` is their sum; times and bounds are of the shape in `shape`
 (K1's, K2's and K3's on the route that shape takes; `routes` holds every
 route's times at each shape of theirs, and `launches_by_route` their
 launches by route on each path, which phases 3, 5 and 8 hold to the route
@@ -101,6 +124,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -131,6 +155,7 @@ from ssd3d_torch.entry import (
     synthetic_scenes,
     train_entry,
     two_stage_entry,
+    two_stage_train_entry,
 )
 from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.models import two_stage
@@ -160,8 +185,10 @@ from ssd3d_torch.ops.sampling import (
     gather_points,
 )
 from ssd3d_torch.ops.topk import top_k_set
+from ssd3d_torch.train import assigner, two_stage_step
 from ssd3d_torch.train.schedules import bn_momentum
-from ssd3d_torch.train.train_step import TrainGraph
+from ssd3d_torch.train.train_step import TrainGraph, trained_parameters
+from ssd3d_torch.train.two_stage_step import TwoStageGraph
 from ssd3d_torch.train.trainer import CheckpointManager
 from ssd3d_torch.utils import synth
 from ssd3d_torch.utils.timing import cuda_ms
@@ -289,6 +316,13 @@ PATH_CALLS = {
                       ffps=[],
                       ball_query=[16384, 4096, 1024, 256, 512, 128],
                       sa_fused=[(259, [64], [[128, 128, 128]]), (131, [64], [[128, 128, 256]])]),
+    # PointRCNN training at batch 4: stage 1 the RPN; stage 2 the RPN, then
+    # the RCNN's SA1-SA2 in train mode (unfused) over 4 x 64 RoIs
+    "PointRCNN stage 1": dict(fps=[(4, 16384), (4, 4096), (4, 1024), (4, 256)], ffps=[],
+                              ball_query=[16384, 4096, 1024, 256], sa_fused=[]),
+    "PointRCNN stage 2": dict(fps=[(4, 16384), (4, 4096), (4, 1024), (4, 256), (256, 512),
+                                   (256, 128)], ffps=[],
+                              ball_query=[16384, 4096, 1024, 256, 512, 128], sa_fused=[]),
 }
 
 
@@ -1895,9 +1929,9 @@ def phase_cli_chain() -> dict:
         per_step = []
         real_step = TrainGraph.train_step
 
-        def counted_step(graph, state, batch):
+        def counted_step(graph, state, batch, *args):
             before = _build.launches()
-            out = real_step(graph, state, batch)
+            out = real_step(graph, state, batch, *args)
             per_step.append({k: v - before[k] for k, v in _build.launches().items()})
             return out
 
@@ -2039,6 +2073,454 @@ def phase_cli_chain() -> dict:
     return paths
 
 
+# ----------------------------------------------------------------- phase 11
+
+# timed steps of each PointRCNN training stage, after a warm-up step
+TWO_STAGE_STEPS = 5
+# the stage-wise CLI chain: scans written, iterations of each stage
+CLI_TWO_STAGE_SCANS, CLI_TWO_STAGE_VAL, CLI_TWO_STAGE_ITERS = 8, 4, 6
+# A stage-2 IoU mask entry that differs between card and CPU (on the same
+# proposals) must have its IoU within this of a threshold, or its distance
+# within this of the sample range.
+IOU_TIE = 1e-6
+STAGE_CFG = {stage: POINTRCNN_CFG.parent / f"pointrcnn_stage{stage}.yaml" for stage in (1, 2)}
+TWO_STAGE_LOSS_KEYS = {1: ("cls", "offset", "angle"), 2: ("cls", "offset", "angle", "corner")}
+
+
+def run_stage(step, batch: dict, what: str, path: str) -> tuple[dict, list]:
+    """A warm-up step with the launch counts from 0, then TWO_STAGE_STEPS
+    timed steps and a profiled one -> (the warm-up step's launches with
+    their routes, every step's metrics)."""
+    _build.reset_launches()
+    first = step(batch)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    log(f"kernel launches in one {what} step: {launches}")
+    check(all(launches[k] > 0 for k in ("fps", "ball_query", "gather", "three_nn", "scatter_add")),
+          f"{what}: a kernel of the path was not launched: {launches}")
+    check(launches["ffps"] == 0 and launches["sa_fused"] == 0,
+          f"{what} launched F-FPS or the fused SA (inference only)")
+    launches["routes"] = check_routes(what, path)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [], []
+    for _ in range(TWO_STAGE_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    metrics = [first] + metrics
+    for m in metrics:
+        check(all(np.isfinite(float(v)) for v in m.values()), f"{what}: a metric is not finite: {m}")
+    wall, busy = profile_once(lambda: step(batch), f"{what} step at batch {TWO_STAGE_BATCH}",
+                              top=10)
+    step_ms = statistics.median(times)
+    log(f"{what} at batch {TWO_STAGE_BATCH}: median step {step_ms:.2f} ms (min "
+        f"{min(times):.2f}, max {max(times):.2f}) over {TWO_STAGE_STEPS} steps; "
+        f"{TWO_STAGE_BATCH * 1e3 / step_ms:.2f} training scans/s; device busy "
+        f"{busy:.2f} ms of a profiled {wall:.2f} ms step (host share "
+        f"{100 * (1 - busy / wall):.1f}%); peak memory {peak:.2f} GiB")
+    log(f"{what} totals by step: " + ", ".join(f"{float(m['total']):.4f}" for m in metrics))
+    return launches, metrics
+
+
+def check_train_kernels(seen: dict, k5_calls: list, report: list[dict]) -> None:
+    """K1, K3 and K4 against their plain versions at every call of one
+    stage-2 step, and K5 at the step's backward's index tensors; the RCNN's
+    shapes (batch x minibatch clouds of NUM_OBJECT_POINT points) timed, into
+    the report's entries as `two_stage_train_shapes`."""
+    entry = {e["name"]: e for e in report}
+    shapes = {k: {} for k in ("fps", "ball_query", "gather", "scatter_add")}
+    for (xyz, npoint), _ in seen["fps"]:
+        b, n = xyz.shape[:2]
+        plain = fps_plain(xyz, npoint)
+        for route in ("block", "cluster"):
+            with on_route(route):
+                check(torch.equal(farthest_point_sample(xyz, npoint), plain),
+                      f"D-FPS {route} route disagrees with plain at {list(xyz.shape)} -> {npoint}")
+        if b > TWO_STAGE_BATCH:  # the RCNN's
+            name = f"{list(xyz.shape)} -> {npoint}"
+            shapes["fps"][name] = dict(
+                route=fps_route(b, n), ms=cuda_ms(lambda: farthest_point_sample(xyz, npoint), 20),
+                plain_ms=cuda_ms(lambda: fps_plain(xyz, npoint), 3),
+                **bound(4 * (b * n * 3 + b * npoint), b * (npoint - 1) * n * 10))
+            log(f"K1 D-FPS RCNN {name}: picks equal on both routes; {shapes['fps'][name]}")
+    log(f"K1 D-FPS at the step's {len(seen['fps'])} calls, picks equal on both routes")
+    for k, ((radii, ns, xyz, new_xyz), kwargs) in enumerate(seen["ball_query"]):
+        if xyz.shape[0] > TWO_STAGE_BATCH:
+            out = ball_query_routes(f"RCNN SA{k - 3}", xyz, new_xyz, radii, ns,
+                                    kwargs.get("dilated", False))
+            shapes["ball_query"][out["shape"]] = out
+        else:  # the RPN's, held as phase 7 holds them
+            specs = ring_specs(radii, ns, kwargs.get("dilated", False))
+            for (gi, gc), (pi, pc) in zip(ball_query_multi(radii, ns, xyz, new_xyz,
+                                                           dilated=kwargs.get("dilated", False)),
+                                          ball_query_multi_plain(specs, xyz, new_xyz)):
+                check(torch.equal(gi, pi) and torch.equal(gc, pc),
+                      f"ball query differs from plain at {list(new_xyz.shape)}")
+    for (src, idx), _ in seen["gather"]:
+        got, ref = grouping._gather_rows(src, idx), gather_rows_plain(src, idx)
+        check(got.dtype == ref.dtype and torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+              f"gather not bit-identical at {list(src.shape)} x {idx.shape[1]} rows")
+        if src.shape[0] > TWO_STAGE_BATCH and src.dtype == torch.float32:
+            b, rows, c = idx.shape[0], idx.shape[1], src.shape[2]
+            name = f"{list(src.shape)} x {rows} rows"
+            wide = idx.long().clamp(0, src.shape[1] - 1)[..., None].expand(-1, -1, c)
+            shapes["gather"][name] = dict(
+                ms=cuda_ms(lambda: grouping._gather_rows(src, idx), 20),
+                plain_ms=cuda_ms(lambda: gather_rows_plain(src, idx), 20),
+                library_ms=cuda_ms(lambda: src.gather(1, wide), 20),
+                **bound(4 * (b * min(rows, src.shape[1]) * c + b * rows + b * rows * c), 0))
+            log(f"K4 gather RCNN {name}: bit-identical; {shapes['gather'][name]}")
+    log(f"K4 gather at the step's {len(seen['gather'])} calls, bit-identical")
+    for i, (idx, g, n) in enumerate(k5_calls):
+        out = k5_check(f"stage-2 backward call {i}: {g.shape[0]} x {g.shape[1]} x {g.shape[2]} "
+                       f"into {n}", idx, g, n)
+        shapes["scatter_add"][out["shape"]] = out
+    for name, by_shape in shapes.items():
+        entry[name]["two_stage_train_shapes"] = by_shape
+
+
+class StageTwoReplay:
+    """The card leg's stage-2 decisions outside the RCNN, handed to the CPU
+    leg: the proposal NMS's keep sets (the CPU takes the card's proposals
+    after its own keep set is held to the card's, each difference a near-tie
+    on the CPU's values, as phase 9 holds them), the pooler's context mask
+    (a point within FACE_TOL of a grown proposal's face) and the IoU
+    assignment on the card's proposals (an IoU within IOU_TIE of a
+    threshold). The stage-1 assignment takes raw points on both legs and
+    must agree."""
+
+    FACE_TOL = RoIReplay.FACE_TOL
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.recording = True
+        self.log = {"propose": [], "mask": [], "assign": []}
+        self.pos = dict.fromkeys(self.log, 0)
+        self.differ = dict.fromkeys(self.log, 0)
+        self._propose = two_stage.StageSpec.propose
+        self._mask = two_stage_step.query_boxes_3d_mask
+        self._assign = two_stage_step.assign_targets
+
+    def patches(self):
+        return (mock.patch.object(two_stage.StageSpec, "propose",
+                                  lambda spec, outputs: self.propose(spec, outputs)),
+                mock.patch.object(two_stage_step, "query_boxes_3d_mask", self.mask),
+                mock.patch.object(two_stage_step, "assign_targets", self.assign))
+
+    def _next(self, kind):
+        card = self.log[kind][self.pos[kind]]
+        self.pos[kind] += 1
+        return card
+
+    def propose(self, spec, outputs):
+        own = self._propose(spec, outputs)
+        if self.recording:
+            self.log["propose"].append((tuple(t.cpu() for t in own),
+                                        {k: v.cpu() for k, v in outputs.items()
+                                         if torch.is_tensor(v)}))
+            return own
+        card, gout = self._next("propose")
+        g_keep, g_top, _, _ = proposal_keeps(spec, gout)
+        c_keep, c_top, c_score, c_bev = proposal_keeps(spec, outputs)
+        flips = bin_flips(spec.coder, gout, outputs, F32_TOL)
+        cut = float(c_score.sort(descending=True).values[spec.nms_pre_topk - 1])
+        self.differ["propose"] += keeps_differ_at_ties(
+            "stage-2 proposal NMS", g_keep, c_keep, c_score, c_bev, spec.nms_threshold, flips[0],
+            torch.unique(torch.cat([g_top, c_top])), cut=cut, cap=spec.max_output)
+        return card
+
+    def mask(self, xyz, boxes):
+        own = self._mask(xyz, boxes)
+        if self.recording:
+            self.log["mask"].append(own.cpu())
+            return own
+        card = self._next("mask")
+        differ = card != own
+        self.differ["mask"] += int(differ.sum())
+        if differ.any():
+            grown = torch.cat([boxes[..., :3], boxes[..., 3:6] + 2 * self.FACE_TOL,
+                               boxes[..., 6:]], -1)
+            shrunk = torch.cat([boxes[..., :3], boxes[..., 3:6] - 2 * self.FACE_TOL,
+                                boxes[..., 6:]], -1)
+            grown[..., 1] += self.FACE_TOL
+            shrunk[..., 1] -= self.FACE_TOL
+            near = (self._mask(xyz, grown) != self._mask(xyz, shrunk))
+            check(bool(near[differ].all()), "a context-mask point differs between card and CPU "
+                  "away from a proposal face")
+        return card
+
+    def assign(self, cfg, points, anchors, gt_boxes, gt_labels, valid_mask=None, uniforms=None):
+        own = self._assign(cfg, points, anchors, gt_boxes, gt_labels, valid_mask=valid_mask,
+                           uniforms=uniforms)
+        if self.recording:
+            self.log["assign"].append({k: v.cpu() for k, v in own.items()})
+            return own
+        card = self._next("assign")
+        differ = (card["pmask"] != own["pmask"]) | (card["nmask"] != own["nmask"])
+        self.differ["assign"] += int(differ.sum())
+        if differ.any():
+            check(cfg.method == "IoU", "the stage-1 (Mask) assignment differs between card and CPU")
+            # each differing anchor's IoU with its assigned box on the CPU lies
+            # at a threshold, or its distance at the sample range
+            from ssd3d_torch.core.iou import boxes_iou_bev_3d
+            b, p, c = anchors.shape[:3]
+            _, iou = boxes_iou_bev_3d(anchors.reshape(b, p * c, 7), gt_boxes)
+            iou = iou.gather(-1, own["assigned_idx"][:, :, None].expand(b, p * c, 1)).reshape(b, p, c)
+            dist = (anchors[..., 0:3] - own["gt_boxes"][..., 0:3]).norm(dim=-1)
+            near = torch.zeros_like(differ)
+            for thr in (cfg.pos_iou, cfg.neg_iou, assigner.MIN_NEG_IOU):
+                near |= (iou - thr).abs() <= IOU_TIE
+            near |= (dist - cfg.effective_sample_range).abs() <= IOU_TIE
+            # a subset drawn from a candidate set that a near-tie changed may
+            # part anywhere: held only where no candidate of the scan is near
+            scan_near = near.flatten(1).any(1)
+            check(bool(scan_near[differ.flatten(1).any(1)].all()),
+                  "an IoU mask entry differs between card and CPU away from every threshold")
+        return {k: v.cpu() for k, v in card.items()}
+
+
+def counting_minibatch(rois: list):
+    """A patch of `TwoStageGraph.stage2_targets` that appends to `rois`, at
+    each call, the minibatch slots a scan holding a positive RoI and those
+    holding a negative one."""
+    real = TwoStageGraph.stage2_targets
+
+    def counted(graph, *args):
+        proposals, targets = real(graph, *args)
+        rois.append(((targets["pmask"] > 0).any(-1).sum(-1).tolist(),
+                     (targets["nmask"] > 0).any(-1).sum(-1).tolist()))
+        return proposals, targets
+
+    return mock.patch.object(TwoStageGraph, "stage2_targets", counted)
+
+
+def _stage_grads(graph, model, batch: dict, uniforms, patches) -> tuple:
+    """One f32 loss + backward of a two-stage graph on `model` -> (loss
+    dict, the gradients of the trained parameters, BatchNorm statistics)."""
+    g = dataclasses.replace(graph, model=model)
+    trained = {id(p) for p in trained_parameters(model, graph.train_param_prefix)}
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        total, losses = g.compute_losses(batch, bn_momentum(graph.solver_cfg, 0), uniforms)
+        total.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+             if id(p) in trained and p.grad is not None}
+    stats = {k: v.detach().cpu() for k, v in model.named_buffers() if k.endswith((".mean", ".var"))}
+    return {k: v.item() for k, v in losses.items()}, grads, stats
+
+
+def two_stage_card_vs_cpu(stage: int, weights: dict, data: dict) -> None:
+    """One f32 step of a stage on the batch `data` (tensors on the CPU),
+    card against CPU, the same weights and the same stage-2 draws; the
+    card's discrete decisions replayed on the CPU leg. Stage 2's minibatch
+    must hold positive and negative RoIs and every stage-2 loss be live, so
+    that the Bin-Anchor encode, the bin offset and corner losses and their
+    gradients are compared."""
+    cfg = load_cfg(str(STAGE_CFG[stage]))
+    pipe = build_pipeline(cfg, device="cuda")
+    pipe.model.load_state_dict(weights)
+    graph = pipe.graph
+    gmodel = pipe.model.train()
+    cmodel = copy.deepcopy(gmodel).cpu()
+    n_scans = data["points"].shape[0]
+    uniforms = (torch.rand(n_scans, 2, graph.rpn_spec.max_output,
+                           generator=torch.Generator().manual_seed(3))
+                if stage == 2 else None)
+    decisions = DecisionReplay()
+    rois, two = RoIReplay(), StageTwoReplay(graph)
+    relu, pool, query = decisions.patches()
+    minibatch = []
+    patches = ([relu, pool, query] if stage == 1 else
+               [relu, pool, *rois.patches(), *two.patches(), counting_minibatch(minibatch)])
+    t0 = time.perf_counter()
+    g_losses, g_grads, g_stats = _stage_grads(
+        graph, gmodel, {k: v.cuda() for k, v in data.items()},
+        uniforms.cuda() if uniforms is not None else None, patches)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    decisions.recording = rois.recording = two.recording = False
+    c_losses, c_grads, c_stats = _stage_grads(graph, cmodel, data, uniforms, patches)
+    log(f"  stage {stage}: card {t1 - t0:.2f} s, CPU {time.perf_counter() - t1:.2f} s")
+    kinds = [(decisions, ("relu", "max_pool") + (("ball_query",) if stage == 1 else ()))]
+    if stage == 2:
+        kinds += [(rois, rois.KINDS), (two, tuple(two.log))]
+    for rep, names in kinds:
+        check(all(rep.pos[k] == len(rep.log[k]) for k in names),
+              f"stage {stage}: the legs took different numbers of decisions: {rep.pos}")
+    log(f"  stage {stage}: decisions the CPU would have taken otherwise, each a near-tie (the "
+        "card's taken): " + ", ".join(f"{k} {rep.differ[k]}" for rep, names in kinds for k in names))
+    scale = max(abs(v) for v in c_losses.values())
+    loss_err = {k: abs(g_losses[k] - c_losses[k]) / scale for k in c_losses}
+    log(f"  stage {stage} losses, card / CPU (difference over the largest loss): " + "; ".join(
+        f"{k} {g_losses[k]:.6f} / {c_losses[k]:.6f} ({loss_err[k]:.2g})" for k in c_losses))
+    grad_err = []
+    check(set(g_grads) == set(c_grads) and c_grads, f"stage {stage}: gradient leaves differ")
+    for name, cg in c_grads.items():
+        ref = cg
+        if name.endswith("conv.bias") and name[:-9] + "bn.scale" in c_grads:
+            ref = c_grads[name[:-4] + "kernel"]  # rounding on both sides, as in phase 6
+        err = float((g_grads[name] - cg).abs().max())
+        grad_err.append((err / max(float(ref.abs().max()), 1e-30), name))
+    grad_err.sort(reverse=True)
+    log(f"  stage {stage} gradient leaves furthest apart: "
+        + "; ".join(f"{name} {r:.3g}" for r, name in grad_err[:4]))
+    stats_err = sorted(((float((g_stats[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30),
+                         k) for k, v in c_stats.items()), reverse=True)
+    if stage == 2:
+        check(len(minibatch) == 2 and minibatch[0] == minibatch[1],
+              f"stage 2: the legs' minibatches differ: {minibatch}")
+        pos, neg = minibatch[0]
+        log(f"  stage 2 minibatch slots a scan holding a positive / a negative RoI: {pos} / {neg}")
+        check(sum(pos) > 0 and sum(neg) > 0,
+              "stage 2: the compared minibatch holds no positive or no negative RoI")
+        live = [k for k in c_losses if k.startswith("loss_stage1/")]
+        check(len(live) == len(TWO_STAGE_LOSS_KEYS[2])
+              and all(g_losses[k] > 0 and c_losses[k] > 0 for k in live),
+              f"stage 2: a stage-2 loss is not live in the compared step: {c_losses}")
+    for key, r in loss_err.items():
+        check(r <= F32_TOL, f"stage {stage}: loss {key} differs by {r:.3g} of the largest")
+    for r, name in grad_err:
+        check(r <= TRAIN_GRAD_TOL, f"stage {stage}: gradient {name} differs by {r:.3g}")
+    for r, name in stats_err:
+        check(r <= F32_TOL, f"stage {stage}: running statistic {name} differs by {r:.3g}")
+    log(f"  stage {stage}: {len(c_losses)} losses within {F32_TOL:g} of the largest, "
+        f"{len(c_grads)} gradient leaves within {TRAIN_GRAD_TOL:g} of their largest entry, "
+        f"{len(c_stats)} running statistics within {F32_TOL:g}")
+
+
+def phase_two_stage_training(report: list[dict]) -> dict:
+    """-> the launches of one step of each stage and of the stage-wise CLI
+    chain; K1, K3, K4 and K5 at stage 2's shapes go into `report`."""
+    log(f"== phase 11: PointRCNN stage-wise training, batch {TWO_STAGE_BATCH}, {N_POINTS} "
+        "points, f32, Adam (pointrcnn_stage1.yaml, then pointrcnn_stage2.yaml)")
+    step1, batch = two_stage_train_entry(device="cuda", stage=1, batch=TWO_STAGE_BATCH, seed=0)
+    state1 = step1.args[0]
+    stats1 = {k: v.clone() for k, v in state1.model.named_buffers() if k.startswith("rpn")}
+    launches1, m1 = run_stage(step1, batch, "PointRCNN stage 1", "PointRCNN stage 1")
+    check(all(f"loss_stage0/{k}" in m1[0] for k in TWO_STAGE_LOSS_KEYS[1])
+          and not any(k.startswith("loss_stage1/") for k in m1[0]), f"stage 1 losses {sorted(m1[0])}")
+    check(float(m1[-1]["total"]) < float(m1[0]["total"]), "stage 1's total loss did not fall")
+    check(all(not torch.equal(v, stats1[k]) for k, v in state1.model.named_buffers()
+              if k in stats1 and k.endswith(".mean")), "an RPN BatchNorm statistic did not move")
+
+    step2, _ = two_stage_train_entry(device="cuda", stage=2, batch=TWO_STAGE_BATCH, seed=0)
+    state2 = step2.args[0]
+    state2.model.load_state_dict(state1.model.state_dict())  # stage 2 starts from stage 1
+    frozen = {k: v.clone() for k, v in state2.model.named_parameters() if k.startswith("rpn")}
+    trained = {k: v.clone() for k, v in state2.model.named_parameters()
+               if k.startswith(("rcnn", "roi"))}
+    rpn_stats = {k: v.clone() for k, v in state2.model.named_buffers() if k.startswith("rpn")}
+    rois = []
+    with counting_minibatch(rois):
+        launches2, m2 = run_stage(step2, batch, "PointRCNN stage 2", "PointRCNN stage 2")
+    check(all(f"loss_stage1/{k}" in m2[0] for k in TWO_STAGE_LOSS_KEYS[2]),
+          f"stage 2 losses {sorted(m2[0])}")
+    for m in m2:
+        stage2_total = sum(float(v) for k, v in m.items() if k.startswith("loss_stage1/"))
+        check(abs(float(m["total"]) - stage2_total) <= 1e-5 * abs(stage2_total),
+              "stage 2's total is not the sum of the RCNN's losses")
+    log(f"stage-2 minibatch slots a scan holding a positive / a negative RoI (of "
+        f"{step2.func.__self__.minibatch}; padding repeats a scan's first hit), step by step: "
+        + "; ".join(f"{p} / {n}" for p, n in rois))
+    params = dict(state2.model.named_parameters())
+    check(all(torch.equal(params[k], v) for k, v in frozen.items()),
+          "an rpn_* parameter moved in stage 2")
+    check(all(not torch.equal(v, rpn_stats[k]) for k, v in state2.model.named_buffers()
+              if k in rpn_stats and k.endswith(".mean")),
+          "an RPN BatchNorm statistic did not move in stage 2 (the frozen RPN runs in train mode)")
+    moved = sum(not torch.equal(params[k], v) for k, v in trained.items())
+    check(moved > 0, "no RCNN parameter moved in stage 2")
+    log(f"stage 2: all {len(frozen)} rpn_* parameters bit for bit stage 1's, every RPN "
+        f"running mean moved, {moved} of {len(trained)} RCNN parameters moved")
+
+    # the kernels at stage 2's shapes: the inputs of every launch of one step
+    # (K1, K3, K4) and of every K5 launch of its backward
+    seen = capture_two_stage_inputs(lambda _: step2(batch), batch["points"], ())
+    k5_calls = []
+
+    def recorded(idx, g, n):
+        k5_calls.append((idx.detach().clone(), g.detach().clone(), n))
+        return scatter_add_rows(idx, g, n)
+
+    with mock.patch.object(grouping, "scatter_add_rows", recorded):
+        step2(batch)
+    check(len(k5_calls) == launches2["scatter_add"],
+          f"recorded {len(k5_calls)} scatter-add calls, {launches2['scatter_add']} launches")
+    check_train_kernels(seen, k5_calls, report)
+
+    # stage 2 on the whole timed batch, whose minibatch holds positive RoIs
+    # (a scan alone, its RPN normalised over itself, may hold none); stage 1,
+    # whose losses are live on any scan, on its first scan (its CPU leg
+    # takes ~15 s at batch 4)
+    log(f"card against CPU, one f32 step of stage 1 on the timed batch's first scan and of "
+        f"stage 2 on the timed batch of {TWO_STAGE_BATCH} scans, {N_POINTS} points each")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    two_stage_card_vs_cpu(1, state1.model.state_dict(), {k: v[:1] for k, v in cpu_batch.items()})
+    two_stage_card_vs_cpu(2, state1.model.state_dict(), cpu_batch)
+    return {"two_stage_train_1": launches1, "two_stage_train_2": launches2,
+            **phase_two_stage_cli()}
+
+
+def phase_two_stage_cli() -> dict:
+    """bin.train of stage 1, bin.train of stage 2 warm-started from it,
+    bin.evaluate of the stage-2 run, on a synthetic KITTI tree -> the chain's
+    launches."""
+    with tempfile.TemporaryDirectory(prefix="ssd3d_rcnn_cli_") as root:
+        data, npz = os.path.join(root, "kitti"), os.path.join(root, "npz")
+        synth.write_tree(data, n_train=CLI_TWO_STAGE_SCANS, n_val=CLI_TWO_STAGE_VAL,
+                         n_points=CLI_SCAN_POINTS, seed=1)
+        cfg1, cfg2 = str(STAGE_CFG[1]), str(STAGE_CFG[2])
+        opts = ["--device", "cuda",
+                "DATASET.KITTI.BASE_DIR_PATH", data,
+                "DATASET.KITTI.TRAIN_LIST", os.path.join(data, "train.txt"),
+                "DATASET.KITTI.VAL_LIST", os.path.join(data, "val.txt"),
+                "DATASET.KITTI.SAVE_NUMPY_PATH", npz,
+                "TRAIN.CONFIG.MAX_ITERATIONS", str(CLI_TWO_STAGE_ITERS),
+                "TRAIN.CONFIG.CHECKPOINT_INTERVAL", str(CLI_TWO_STAGE_ITERS),
+                "TRAIN.CONFIG.SUMMARY_INTERVAL", "1"]
+        for split in ("train", "val"):
+            preprocess_cli.main(["--cfg", cfg1, "--img_list", split] + opts)
+        run1, run2 = os.path.join(root, "stage1"), os.path.join(root, "stage2")
+        paths = {"cli_two_stage": cli_launches(
+            "the stage-wise CLI chain (bin.train stage 1, stage 2, bin.evaluate)",
+            lambda: (train_cli.main(["--cfg", cfg1, "--log_dir", run1] + opts),
+                     train_cli.main(["--cfg", cfg2, "--log_dir", run2,
+                                     "--restore_model_path", run1] + opts),
+                     evaluate_cli.main(["--cfg", cfg2, "--log_dir", run2, "--once",
+                                        "--viz_scans", "0"] + opts)))}
+        n = paths["cli_two_stage"]
+        check(all(n[k] > 0 for k in ("fps", "ball_query", "gather", "three_nn", "scatter_add",
+                                      "sa_fused")) and n["ffps"] == 0,
+              f"the stage-wise chain launched {n}")
+        with open(os.path.join(run2, "log_train.txt")) as f:
+            check("warm start from" in f.read(), "stage 2 did not warm-start from stage 1")
+        c1 = CheckpointManager(os.path.join(run1, "ckpt")).restore()[0]["model"]
+        c2 = CheckpointManager(os.path.join(run2, "ckpt")).restore()[0]["model"]
+        check(all(torch.equal(c1[k], c2[k]) for k in c1
+                  if k.startswith("rpn") and not k.endswith((".mean", ".var"))),
+              "the stage-2 run's rpn_* parameters are not stage 1's")
+        for name, run in (("stage 1", run1), ("stage 2", run2)):
+            m = _metrics(run)
+            check([x["iter"] for x in m] == list(range(1, CLI_TWO_STAGE_ITERS + 1))
+                  and all(np.isfinite(x["total"]) for x in m), f"{name}'s metrics: {m}")
+            sec = [x["sec_per_it"] for x in m[1:]]
+            wait = [x["loader_wait_s"] for x in m[1:]]
+            log(f"CLI {name} at batch {TWO_STAGE_BATCH} (iterations 2-{CLI_TWO_STAGE_ITERS}): "
+                f"median {statistics.median(sec):.4f} s/it; loader wait "
+                f"{100 * sum(wait) / sum(sec):.1f}% of the time")
+        with open(os.path.join(run2, f"eval_{CLI_TWO_STAGE_ITERS}.json")) as f:
+            res = json.load(f)
+        check(all(np.isfinite(res["Car"][m]).all() for m in ("image", "ground", "3d")),
+              f"the stage-2 run's evaluation is not finite: {res}")
+        log(f"stage-2 run, step {CLI_TWO_STAGE_ITERS}, Car 3D AP easy/moderate/hard "
+            f"{'/'.join(f'{v:.2f}' for v in res['Car']['3d'])}")
+    return paths
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -2065,7 +2547,7 @@ def main() -> int:
     two_stage_launches = timed(phase_two_stage)
     timed(phase_two_stage_card_vs_cpu, scans)
     paths = {"inference": infer_launches, "train": train_launches, "two_stage": two_stage_launches,
-             **timed(phase_cli_chain)}
+             **timed(phase_cli_chain), **timed(phase_two_stage_training, report)}
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

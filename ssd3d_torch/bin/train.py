@@ -4,6 +4,15 @@ lib/core/trainer.py), on one device: the card unless `--device cpu`.
     python -m ssd3d_torch.bin.train --cfg configs/kitti/3dssd/3dssd.yaml \
         --log_dir runs/3dssd [--device cpu] [KEY VALUE ...]
 
+PointRCNN trains stage-wise: the RPN, then the RCNN warm-started from it
+with the RPN frozen:
+
+    python -m ssd3d_torch.bin.train \
+        --cfg configs/kitti/pointrcnn/pointrcnn_stage1.yaml --log_dir runs/rcnn1
+    python -m ssd3d_torch.bin.train \
+        --cfg configs/kitti/pointrcnn/pointrcnn_stage2.yaml --log_dir runs/rcnn2 \
+        --restore_model_path runs/rcnn1
+
 A second run on the same `--log_dir` resumes from its latest checkpoint,
 batch-exact.
 """

@@ -1,10 +1,10 @@
 """Box encoding and decoding (counterpart of `ssd3d/core/box_coders.py`).
 
-'Dist-Anchor-free' (3DSSD) encodes and decodes. 'Bin-Anchor' (PointRCNN)
-decodes: x and z as a bin class plus an in-bin residual, y and the sizes as
-residuals against the anchor (the class's mean size, or a proposal in the
-second stage). Its encoding waits for two-stage training, and 'Dist-Anchor'
-and 'Log-Anchor' for the configs that use them (ROADMAP Queue 1 item 10)."""
+'Dist-Anchor-free' (3DSSD) and 'Bin-Anchor' (PointRCNN) encode and decode.
+Bin-Anchor codes x and z as a bin class plus an in-bin residual, y and the
+sizes as residuals against the anchor (the class's mean size, or a proposal
+in the second stage). 'Dist-Anchor' and 'Log-Anchor' wait for the configs
+that use them (ROADMAP Queue 1 item 10)."""
 
 from __future__ import annotations
 
@@ -61,6 +61,25 @@ def decode_dist_anchor_free(center_xyz, det_offset, det_angle_cls, det_angle_res
     return torch.cat([ctr, lhw, pred_angle[..., None]], dim=-1)
 
 
+def _encode_bin_residual(res: torch.Tensor, half_range: float, num_bins: int):
+    """Scalar residual -> (bin class as f32, residual normalised in the bin)."""
+    interval = half_range * 2.0 / num_bins
+    bin_cls = torch.floor((res + half_range) / interval).clamp(0.0, float(num_bins - 1))
+    bin_res = (res + half_range - (bin_cls * interval + interval / 2.0)) / interval
+    return bin_cls, bin_res
+
+
+def encode_bin_anchor(gt_ctr, gt_size, anchor_ctr, anchor_size, half_range: float,
+                      num_bins: int):
+    """PointRCNN target: -> (ctr4 [..., 4] = x bin, x residual, z bin, z
+    residual; offset4 [..., 4] = y residual, dl, dh, dw)."""
+    x_bin, x_res = _encode_bin_residual(gt_ctr[..., 0] - anchor_ctr[..., 0], half_range, num_bins)
+    z_bin, z_res = _encode_bin_residual(gt_ctr[..., 2] - anchor_ctr[..., 2], half_range, num_bins)
+    y_res = (gt_ctr[..., 1] - anchor_ctr[..., 1])[..., None]
+    ctr = torch.stack([x_bin, x_res, z_bin, z_res], dim=-1)
+    return ctr, torch.cat([y_res, gt_size - anchor_size], dim=-1)
+
+
 def decode_bin_anchor(det_offset, det_angle_cls, det_angle_res, anchors, num_angle_cls: int,
                       half_range: float, num_bins: int) -> torch.Tensor:
     """det_offset: [bs, n, 4 * num_bins + 4] = x-bin logits | x residuals |
@@ -102,20 +121,25 @@ class BoxCoder:
         return 6 if self.method != "Bin-Anchor" else self.num_bins * 4 + 4
 
     def encode(self, center_xyz, gt_boxes, anchors):
-        """center_xyz [bs, pts, 3]; gt_boxes [bs, pts, cls, 7] -> (target
-        [bs, pts, cls, 6], angle bin int32, angle residual). Anchor-free:
-        the point is the anchor, so `anchors` is not read."""
-        if self.method != "Dist-Anchor-free":
-            raise NotImplementedError(
-                "BoxCoder.encode: 'Bin-Anchor' targets come with two-stage training "
-                "(ROADMAP Queue 1 item 10)")
+        """center_xyz [bs, pts, 3]; gt_boxes and anchors [bs, pts, cls, 7]
+        -> (target [bs, pts, cls, 6 | 8], angle bin int32, angle residual).
+        Anchor-free: the point is the anchor, so `anchors` is not read;
+        Bin-Anchor codes the heading relative to the anchor's."""
         bs, pts, cls_num, _ = gt_boxes.shape
         gt_flat = gt_boxes.reshape(bs, pts * cls_num, 7)
-        enc_ctr, enc_size = encode_dist_anchor_free(gt_flat[..., 0:3], gt_flat[..., 3:6],
-                                                    center_xyz)
+        if self.method == "Dist-Anchor-free":
+            enc_ctr, enc_size = encode_dist_anchor_free(gt_flat[..., 0:3], gt_flat[..., 3:6],
+                                                        center_xyz)
+            gt_angle = gt_boxes[..., 6]
+        else:
+            an_flat = anchors.reshape(bs, pts * cls_num, -1)
+            enc_ctr, enc_size = encode_bin_anchor(gt_flat[..., 0:3], gt_flat[..., 3:6],
+                                                  an_flat[..., 0:3], an_flat[..., 3:6],
+                                                  self.half_range, self.num_bins)
+            gt_angle = gt_boxes[..., 6] - anchors[..., 6]
         enc_ctr = enc_ctr.reshape(bs, pts, cls_num, -1)
         enc_size = enc_size.reshape(bs, pts, cls_num, -1)
-        angle_cls, angle_res = encode_angle_to_class(gt_boxes[..., 6], self.num_angle_cls)
+        angle_cls, angle_res = encode_angle_to_class(gt_angle, self.num_angle_cls)
         return torch.cat([enc_ctr, enc_size], dim=-1), angle_cls, angle_res
 
     def decode(self, center_xyz, det_offset, det_angle_cls, det_angle_res,

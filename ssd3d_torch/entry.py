@@ -1,6 +1,8 @@
 """Entry points of the port, with seeded weights: the flagship 3DSSD
-detector (KITTI Car, `configs/kitti/3dssd/3dssd.yaml`) and PointRCNN (KITTI
-Car, `configs/kitti/pointrcnn/pointrcnn_test.yaml`), on 16,384-point scans.
+detector (KITTI Car, `configs/kitti/3dssd/3dssd.yaml`), PointRCNN (KITTI
+Car, `configs/kitti/pointrcnn/pointrcnn_test.yaml`) and its two training
+stages (`pointrcnn_stage1.yaml`, `pointrcnn_stage2.yaml`), on 16,384-point
+scans.
 
 Counterpart of `__graft_entry__._flagship` / `entry` and the single-device
 train step of `__graft_entry__._dryrun_body`. Every entry point runs on the
@@ -17,6 +19,10 @@ default raises. Usage:
 
     fn, (points,) = two_stage_entry()   # PointRCNN, batch 4
     detections = fn(points)   # as above, plus proposals / proposals_valid
+
+    step, batch = two_stage_train_entry(stage=1)   # PointRCNN's RPN, batch 4
+    metrics = step(batch)     # loss_stage0/* (stage 2: loss_stage1/* too)
+    state = step.args[0]
 """
 
 from __future__ import annotations
@@ -123,6 +129,26 @@ def train_entry(device: torch.device | str = "cuda", seed: int = 0, batch: int =
     state = graph.init_state()
     data = synthetic_scenes(batch, n, seed)
     return (functools.partial(graph.train_step, state),
+            {k: torch.from_numpy(v).to(device) for k, v in data.items()})
+
+
+def two_stage_train_entry(device: torch.device | str = "cuda", stage: int = 1, batch: int = 4,
+                          seed: int = 0):
+    """(step, batch): a PointRCNN training stage at full width with seeded
+    weights (`configs/kitti/pointrcnn/pointrcnn_stage{stage}.yaml`; stage 1
+    trains the RPN, stage 2 the RCNN with the RPN frozen), its TwoStageGraph
+    and TrainState, and a fixed batch of synthetic scenes on `device` (the
+    configs' global batch is BATCH_SIZE 2 x GPU_NUM 2 = 4). `step(batch)`
+    runs one optimizer step, drawing stage 2's minibatch from (seed, step),
+    and returns its metrics; the TrainState is `step.args[0]`."""
+    if stage not in (1, 2):
+        raise ValueError(f"two_stage_train_entry: stage {stage} is not 1 or 2")
+    cfg = load_cfg(str(CONFIGS / "pointrcnn" / f"pointrcnn_stage{stage}.yaml"))
+    pipe = build_pipeline(cfg, nms_pre_topk=cfg.TPU.NMS_PRE_TOPK or 2048, device=device)
+    init_weights(pipe.model, seed)
+    state = pipe.graph.init_state()
+    data = synthetic_scenes(batch, cfg.MODEL.POINTS_NUM_FOR_TRAINING, seed)
+    return (functools.partial(pipe.graph.train_step, state, seed=seed),
             {k: torch.from_numpy(v).to(device) for k, v in data.items()})
 
 

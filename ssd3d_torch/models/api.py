@@ -1,7 +1,8 @@
 """Model construction and inference dispatch by MODEL.TYPE (counterpart of
 `ssd3d/models/api.py`, the reference's modeling/__init__.py choose_model):
 `build_pipeline(cfg).infer(points)` runs 3DSSD (SingleStage) or PointRCNN
-(DoubleStage) end to end on a batch of scans. Unlike the JAX package's,
+(DoubleStage) end to end on a batch of scans, and `.graph` is the model's
+train step (`TrainGraph` or `TwoStageGraph`). Unlike the JAX package's,
 `infer` takes the points only: the weights live in the module."""
 
 from __future__ import annotations
@@ -13,16 +14,19 @@ import torch
 
 from ssd3d_torch.models.single_stage import build_detector
 from ssd3d_torch.models.two_stage import build_two_stage, foreground_mask
+from ssd3d_torch.train.train_step import TrainGraph
+from ssd3d_torch.train.two_stage_step import TwoStageGraph
 
 
 @dataclasses.dataclass(frozen=True)
 class Pipeline:
-    """The module, `infer(points) -> detection dict`, the class list, and
-    the stage specs: `spec` of a single-stage model, `rpn_spec` and
-    `rcnn_spec` of a two-stage one."""
+    """The module, `infer(points) -> detection dict`, the train graph, the
+    class list, and the stage specs: `spec` of a single-stage model,
+    `rpn_spec` and `rcnn_spec` of a two-stage one."""
 
     model: torch.nn.Module
     infer: Callable
+    graph: Any
     cls_list: tuple
     spec: Any = None
     rpn_spec: Any = None
@@ -50,7 +54,8 @@ def build_pipeline(cfg, nms_pre_topk: int = 2048, device: torch.device | str = "
             valid, index)."""
             return spec.decode_and_nms(model(points))
 
-        return Pipeline(model, infer_single, spec.cls_list, spec=spec)
+        return Pipeline(model, infer_single, TrainGraph.build(cfg, model, spec), spec.cls_list,
+                        spec=spec)
 
     model, rpn_spec, rcnn_spec = build_two_stage(cfg, nms_pre_topk=nms_pre_topk, device=device)
     only_first = cfg.MODEL.ONLY_FIRST_STAGE
@@ -80,4 +85,5 @@ def build_pipeline(cfg, nms_pre_topk: int = 2048, device: torch.device | str = "
         dets["proposals_valid"] = valid
         return dets
 
-    return Pipeline(model, infer, rpn_spec.cls_list, rpn_spec=rpn_spec, rcnn_spec=rcnn_spec)
+    return Pipeline(model, infer, TwoStageGraph.build(cfg, model, rpn_spec, rcnn_spec),
+                    rpn_spec.cls_list, rpn_spec=rpn_spec, rcnn_spec=rcnn_spec)

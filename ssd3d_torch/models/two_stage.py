@@ -1,5 +1,4 @@
-"""PointRCNN two-stage detector, inference (counterpart of
-`ssd3d/models/two_stage.py`).
+"""PointRCNN two-stage detector (counterpart of `ssd3d/models/two_stage.py`).
 
 Stage 1 (RPN): a PointNet++ encoder-decoder over the raw scan, a per-point
 Bin-Anchor head, class-unaware NMS into a fixed buffer of proposals. Stage 2
@@ -10,9 +9,10 @@ and a head refines each proposal.
 
 Submodules carry the flax scope names (`rpn_backbone`, `rpn_head`,
 `roi_pool.align`, `rcnn_backbone`, `rcnn_head`), so a flax variable tree
-converts with `utils.convert.flax_to_state_dict` and loads strictly.
-Training (target assignment, minibatch subsampling) and STD's `PointsPool`
-are not ported yet (ROADMAP Queue 1 item 10).
+converts with `utils.convert.flax_to_state_dict` and loads strictly. In train
+mode (`module.train()`) `rpn` and `rcnn` are the stages of
+`train.two_stage_step.TwoStageGraph`. STD's `PointsPool` is not ported yet
+(ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -83,7 +83,8 @@ class RegionPool(nn.Module):
 
 class TwoStageDetector(nn.Module):
     """RPN + RCNN; the stages are methods (`rpn`, `rcnn`) so that inference
-    can run the RCNN over chunks of proposals."""
+    can run the RCNN over chunks of proposals and training can assign and
+    subsample the proposals between them."""
 
     def __init__(self, rpn_architecture, rpn_head_cfg, rcnn_architecture, rcnn_head_cfg,
                  pooler_cfg, max_translate_range, num_angle_cls: int,

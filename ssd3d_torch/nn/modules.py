@@ -242,4 +242,5 @@ class PointnetSAModuleGlobal(nn.Module):
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
                 bn_momentum: float = 0.9) -> torch.Tensor:
-        return self.mlp(torch.cat([xyz, features], dim=-1), bn_momentum).amax(dim=1)
+        # the whole cloud as one ball, through the one max-pool of the package
+        return max_pool(self.mlp(torch.cat([xyz, features], dim=-1), bn_momentum)[:, None])[:, 0]

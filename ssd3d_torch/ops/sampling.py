@@ -1,4 +1,5 @@
-"""Point sampling: D-FPS, F-FPS and the row gather of sampled points.
+"""Point sampling: D-FPS, F-FPS, the row gather of sampled points and the
+first-k gather by mask.
 
 Counterpart of `ssd3d/ops/sampling.py`. The two FPS functions dispatch on the
 device of their input: a CUDA tensor launches the hand-written kernel
@@ -353,3 +354,21 @@ def fps_pick_shortfall(points: torch.Tensor, picks: torch.Tensor) -> float:
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points: [b, n, c], idx: int [b, m] -> [b, m, c]."""
     return points.gather(1, idx.long()[..., None].expand(-1, -1, points.shape[-1]))
+
+
+def gather_by_mask(points: torch.Tensor, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """The first `k` rows where mask is true, in index order, padded by
+    repeating the first hit (row 0 where there is none). points: [b, n, c]
+    (any dtype); mask: [b, n] (bool or 0/1) -> [b, k, c]. Cuts the RCNN's
+    minibatch out of the proposals (reference sampler.py:41,
+    tf_sampling_g.cu:351)."""
+    b, n, _ = points.shape
+    if k > n:
+        raise ValueError(f"gather_by_mask: k {k} > n {n}")
+    mask = mask.bool()
+    iota = torch.arange(n, device=points.device)
+    # mask-true rows first, each part in index order; the keys are distinct
+    order = torch.where(mask, iota, n + iota).argsort(-1)[:, :k]
+    cnt = mask.sum(-1, keepdim=True)
+    sel = torch.where(torch.arange(k, device=points.device) < cnt, order, order[:, :1])
+    return gather_points(points, sel)

@@ -1,4 +1,7 @@
-"""Target assignment (counterpart of `ssd3d/train/assigner.py`), Mask method.
+"""Target assignment (counterpart of `ssd3d/train/assigner.py`): the Mask
+method (point-in-box membership) and the IoU method (rotated BEV or 3D IoU of
+each anchor with its assigned GT box), gated by a valid mask, with the
+reference's random minibatch subsampling.
 
 Shapes (GT boxes are zero-padded to a fixed count per batch):
     points      [bs, pts, 3]
@@ -7,6 +10,8 @@ Shapes (GT boxes are zero-padded to a fixed count per batch):
     gt_labels   [bs, gt]           1-based; 0 = padding
 
 Assignment takes no gradient: its outputs are masks, indices and GT boxes.
+The subsampling's random numbers come from the caller (`uniforms`), so that
+a test can hand in the JAX package's own draws.
 """
 
 from __future__ import annotations
@@ -16,16 +21,21 @@ import dataclasses
 import torch
 
 from ssd3d_torch.core.geometry import points_in_boxes
+from ssd3d_torch.core.iou import boxes_iou_bev_3d
+
+# an IoU-assigned negative overlaps its GT box by at least this much
+MIN_NEG_IOU = 0.05
 
 
 @dataclasses.dataclass(frozen=True)
 class AssignerConfig:
-    """The Mask method's settings; IoU assignment and minibatch subsampling,
-    and the settings only they read, come with PointRCNN."""
-
     method: str  # 'Mask' | 'IoU'
     minibatch_size: int  # -1: use every point
     effective_sample_range: float  # CLASSIFICATION_LOSS.SOFTMAX_SAMPLE_RANGE
+    iou_sample_type: str  # 'BEV' | '3D' | 'Point'
+    positive_ratio: float
+    pos_iou: float
+    neg_iou: float
 
     @classmethod
     def from_cfg(cls, stage_cfg):
@@ -33,6 +43,10 @@ class AssignerConfig:
             method=stage_cfg.ASSIGN_METHOD,
             minibatch_size=stage_cfg.MINIBATCH_NUM,
             effective_sample_range=stage_cfg.CLASSIFICATION_LOSS.SOFTMAX_SAMPLE_RANGE,
+            iou_sample_type=stage_cfg.IOU_SAMPLE_TYPE,
+            positive_ratio=stage_cfg.MINIBATCH_RATIO,
+            pos_iou=stage_cfg.CLASSIFICATION_POS_IOU,
+            neg_iou=stage_cfg.CLASSIFICATION_NEG_IOU,
         )
 
 
@@ -47,22 +61,44 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
+def random_subset_mask(uniform: torch.Tensor, candidate: torch.Tensor, k: torch.Tensor,
+                       cap: int) -> torch.Tensor:
+    """A uniform subset without replacement of min(k, |candidate|) true
+    entries of each row (np.random.choice(..., replace=False) in the
+    reference, gt_sampler.py:147): the candidates with the largest draws.
+    uniform: [bs, n] draws in [0, 1); candidate: bool [bs, n]; k: int [bs]
+    or a scalar; cap: a bound on k -> bool [bs, n].
+
+    The order is a stable descending sort, so equal draws go to the lower
+    index, as `lax.top_k` orders them. Draws are continuous: an equal pair
+    is rare, and it changes the subset only where it straddles the cut."""
+    n = candidate.shape[-1]
+    cap = min(cap, n)
+    scores = torch.where(candidate, uniform, torch.full_like(uniform, float("-inf")))
+    top = scores.sort(dim=-1, descending=True, stable=True).indices[:, :cap]
+    take = torch.minimum(candidate.sum(-1), torch.as_tensor(k, device=candidate.device))
+    keep = torch.arange(cap, device=candidate.device) < take.reshape(-1, 1)
+    return torch.zeros_like(candidate).scatter(1, top, keep) & candidate
+
+
 @torch.no_grad()
 def assign_targets(cfg: AssignerConfig, points: torch.Tensor, anchors: torch.Tensor,
-                   gt_boxes: torch.Tensor, gt_labels: torch.Tensor) -> dict:
-    """Per-point, per-class targets (TargetAssigner.assign semantics): a point
-    inside a GT box is positive for the box's class if it lies within
-    `effective_sample_range` of the box's centre; a point in no box is
-    negative."""
-    if cfg.method != "Mask":
-        raise NotImplementedError(
-            f"assign_targets: {cfg.method!r} assignment needs the 3D IoU ops, "
-            f"which come with PointRCNN (ROADMAP Queue 1 item 10)")
-    if cfg.minibatch_size != -1:
-        raise NotImplementedError(
-            "assign_targets: minibatch subsampling (MINIBATCH_NUM != -1) comes "
-            "with PointRCNN (ROADMAP Queue 1 item 10)")
+                   gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                   valid_mask: torch.Tensor | None = None,
+                   uniforms: torch.Tensor | None = None) -> dict:
+    """Per-point, per-class targets (TargetAssigner.assign semantics). Each
+    point takes the first GT box it lies in (box 0 when none). Mask: a point
+    inside a box is positive for its class within `effective_sample_range`
+    of the box's centre, a point in no box negative. IoU: an anchor is
+    positive where its IoU with that box reaches `pos_iou` (and within the
+    range), negative where it lies in [0.05, neg_iou). Both are gated by
+    `valid_mask` [bs, pts, cls]. With a minibatch, `uniforms` [bs, 2, pts]
+    holds each scan's draws for its positive and its negative subset."""
     bs, pts_num, cls_num = anchors.shape[:3]
+    if anchors.shape[-1] == 3:  # anchor-free: the points as zero-size boxes
+        anchors = torch.cat([anchors, anchors.new_zeros(anchors.shape[:-1] + (4,))], -1)
+    if valid_mask is None:
+        valid_mask = torch.ones(bs, pts_num, cls_num, device=points.device)
     gt_valid = (gt_boxes != 0).any(-1)  # [bs, gt]
     inside = points_in_boxes(points, gt_boxes) & gt_valid[:, None, :]  # [bs, pts, gt]
     assigned_idx = _first_true(inside)  # [bs, pts]
@@ -76,9 +112,34 @@ def assign_targets(cfg: AssignerConfig, points: torch.Tensor, anchors: torch.Ten
         label_mask = (classes == (labels - 1)[..., None]).float()
     else:
         label_mask = torch.ones(bs, pts_num, cls_num, device=points.device)
-    fg = inside.any(-1)  # [bs, pts]
-    pmask = (fg[..., None] & dist_ok).float() * label_mask
-    nmask = (~fg)[..., None].expand(bs, pts_num, cls_num).float() * label_mask
+    if cfg.method == "Mask":
+        fg = inside.any(-1)  # [bs, pts]
+        pmask = (fg[..., None] & dist_ok).float() * label_mask * valid_mask
+        nmask = (~fg)[..., None].expand(bs, pts_num, cls_num).float() * label_mask * valid_mask
+    else:
+        if cfg.iou_sample_type not in ("BEV", "3D"):
+            raise NotImplementedError(
+                f"assign_targets: the {cfg.iou_sample_type!r} IoU (query_points_iou) is not "
+                f"ported yet (ROADMAP Queue 1 item 10)")
+        iou_bev, iou_3d = boxes_iou_bev_3d(anchors.reshape(bs, pts_num * cls_num, 7), gt_boxes)
+        iou = iou_bev if cfg.iou_sample_type == "BEV" else iou_3d
+        iou = torch.where(gt_valid[:, None, :], iou, 0.0).reshape(bs, pts_num, cls_num, -1)
+        # the IoU of each anchor with its point's assigned GT box
+        iou = iou.gather(-1, assigned_idx[:, :, None, None].expand(bs, pts_num, cls_num, 1))[..., 0]
+        # a class other than the assigned box's counts as ignored (-1)
+        iou = iou * label_mask + (label_mask - 1.0)
+        pmask = ((iou >= cfg.pos_iou) & dist_ok).float() * valid_mask
+        nmask = ((iou < cfg.neg_iou) & (iou >= MIN_NEG_IOU)).float() * valid_mask
+    if cfg.minibatch_size != -1:
+        if uniforms is None or uniforms.shape != (bs, 2, pts_num):
+            raise ValueError(f"assign_targets: a minibatch needs uniforms [{bs}, 2, {pts_num}]")
+        positive_size = int(cfg.minibatch_size * cfg.positive_ratio)
+        pts_p, pts_n = (pmask > 0).any(-1), (nmask > 0).any(-1)
+        sel_p = random_subset_mask(uniforms[:, 0], pts_p, positive_size, cfg.minibatch_size)
+        n_budget = cfg.minibatch_size - pts_p.sum(-1).clamp(max=positive_size)
+        sel_n = random_subset_mask(uniforms[:, 1], pts_n, n_budget, cfg.minibatch_size)
+        pmask = pmask * sel_p[..., None].float()
+        nmask = nmask * sel_n[..., None].float()
     # positive points keep their class id, negatives get 0
     gt_cls = (labels[..., None] * pmask.to(labels.dtype)).sum(-1)
     return {

@@ -3,7 +3,9 @@
 The reference's masking and normalisation are kept exactly:
 - classification: Is-Not / Focal / Center-ness over the (pmask + nmask)
   points, normalised by their count;
-- regression: huber over positive points, normalised by the positive count;
+- regression: huber over positive points, normalised by the positive count
+  (Bin-Anchor: softmax CE on the x and z bins, huber on the selected
+  residuals, masked inside the huber, and on y and the sizes);
 - angle: softmax CE on the bin + huber on the selected residual, masked
   inside the huber as the reference does;
 - corner loss on the predicted box decoded under the GT angle bin;
@@ -75,6 +77,7 @@ class LossConfig:
     iou_loss: bool = False
     attr_velo_loss: bool = False
     reg_type: str = "Dist-Anchor-free"
+    reg_bin_cls_num: int = 12
     expand_dims_length: float = 0.1  # vote-target box expansion
 
     @classmethod
@@ -93,6 +96,7 @@ class LossConfig:
             iou_loss=iou,
             attr_velo_loss=sc.PREDICT_ATTRIBUTE_AND_VELOCITY,
             reg_type=sc.REGRESSION_METHOD.TYPE,
+            reg_bin_cls_num=sc.REGRESSION_METHOD.BIN_CLASS_NUM,
             expand_dims_length=cfg.TRAIN.AUGMENTATIONS.EXPAND_DIMS_LENGTH,
         )
 
@@ -138,6 +142,28 @@ def offset_loss_res(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tens
     return (huber(err).sum(-1) * pmask).sum() / norm
 
 
+def offset_loss_bin(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tensor:
+    """Bin-Anchor offsets: x and z bin CE plus the selected residual, then
+    y and the sizes. gt_offset [..., 8] = x bin, x res, z bin, z res, y res,
+    dl, dh, dw; the prediction [..., 4 nb + 4]."""
+    pmask = targets["pmask"]
+    norm = pmask.sum().clamp(min=1.0)
+    nb = cfg.reg_bin_cls_num
+    gt, pred = targets["gt_offset"], outputs["offset"]
+
+    def bin_res(gt_bin, gt_res, pred_bin, pred_res):
+        gt_bin = gt_bin.to(torch.int32)
+        bin_l = (softmax_ce(pred_bin, gt_bin) * pmask).sum() / norm
+        sel = (pred_res * one_hot(gt_bin, nb, pred_res.dtype)).sum(-1)
+        return bin_l + huber((sel - gt_res) * pmask).sum() / norm
+
+    total = bin_res(gt[..., 0], gt[..., 1], pred[..., 0:nb], pred[..., nb:2 * nb])
+    total = total + bin_res(gt[..., 2], gt[..., 3], pred[..., 2 * nb:3 * nb],
+                            pred[..., 3 * nb:4 * nb])
+    other = huber(pred[..., 4 * nb:] - gt[..., 4:]).sum(-1) * pmask
+    return total + other.sum() / norm
+
+
 def angle_loss(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tensor:
     pmask = targets["pmask"]
     norm = pmask.sum().clamp(min=1.0)
@@ -167,20 +193,20 @@ def compute_stage_losses(cfg: LossConfig, coder, outputs: dict, targets: dict,
                          anchors: torch.Tensor, base_xyz: torch.Tensor,
                          gt_boxes_scene: torch.Tensor | None = None) -> dict:
     """Every loss of one detection stage. `targets` holds the assigner's
-    outputs; this adds the encoded regression targets. anchors: [bs, n, 1,
-    3] (anchor-free); base_xyz: [bs, n, 3]; gt_boxes_scene: [bs, g, 7], the
-    raw scene GTs (vote loss only)."""
-    if cfg.reg_type == "Bin-Anchor" or cfg.iou_loss or cfg.attr_velo_loss:
+    outputs; this adds the encoded regression targets. anchors: [bs, n, cls,
+    7] (anchor-free: [bs, n, 1, 3]); base_xyz: [bs, n, 3]; gt_boxes_scene:
+    [bs, g, 7], the raw scene GTs (vote loss only)."""
+    if cfg.iou_loss or cfg.attr_velo_loss:
         raise NotImplementedError(
-            "compute_stage_losses: Bin-Anchor offsets, the IoU branch and the "
-            "attribute/velocity losses are not ported yet (ROADMAP Queue 1 "
-            "items 10 and 11)")
+            "compute_stage_losses: the IoU branch and the attribute/velocity "
+            "losses are not ported yet (ROADMAP Queue 1 items 10 and 11)")
     gt_offset, gt_angle_cls, gt_angle_res = coder.encode(base_xyz, targets["gt_boxes"], anchors)
     targets = dict(targets, gt_offset=gt_offset, gt_angle_cls=gt_angle_cls,
                    gt_angle_res=gt_angle_res)
     loss_dict = {
         "cls": classification_loss(cfg, outputs, targets),
-        "offset": offset_loss_res(cfg, outputs, targets),
+        "offset": (offset_loss_bin if cfg.reg_type == "Bin-Anchor" else offset_loss_res)(
+            cfg, outputs, targets),
         "angle": angle_loss(cfg, outputs, targets),
     }
     if cfg.corner_loss:

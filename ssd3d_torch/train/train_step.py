@@ -10,7 +10,10 @@ before its increment. `torch.optim.SGD` computes optax's SGD update. Adam is
 written out (`Adam` below) because optax rounds its bias corrections to
 float32, where 1 - 0.999^t loses five digits and moves the first updates by
 ~1e-5 relative from `torch.optim.Adam`, which keeps them in float64.
-Parameters, BatchNorm buffers and the optimizer state are updated in place.
+With TRAIN_PARAM_PREFIX only the matching top-level modules reach the
+optimizer (`trained_parameters`), so the clip's norm and Adam see only them,
+as optax's `multi_transform` does. Parameters, BatchNorm buffers and the
+optimizer state are updated in place.
 """
 
 from __future__ import annotations
@@ -66,13 +69,19 @@ class Adam(torch.optim.Optimizer):
             torch._foreach_add_(params, update, alpha=-group["lr"])
 
 
-def make_optimizer(solver_cfg, params, train_param_prefix=()) -> torch.optim.Optimizer:
+def trained_parameters(model: torch.nn.Module, train_param_prefix=()) -> list:
+    """The parameters the optimizer updates: with TRAIN_PARAM_PREFIX, those
+    whose top-level module name starts with one of the prefixes (the
+    reference's stage-wise freezing, trainer_utils.py:56); else all. The
+    others keep their values, as optax's `set_to_zero` keeps them."""
+    prefixes = tuple(train_param_prefix)
+    return [p for name, p in model.named_parameters()
+            if not prefixes or name.split(".", 1)[0].startswith(prefixes)]
+
+
+def make_optimizer(solver_cfg, params) -> torch.optim.Optimizer:
     """Adam or SGD + momentum over `params`; the learning rate is set each
-    step from `learning_rate` (`TrainGraph.train_step`)."""
-    if train_param_prefix:
-        raise NotImplementedError(
-            "make_optimizer: stage-wise freezing (TRAIN_PARAM_PREFIX) comes with "
-            "PointRCNN (ROADMAP Queue 1 item 10)")
+    step from `learning_rate` (`apply_update`)."""
     lr = learning_rate(solver_cfg, 0)
     if solver_cfg.TYPE == "Adam":
         return Adam(params, lr=lr)
@@ -107,6 +116,47 @@ class TrainState:
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+
+
+def apply_update(state: TrainState, lr: float) -> None:
+    """After the backward: clip the gradients of the optimizer's parameters
+    by their global norm and step the optimizer at `lr`. A parameter the loss
+    does not reach takes a zero gradient, as JAX's gradient tree holds one
+    (Adam's moments stay 0 and its value stays)."""
+    params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    clip_by_global_norm([p.grad for p in params])
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    state.step += 1
+
+
+def optimizer_step(state: TrainState, solver_cfg, compute_losses,
+                   histograms: bool = False) -> dict:
+    """One optimizer step of either graph: `compute_losses(bn_m)` -> (total,
+    loss dict) at this step's BatchNorm momentum, its backward, then
+    `apply_update` at this step's learning rate. Updates `state` in place and
+    returns the metrics (the loss dict, `total`, `lr`, and with `histograms`
+    `grad_norm` and `param_norm`) as tensors on the model's device, but
+    `lr`, a float."""
+    bn_m = bn_momentum(solver_cfg, state.step)
+    lr = learning_rate(solver_cfg, state.step)
+    state.model.zero_grad(set_to_none=True)
+    total, loss_dict = compute_losses(bn_m)
+    total.backward()
+    metrics = {k: v.detach() for k, v in loss_dict.items()}
+    metrics.update(total=total.detach(), lr=lr)
+    if histograms:
+        metrics["grad_norm"] = global_norm(
+            [p.grad for p in state.model.parameters() if p.grad is not None])
+    apply_update(state, lr)
+    if histograms:
+        with torch.no_grad():
+            metrics["param_norm"] = global_norm(list(state.model.parameters()))
+    return metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,8 +195,8 @@ class TrainGraph:
     def init_state(self) -> TrainState:
         """Puts the model in train mode and builds its optimizer."""
         self.model.train()
-        opt = make_optimizer(self.solver_cfg, list(self.model.parameters()),
-                             self.train_param_prefix)
+        opt = make_optimizer(self.solver_cfg,
+                             trained_parameters(self.model, self.train_param_prefix))
         return TrainState(step=0, model=self.model, optimizer=opt)
 
     def compute_losses(self, batch: dict, bn_m: float):
@@ -162,28 +212,8 @@ class TrainGraph:
                                            anchors, base_xyz, gt_boxes_scene=batch["gt_boxes"])
         return sum(loss_dict.values()), loss_dict
 
-    def train_step(self, state: TrainState, batch: dict) -> dict:
-        """One optimizer step; updates `state` in place and returns the
-        metrics (the loss dict, `total`, `lr`, and with SUMMARY_HISTOGRAMS
-        `grad_norm` and `param_norm`) as tensors on the model's device, but
-        `lr`, a float."""
-        bn_m = bn_momentum(self.solver_cfg, state.step)
-        lr = learning_rate(self.solver_cfg, state.step)
-        params = list(state.model.parameters())
-        state.optimizer.zero_grad(set_to_none=True)
-        total, loss_dict = self.compute_losses(batch, bn_m)
-        total.backward()
-        grads = [p.grad for p in params]
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics.update(total=total.detach(), lr=lr)
-        if self.histograms:
-            metrics["grad_norm"] = global_norm(grads)
-        clip_by_global_norm(grads)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
-        if self.histograms:
-            with torch.no_grad():
-                metrics["param_norm"] = global_norm(params)
-        return metrics
+    def train_step(self, state: TrainState, batch: dict, seed: int = 0) -> dict:
+        """One optimizer step (`optimizer_step`); `seed` is unused, as the
+        single-stage step draws nothing (the two-stage step's signature)."""
+        return optimizer_step(state, self.solver_cfg,
+                              lambda bn_m: self.compute_losses(batch, bn_m), self.histograms)

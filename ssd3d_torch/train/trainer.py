@@ -1,6 +1,7 @@
-"""Training runtime on one device: the port's train step, `torch.save`
-checkpoints and metrics logging (counterpart of `ssd3d/train/trainer.py`,
-itself the replacement of the reference trainer, lib/core/trainer.py).
+"""Training runtime on one device: the port's train step (single-stage, or
+PointRCNN's two-stage step), `torch.save` checkpoints and metrics logging
+(counterpart of `ssd3d/train/trainer.py`, itself the replacement of the
+reference trainer, lib/core/trainer.py).
 
 A checkpoint is one step directory `<ckpt>/<step>/state.pt` holding the
 step, the model's `state_dict` (parameters and BatchNorm buffers) and the
@@ -27,9 +28,9 @@ import torch
 
 from ssd3d_torch.data import build_loader
 from ssd3d_torch.entry import init_weights
-from ssd3d_torch.models.single_stage import build_detector
+from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.ops import _build
-from ssd3d_torch.train.train_step import TrainGraph, TrainState
+from ssd3d_torch.train.train_step import TrainState
 
 STATE_FILE = "state.pt"
 # how the loader's worker processes start, on every device: one clean server
@@ -155,10 +156,12 @@ def merge_by_name(dst: dict, src: dict):
 
 class Trainer:
     """End-to-end KITTI training on one device (the reference trainer.py
-    CLI body): single-stage models, the loader on host workers, a
-    checkpoint every CHECKPOINT_INTERVAL and at the end, metrics every
-    SUMMARY_INTERVAL. Resume is batch-exact: the loader's stream starts at
-    the restored step."""
+    CLI body): single-stage models and PointRCNN's stages, the loader on
+    host workers, a checkpoint every CHECKPOINT_INTERVAL and at the end,
+    metrics every SUMMARY_INTERVAL. Resume is batch-exact: the loader's
+    stream starts at the restored step, and PointRCNN's minibatch draws
+    come from a generator seeded by the seed and the step. Stage 2 of
+    PointRCNN starts from a stage-1 run by `restore_model_path`."""
 
     def __init__(self, cfg, log_dir: str, split: str = "train", seed: int = 0,
                  restore_model_path: str | None = None,
@@ -172,9 +175,6 @@ class Trainer:
                 "Trainer: PARALLEL_MODE fsdp is not ported yet (ROADMAP Queue 1 item 12)")
         if cfg.TPU.PARALLEL_MODE != "dp":
             raise ValueError(f"unknown TPU.PARALLEL_MODE {cfg.TPU.PARALLEL_MODE!r}")
-        if cfg.MODEL.TYPE == "DoubleStage":
-            raise NotImplementedError(
-                "Trainer: two-stage training is not ported yet (ROADMAP Queue 1 item 10)")
         self.device = _build.resolve_device(device)
         self.cfg = cfg
         self.seed = seed
@@ -186,9 +186,10 @@ class Trainer:
         with open(os.path.join(self.log_dir, "config_snapshot.json"), "w") as f:
             json.dump(cfg.to_dict(), f, indent=1, default=str)
 
-        model, spec = build_detector(cfg, device=self.device)
-        init_weights(model, seed)
-        self.graph = TrainGraph.build(cfg, model, spec)
+        pipeline = build_pipeline(cfg, nms_pre_topk=cfg.TPU.NMS_PRE_TOPK or 2048,
+                                  device=self.device)
+        init_weights(pipeline.model, seed)
+        self.graph = pipeline.graph
         self.loader = build_loader(cfg, split, training=True, seed=seed,
                                    device_aug=cfg.TPU.DEVICE_AUGMENT)
         self.batch_size = cfg.TRAIN.CONFIG.BATCH_SIZE * cfg.TRAIN.CONFIG.GPU_NUM
@@ -279,7 +280,7 @@ class Trainer:
                 if batch is None:
                     break
                 waited += time.perf_counter() - t0
-                metrics = self.graph.train_step(state, self._device_batch(batch))
+                metrics = self.graph.train_step(state, self._device_batch(batch), self.seed)
                 it += 1
                 if it % cfg.SUMMARY_INTERVAL == 0:
                     metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step

@@ -54,7 +54,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert {f"ssd3d_torch.bin.{m}" for m in ("preprocess", "train", "evaluate", "test")} <= names
     assert {f"ssd3d_torch.data.{m}" for m in ("kitti_io", "augment", "preprocess", "loader")} <= names
     assert {"ssd3d_torch.eval.kitti_ap", "ssd3d_torch.eval.predictions", "ssd3d_torch.native",
-            "ssd3d_torch.train.trainer", "ssd3d_torch.utils.viz"} <= names
+            "ssd3d_torch.train.trainer", "ssd3d_torch.train.two_stage_step",
+            "ssd3d_torch.utils.viz"} <= names
 
 
 def test_entry_runs_the_flagship_on_a_cpu_scan():

@@ -170,7 +170,7 @@ def test_assign_and_vote_targets_match_jax():
     data = _scene_batch(3, 256)
     pts = data["points"][..., :3]
     anchors = pts[:, :, None, :]
-    cfg = assigner.AssignerConfig("Mask", -1, 10.0)
+    cfg = assigner.AssignerConfig("Mask", -1, 10.0, "BEV", 0.25, 0.6, 0.45)
     jcfg = jassigner.AssignerConfig("Mask", "BEV", -1, 0.25, 0.6, 0.45, 10.0)
     want = jassigner.assign_targets(jcfg, jax.random.PRNGKey(0), jnp.asarray(pts),
                                     jnp.asarray(anchors), jnp.asarray(data["gt_boxes"]),
@@ -185,10 +185,25 @@ def test_assign_and_vote_targets_match_jax():
     gm, gt = assigner.vote_targets(_t(pts), _t(data["gt_boxes"]), 0.1)
     np.testing.assert_array_equal(gm.numpy(), np.asarray(vm))
     np.testing.assert_allclose(gt.numpy(), np.asarray(vt), rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        assigner.assign_targets(assigner.AssignerConfig("IoU", -1, 10.0),
-                                _t(pts), _t(anchors), _t(data["gt_boxes"]),
-                                _t(data["gt_labels"]))
+    # IoU assignment of the points' mean-size Car anchors (BEV and 3D IoU),
+    # with a minibatch drawn from the JAX assigner's own random numbers
+    boxes = np.asarray(jcoders.AnchorGenerator("KITTI", ("Car",), "Bin-Anchor")(jnp.asarray(pts)))
+    key = jax.random.PRNGKey(3)
+    draws = np.stack([np.stack([np.asarray(jax.random.uniform(k, (pts.shape[1],)))
+                                for k in jax.random.split(r)])
+                      for r in jax.random.split(key, pts.shape[0])])
+    for sample_type in ("BEV", "3D"):
+        jcfg = jassigner.AssignerConfig("IoU", sample_type, 24, 0.5, 0.3, 0.2, 10.0)
+        want = jassigner.assign_targets(jcfg, key, jnp.asarray(pts), jnp.asarray(boxes),
+                                        jnp.asarray(data["gt_boxes"]),
+                                        jnp.asarray(data["gt_labels"]))
+        got = assigner.assign_targets(
+            assigner.AssignerConfig("IoU", 24, 10.0, sample_type, 0.5, 0.3, 0.2), _t(pts),
+            _t(boxes), _t(data["gt_boxes"]), _t(data["gt_labels"]), uniforms=_t(draws))
+        for k in got:
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+        assert 0 < got["pmask"].sum() and 0 < got["nmask"].sum()
+        assert (got["pmask"] + got["nmask"]).sum() <= 24 * pts.shape[0]
 
 
 # ------------------------------------------------------------------ losses

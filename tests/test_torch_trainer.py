@@ -271,9 +271,20 @@ def test_trainer_names_what_is_not_ported(scans, tmp_path):
     with pytest.raises(NotImplementedError, match="item 13"):
         Trainer(config.load_cfg(TINY, opts), str(tmp_path), restore_tf_checkpoint="x",
                 device="cpu")
-    rcnn = config.load_cfg(str(REPO / "configs/kitti/pointrcnn/pointrcnn_test.yaml"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Trainer(rcnn, str(tmp_path), device="cpu")
+    # PointRCNN's stage 2 is ported: the trainer builds the two-stage graph
+    # the JAX package's trainer builds, and its optimizer holds only the
+    # RCNN's parameters (TRAIN_PARAM_PREFIX rcnn, roi)
+    stage2 = str(REPO / "configs/kitti/pointrcnn/pointrcnn_tiny_stage2.yaml")
+    rcnn = Trainer(config.load_cfg(stage2, opts), str(tmp_path / "rcnn"), device="cpu")
+    want = JaxTrainer(jconfig.load_cfg(stage2, opts), str(tmp_path / "jax_rcnn")).graph
+    got = rcnn.graph
+    for field in ("only_first_stage", "minibatch", "pool_context", "pool_mask_thresh",
+                  "loss_prefixes", "freeze_rpn"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert got.assigner_2.pos_iou == want.assigner_2.pos_iou and got.assigner_2.method == "IoU"
+    trained = {id(p) for p in rcnn.init_or_restore().optimizer.param_groups[0]["params"]}
+    names = [n for n, p in got.model.named_parameters() if id(p) in trained]
+    assert names and all(n.startswith(("rcnn", "roi")) for n in names)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(config.load_cfg(TINY, opts), str(tmp_path))
 

@@ -82,8 +82,22 @@ def test_bin_anchor_decode_and_anchors_match_jax():
         got = coder.decode(_t(pts), _t(off), _t(a_cls), _t(a_res), got_anchors)
         assert got.shape == (b, n, 2, 7)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        coder.encode(_t(pts), None, None)
+    # Bin-Anchor encoding: GT boxes against the mean-size anchors (stage 1)
+    # and against proposals (stage 2), bins equal, residuals within 1e-6
+    for half_range, bins in ((3.0, 12), (1.5, 6)):
+        jcoder = jcoders.BoxCoder("Bin-Anchor", na, half_range=half_range, num_bins=bins)
+        coder = box_coders.BoxCoder("Bin-Anchor", na, half_range=half_range, num_bins=bins)
+        gt = _boxes(rng, b * n * 2).reshape(b, n, 2, 7)
+        gt[..., 0:3] = np.asarray(anchors)[..., 0:3] + rng.uniform(-4, 4, (b, n, 2, 3))
+        want = jcoder.encode(jnp.asarray(pts), jnp.asarray(gt), anchors)
+        got = coder.encode(_t(pts), _t(gt), got_anchors)
+        assert got[0].shape == (b, n, 2, 8)
+        bins_at = [0, 2]  # x bin, z bin
+        np.testing.assert_array_equal(got[0][..., bins_at].numpy(), np.asarray(want[0])[..., bins_at])
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-6, atol=1e-6)
+        assert len(np.unique(np.asarray(want[0])[..., 0])) == bins  # every x bin taken
 
 
 def test_bottom_to_center_and_canonical_points_match_jax():
