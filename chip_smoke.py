@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases, each of which raises on failure (no error is caught):
+Fifteen phases, each of which raises on failure (no error is caught):
 
 1. Environment: the card's name and power limit, torch / CUDA / nvcc
    versions, and the build of the CUDA kernels from `ssd3d_torch/csrc/`
@@ -99,13 +99,41 @@ Eleven phases, each of which raises on failure (no error is caught):
    near-tie; then `bin.train` of stage 1, `bin.train` of stage 2 warm-started
    from it, and `bin.evaluate` of the stage-2 run, with s/it and the loader's
    share.
+12. K2m, F-FPS over a given distance matrix (`csrc/ffps_dist.cu`), against
+   the plain loop at the TPU entries' shapes ([8, 1024, 1024] -> 256,
+   [8, 4096, 4096] -> 512), an odd n, a 10 x 10 x 10 lattice whose picks
+   tie, and [1, 20000, 20000] (the scratch tier), picks equal, timed with
+   the bound; then the public op path (`ssd3d_torch.ops`:
+   farthest_point_sample_from_dist, ball_query, ball_query_dilated) and its
+   launches.
+13. STD (`configs/kitti/std/std.yaml`, the PointsPool voxel pooler, full
+   widths, f32, 100 proposals) at batch 4: K1 (the RCNN's D-FPS over each
+   RoI's 6 x 6 x 6 voxel centres, whose picks tie), K3, K4 (the pooler's
+   gathers), K6 and K7 (SA1 over 216 voxel centres, both routes) against
+   their plain versions on the inputs of one forward; inference through
+   `two_stage_entry(config="std")` with its launches and routes, scans/s,
+   batch-1 latency, device busy time and peak memory; then card against
+   CPU on one scan as phase 9, the card's voxel ids replayed too.
+14. STD's stage 2 (`std_stage2.yaml`) at batch 4 from stage 1's weights:
+   launches, step time, the RPN bit for bit, the pooler trained; then
+   `bin.train` of pointrcnn_stage1.yaml, `bin.train` of std_stage2.yaml
+   with --restore_model_path, `bin.evaluate`, and `bin.evaluate` and
+   `bin.test` of std.yaml from the STD run's checkpoint.
+15. The training options no shipped config turns on (`entry.TRAIN_OPTIONS`:
+   an IoU head, Dist-Anchor regression, AdaBound, the device augmentation
+   with 15 crops of 512 points a scan) on the flagship at batch 8: four
+   steps, finite losses, launches; the augmentation card against CPU on the
+   same draws; one f32 step card against CPU as phase 6.
 
 The second line from the end is a JSON object with one entry per kernel:
 `launches_by_path` counts its launches in one run of each path (flagship
 inference, phase 3; one training step, phase 5; PointRCNN inference, phase
 8; phase 10's training run A of 20 steps, the flagship's evaluate and test,
 and PointRCNN's evaluate and test; one step of each PointRCNN training
-stage and the stage-wise CLI chain, phase 11), `launches` is their sum; times and bounds are of the shape in `shape`
+stage and the stage-wise CLI chain, phase 11; the public op path, phase 12;
+STD inference, phase 13; one STD stage-2 step and STD's CLI chain, phase 14;
+one step with the training options, phase 15), `launches` is their sum;
+times and bounds are of the shape in `shape`
 (K1's, K2's and K3's on the route that shape takes; `routes` holds every
 route's times at each shape of theirs, and `launches_by_route` their
 launches by route on each path, which phases 3, 5 and 8 hold to the route
@@ -146,14 +174,20 @@ from ssd3d_torch.config import load_cfg
 from ssd3d_torch.core.geometry import boxes_to_bev_aabb, canonicalize_points
 from ssd3d_torch.core.iou import aabb_iou
 from ssd3d_torch.data.loader import KittiLoader
+import ssd3d_torch.ops as public_ops
 from ssd3d_torch.entry import (
     FLAGSHIP_CFG,
     POINTRCNN_CFG,
+    STD_CFG,
+    TRAIN_OPTIONS,
     flagship,
     init_weights,
     pointrcnn,
+    std,
+    synthetic_candidates,
     synthetic_scenes,
     train_entry,
+    train_options_entry,
     two_stage_entry,
     two_stage_train_entry,
 )
@@ -179,22 +213,24 @@ from ssd3d_torch.ops.sampling import (
     farthest_point_sample,
     farthest_point_sample_features,
     ffps_plain,
+    fps_from_dist_plain,
     fps_pick_shortfall,
     fps_plain,
     fps_route,
     gather_points,
 )
 from ssd3d_torch.ops.topk import top_k_set
-from ssd3d_torch.train import assigner, two_stage_step
+from ssd3d_torch.train import assigner, device_aug, two_stage_step
 from ssd3d_torch.train.schedules import bn_momentum
 from ssd3d_torch.train.train_step import TrainGraph, trained_parameters
 from ssd3d_torch.train.two_stage_step import TwoStageGraph
-from ssd3d_torch.train.trainer import CheckpointManager
+from ssd3d_torch.train.trainer import CheckpointManager, merge_by_name
 from ssd3d_torch.utils import synth
 from ssd3d_torch.utils.timing import cuda_ms
 
 BATCH = 8
 N_POINTS = 16384
+DEV = "cuda"  # the device of phases 12-15 (a rehearsal on the CPU sets "cpu")
 # An F-FPS pick may fall short of the step's farthest distance by this much
 # (relative): kernel and plain version sum d2 in the same order, so any gap
 # beyond float32 rounding is a wrong pick.
@@ -323,6 +359,14 @@ PATH_CALLS = {
     "PointRCNN stage 2": dict(fps=[(4, 16384), (4, 4096), (4, 1024), (4, 256), (256, 512),
                                    (256, 128)], ffps=[],
                               ball_query=[16384, 4096, 1024, 256, 512, 128], sa_fused=[]),
+    # STD: PointRCNN's RPN, then the RCNN over the 6 x 6 x 6 voxel centres of
+    # each RoI (400 at inference, 4 x 64 in stage 2's train mode, unfused)
+    "STD": dict(fps=[(4, 16384), (4, 4096), (4, 1024), (4, 256), (400, 216), (400, 128)],
+                ffps=[], ball_query=[16384, 4096, 1024, 256, 216, 128],
+                sa_fused=[(131, [64], [[128, 128, 128]]), (131, [64], [[128, 128, 256]])]),
+    "STD stage 2": dict(fps=[(4, 16384), (4, 4096), (4, 1024), (4, 256), (256, 216),
+                             (256, 128)], ffps=[],
+                        ball_query=[16384, 4096, 1024, 256, 216, 128], sa_fused=[]),
 }
 
 
@@ -1096,8 +1140,9 @@ def _train_grads(model, spec, cfg, batch, replay: DecisionReplay):
     hook = model.register_forward_hook(lambda mod, args, out: outputs.update(out))
     relu, pool, query = replay.patches()
     with relu, pool, query:
-        total, losses = TrainGraph.build(cfg, model, spec).compute_losses(
-            batch, bn_momentum(cfg.SOLVER, 0))
+        # a batch of the device augmentation comes augmented (phase 15)
+        graph = dataclasses.replace(TrainGraph.build(cfg, model, spec), aug_cfg=None)
+        total, losses = graph.compute_losses(batch, bn_momentum(cfg.SOLVER, 0))
         total.backward()
     hook.remove()
     grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
@@ -1106,14 +1151,19 @@ def _train_grads(model, spec, cfg, batch, replay: DecisionReplay):
     return {k: v.item() for k, v in losses.items()}, outputs, grads, stats
 
 
-def phase_train_card_vs_cpu() -> None:
+def phase_train_card_vs_cpu(opts=()) -> None:
+    """Phase 6; with `opts` (TRAIN_OPTIONS) phase 15's: the device
+    augmentation runs on both legs on the same draws and is compared, and
+    both legs' steps then take the card's augmented batch."""
     n_scans = 2
-    log(f"== phase 6: one f32 train step, card against CPU, {n_scans} scans of "
-        f"{N_POINTS} points, same weights")
-    cfg, gmodel, spec, n = flagship(device="cuda", seed=0, compute_dtype="float32")
+    log(f"== phase {15 if opts else 6}: one f32 train step, card against CPU, {n_scans} scans of "
+        f"{N_POINTS} points, same weights" + (", the training options" if opts else ""))
+    cfg, gmodel, spec, n = flagship(device="cuda", seed=0, compute_dtype="float32", opts=opts)
     cmodel = copy.deepcopy(gmodel).cpu()
     gmodel2 = copy.deepcopy(gmodel)  # the same state, for a second card step
     data = {k: torch.from_numpy(v) for k, v in synthetic_scenes(n_scans, n).items()}
+    if opts:
+        data = augmented_card_vs_cpu(cfg, data, n)
     gmodel.train()
     gmodel2.train()
     cmodel.train()
@@ -1218,12 +1268,14 @@ def capture_two_stage_inputs(forward, points: torch.Tensor, sa_layers) -> dict:
     return seen
 
 
-def check_path_kernels(seen: dict) -> dict:
+def check_path_kernels(seen: dict, pool_widths=(3, 128, 1), what: str = "PointRCNN") -> dict:
     """K1, K3 and K4 against their plain versions on the card, at every call
-    of one PointRCNN forward (phase 2 holds them at 3DSSD's shapes); K1 and
-    K3 on both routes. -> (K4's and torch.gather's times at RegionPool's
-    gathers, the calls whose source has other widths than the RPN's; K3's
-    times on both routes at each call)."""
+    of one two-stage forward (phase 2 holds them at 3DSSD's shapes); K1 and
+    K3 on both routes. `pool_widths`: the widths of the RoI pooler's
+    gathers, the forward's last (RegionPool's xyz, features and mask;
+    PointsPool's, then its voxels' points). -> (K4's and torch.gather's
+    times at the pooler's gathers; K3's times on both routes at each
+    call)."""
     shapes = []
     for (xyz, npoint), _ in seen["fps"]:
         plain = fps_plain(xyz, npoint)
@@ -1238,26 +1290,26 @@ def check_path_kernels(seen: dict) -> dict:
     check(len(seen["ball_query"]) == len(names), f"{len(seen['ball_query'])} ball queries")
     k3 = {}
     for name, ((radii, ns, xyz, new_xyz), kwargs) in zip(names, seen["ball_query"]):
-        k3[name] = ball_query_routes(name, xyz, new_xyz, radii, ns, kwargs.get("dilated", False),
-                                     plain=False)
+        k3[f"{what} {name}"] = ball_query_routes(f"{what} {name}", xyz, new_xyz, radii, ns,
+                                                 kwargs.get("dilated", False), plain=False)
     shapes, pool = [], {}
-    # the forward's last three gathers are RegionPool's: xyz, features, mask
-    check([src.shape[2] for (src, _), _ in seen["gather"][-3:]] == [3, 128, 1],
-          "RegionPool's gathers are not the forward's last three")
+    n_pool = len(pool_widths)
+    check([src.shape[2] for (src, _), _ in seen["gather"][-n_pool:]] == list(pool_widths),
+          f"the RoI pooler's gathers are not the forward's last {n_pool}")
     for k, ((src, idx), _) in enumerate(seen["gather"]):
         got, ref = grouping._gather_rows(src, idx), gather_rows_plain(src, idx)
         check(got.dtype == ref.dtype and torch.equal(got.view(torch.int32), ref.view(torch.int32)),
               f"gather not bit-identical at {list(src.shape)} x {idx.shape[1]} rows")
         shape = f"{list(src.shape)} x {idx.shape[1]} rows"
         shapes.append(shape)
-        if k >= len(seen["gather"]) - 3:
+        if k >= len(seen["gather"]) - n_pool:
             wide = idx.long().clamp(0, src.shape[1] - 1)[..., None].expand(-1, -1, src.shape[2])
             b, rows, c = idx.shape[0], idx.shape[1], src.shape[2]
             pool[shape] = dict(ms=cuda_ms(lambda: grouping._gather_rows(src, idx), 20),
                                library_ms=cuda_ms(lambda: src.gather(1, wide), 20),
                                **bound(4 * (b * min(rows, src.shape[1]) * c + b * rows
                                             + b * rows * c), 0))
-            log(f"K4 gather RegionPool {shape}: {pool[shape]['ms']:.4f} ms vs torch.gather "
+            log(f"K4 gather {what}'s RoI pool {shape}: {pool[shape]['ms']:.4f} ms vs torch.gather "
                 f"{pool[shape]['library_ms']:.4f} ms (K4 / torch.gather "
                 f"{pool[shape]['ms'] / pool[shape]['library_ms']:.2f}), bound "
                 f"{pool[shape]['bound_ms']:.4f} ms")
@@ -1533,9 +1585,10 @@ class RoIReplay:
     likewise with the radius scaled by 1 -+ RADIUS_RTOL; a pick within
     FFPS_TIE_RTOL of the farthest distance."""
 
-    KINDS = ("roi_points", "fps", "ball_query")
+    KINDS = ("roi_points", "fps", "ball_query", "voxels")
     FACE_TOL = 1e-4  # metres
     RADIUS_RTOL = 1e-5
+    VOXEL_TOL = 1e-4  # grid units: how near a voxel face a point's id may differ
 
     def __init__(self):
         self.recording = True
@@ -1546,11 +1599,37 @@ class RoIReplay:
         self._roi = two_stage.query_boxes_3d_points
         self._fps = modules.farthest_point_sample
         self._ball = modules.ball_query_multi
+        self._voxels = two_stage.PointsPool.voxel_ids
 
     def patches(self):
+        replay = self
         return (mock.patch.object(two_stage, "query_boxes_3d_points", self.roi_points),
                 mock.patch.object(modules, "farthest_point_sample", self.fps),
-                mock.patch.object(modules, "ball_query_multi", self.ball_query))
+                mock.patch.object(modules, "ball_query_multi", self.ball_query),
+                mock.patch.object(two_stage.PointsPool, "voxel_ids",
+                                  lambda pool, canonical, size: replay.voxels(pool, canonical,
+                                                                              size)))
+
+    def voxels(self, pool, canonical, size):
+        """STD's voxel ids: the CPU takes the card's, each one it would have
+        given otherwise a point within VOXEL_TOL of a voxel face."""
+        own = self._voxels(pool, canonical, size)
+        if self.recording:
+            self.log["voxels"].append(own.cpu())
+            return own
+        card = self._next("voxels")
+        differ = card != own
+        self.differ["voxels"] += int(differ.sum())
+        self.total["voxels"] += differ.numel()
+        if differ.any():
+            gl, gh, gw, _ = pool.grid
+            f = torch.stack([(canonical[..., 0] / size[..., None, 0] + 0.5) * gl,
+                             (canonical[..., 1] / size[..., None, 1] + 1.0) * gh,
+                             (canonical[..., 2] / size[..., None, 2] + 0.5) * gw], -1)
+            near = ((f - f.round()).abs() <= self.VOXEL_TOL).any(-1)
+            check(bool(near[differ].all()), "a voxel id differs between card and CPU away "
+                  "from a voxel face")
+        return card
 
     def _next(self, kind):
         card = self.log[kind][self.pos[kind]]
@@ -1711,9 +1790,15 @@ def keeps_differ_at_ties(what: str, g_keep, c_keep, score, bev, thr: float, flip
     return len(differ)
 
 
-def phase_two_stage_card_vs_cpu(scans: torch.Tensor) -> None:
-    log(f"== phase 9: PointRCNN card against CPU, one scan of {N_POINTS} points, f32")
-    _, gmodel, rpn_spec, rcnn_spec, _ = pointrcnn(device="cuda", seed=0)
+def phase_two_stage_card_vs_cpu(scans: torch.Tensor, config: str = "pointrcnn") -> None:
+    name = {"pointrcnn": "PointRCNN", "std": "STD"}[config]
+    log(f"== phase {9 if config == 'pointrcnn' else 13}: {name} card against CPU, one scan of "
+        f"{N_POINTS} points, f32")
+    if config == "pointrcnn":
+        _, gmodel, rpn_spec, rcnn_spec, _ = pointrcnn(device="cuda", seed=0)
+    else:
+        _, pipe = std(device="cuda", seed=0)
+        gmodel, rpn_spec, rcnn_spec = pipe.model, pipe.rpn_spec, pipe.rcnn_spec
     cmodel = copy.deepcopy(gmodel).cpu()
     scan = scans[:1].contiguous()
     t0 = time.perf_counter()
@@ -1774,9 +1859,10 @@ def phase_two_stage_card_vs_cpu(scans: torch.Tensor) -> None:
               "a foreground bit differs away from the 0.5 threshold")
     log(f"  foreground mask bits that differ (near-ties, the card's taken): {int(flipped.sum())}")
     rep = RoIReplay()
-    roi, fps_p, ball = rep.patches()
     t0 = time.perf_counter()
-    with roi, fps_p, ball, torch.inference_mode():
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        for patch in rep.patches():
+            stack.enter_context(patch)
         gr = gmodel.rcnn(gout["base_xyz"], gout["feature"], gmask, gprop[0])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -1787,6 +1873,11 @@ def phase_two_stage_card_vs_cpu(scans: torch.Tensor) -> None:
           f"the legs took different numbers of RCNN decisions: {rep.pos}")
     log("  RCNN decisions the CPU would have taken otherwise, each a near-tie (the card's "
         "taken): " + ", ".join(f"{k} {rep.differ[k]} of {rep.total[k]}" for k in rep.KINDS))
+    if config == "std":
+        # both legs build the voxel lattice from the card's proposals with
+        # the same arithmetic, so its tied D-FPS picks fall alike
+        check(rep.differ["fps"] == 0, f"{rep.differ['fps']} of STD's RCNN D-FPS calls picked "
+              "otherwise on the CPU")
     for key in ("cls", "offset", "angle_cls", "angle_res"):
         _close(f"RCNN {key}", gr[key].cpu(), cr[key], F32_TOL)
     gr["proposals"], cr["proposals"] = gprop[0], gprop[0].cpu()
@@ -2084,6 +2175,7 @@ CLI_TWO_STAGE_SCANS, CLI_TWO_STAGE_VAL, CLI_TWO_STAGE_ITERS = 8, 4, 6
 # within this of the sample range.
 IOU_TIE = 1e-6
 STAGE_CFG = {stage: POINTRCNN_CFG.parent / f"pointrcnn_stage{stage}.yaml" for stage in (1, 2)}
+STD_STAGE2_CFG = STD_CFG.parent / "std_stage2.yaml"
 TWO_STAGE_LOSS_KEYS = {1: ("cls", "offset", "angle"), 2: ("cls", "offset", "angle", "corner")}
 
 
@@ -2464,15 +2556,19 @@ def phase_two_stage_training(report: list[dict]) -> dict:
             **phase_two_stage_cli()}
 
 
-def phase_two_stage_cli() -> dict:
+def phase_two_stage_cli(config: str = "pointrcnn") -> dict:
     """bin.train of stage 1, bin.train of stage 2 warm-started from it,
     bin.evaluate of the stage-2 run, on a synthetic KITTI tree -> the chain's
-    launches."""
+    launches. With config "std" stage 2 is `std_stage2.yaml`, its pooler
+    must train, and `bin.evaluate` and `bin.test` of `std.yaml` follow from
+    the stage-2 run's checkpoint."""
+    std_run = config == "std"
+    key = "cli_std" if std_run else "cli_two_stage"
     with tempfile.TemporaryDirectory(prefix="ssd3d_rcnn_cli_") as root:
         data, npz = os.path.join(root, "kitti"), os.path.join(root, "npz")
         synth.write_tree(data, n_train=CLI_TWO_STAGE_SCANS, n_val=CLI_TWO_STAGE_VAL,
                          n_points=CLI_SCAN_POINTS, seed=1)
-        cfg1, cfg2 = str(STAGE_CFG[1]), str(STAGE_CFG[2])
+        cfg1, cfg2 = str(STAGE_CFG[1]), str(STD_STAGE2_CFG if std_run else STAGE_CFG[2])
         opts = ["--device", "cuda",
                 "DATASET.KITTI.BASE_DIR_PATH", data,
                 "DATASET.KITTI.TRAIN_LIST", os.path.join(data, "train.txt"),
@@ -2484,14 +2580,23 @@ def phase_two_stage_cli() -> dict:
         for split in ("train", "val"):
             preprocess_cli.main(["--cfg", cfg1, "--img_list", split] + opts)
         run1, run2 = os.path.join(root, "stage1"), os.path.join(root, "stage2")
-        paths = {"cli_two_stage": cli_launches(
-            "the stage-wise CLI chain (bin.train stage 1, stage 2, bin.evaluate)",
+
+        def from_checkpoint():  # STD's inference config from the stage-2 run
+            evaluate_cli.main(["--cfg", str(STD_CFG), "--log_dir", os.path.join(root, "eval"),
+                               "--restore_model_path", os.path.join(run2, "ckpt"),
+                               "--viz_scans", "0"] + opts)
+            test_cli.main(["--cfg", str(STD_CFG), "--log_dir", run2] + opts)
+
+        paths = {key: cli_launches(
+            f"the stage-wise CLI chain of {config} (bin.train stage 1, stage 2, bin.evaluate"
+            + (", bin.evaluate and bin.test of std.yaml)" if std_run else ")"),
             lambda: (train_cli.main(["--cfg", cfg1, "--log_dir", run1] + opts),
                      train_cli.main(["--cfg", cfg2, "--log_dir", run2,
                                      "--restore_model_path", run1] + opts),
                      evaluate_cli.main(["--cfg", cfg2, "--log_dir", run2, "--once",
-                                        "--viz_scans", "0"] + opts)))}
-        n = paths["cli_two_stage"]
+                                        "--viz_scans", "0"] + opts),
+                     from_checkpoint() if std_run else None))}
+        n = paths[key]
         check(all(n[k] > 0 for k in ("fps", "ball_query", "gather", "three_nn", "scatter_add",
                                       "sa_fused")) and n["ffps"] == 0,
               f"the stage-wise chain launched {n}")
@@ -2517,7 +2622,326 @@ def phase_two_stage_cli() -> dict:
               f"the stage-2 run's evaluation is not finite: {res}")
         log(f"stage-2 run, step {CLI_TWO_STAGE_ITERS}, Car 3D AP easy/moderate/hard "
             f"{'/'.join(f'{v:.2f}' for v in res['Car']['3d'])}")
+        if std_run:
+            # the pooler trained: its VFE left where the trainer's seeded init put it
+            fresh = build_pipeline(load_cfg(cfg2), device="cpu").model
+            init_weights(fresh, 0)
+            init = fresh.state_dict()
+            vfe = [k for k in c2 if k.startswith("roi_pool.vfe.") and k.endswith("kernel")]
+            check(bool(vfe) and all(not torch.equal(c2[k], init[k]) for k in vfe),
+                  "the STD pooler's VFE did not train in stage 2")
+            outputs = sorted(os.listdir(run2))
+            log(f"STD: the pooler's {len(vfe)} VFE kernels trained; bin.evaluate and bin.test "
+                f"of std.yaml ran from the stage-2 checkpoint (run files: {outputs})")
     return paths
+
+
+# ----------------------------------------------------------------- phase 12
+
+# K2m: F-FPS over a given matrix at the TPU entries' two shape classes (the
+# VMEM entry's [8, 1024, 1024] -> 256; the HBM entry's fusion-sampling
+# segment [<= 16, 4096, 4096] -> 512), an odd n, a lattice whose every pick
+# is a tie, and past the register tier's 16,384 points
+FFPS_DIST_SHAPES = (("VMEM entry", 8, 1024, 256, "random"),
+                    ("HBM entry", 8, 4096, 512, "fused"),
+                    ("odd n", 3, 1000, 100, "random"),
+                    ("lattice ties", 4, 1000, 200, "lattice"),
+                    ("scratch tier", 1, 20000, 64, "random"))
+
+
+def dist_matrix(kind: str, b: int, n: int, gen: torch.Generator, dev) -> torch.Tensor:
+    """A [b, n, n] f32 matrix of squared distances: of random 5-channel
+    vectors; of SA2-like fused vectors (xyz and 64 ReLU features); or of a
+    10 x 10 x 10 integer lattice scaled by a power of two a cloud, whose
+    distances are exact, so that from every pick many points tie."""
+    if kind == "lattice":
+        g = torch.stack(torch.meshgrid(*[torch.arange(10.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        d = ((g[:, None] - g[None]) ** 2).sum(-1)
+        return torch.stack([d * 2.0 ** k for k in range(b)]).to(dev)
+    c = 67 if kind == "fused" else 5
+    f = torch.randn(b, n, c, generator=gen).to(dev)
+    if kind == "fused":
+        f = torch.cat([f[..., :3] * 20, f[..., 3:].relu()], -1)
+    return torch.cdist(f, f).square_()
+
+
+def phase_ffps_dist(report: list[dict]) -> dict:
+    """K2m against its plain version at FFPS_DIST_SHAPES, then the public op
+    path that runs it -> the path's launches; K2m's entry into `report`."""
+    log("== phase 12: K2m (F-FPS from a distance matrix) and the public op surface")
+    dev, gen = torch.device(DEV), torch.Generator().manual_seed(12)
+    shapes = {}
+    for name, b, n, m, kind in FFPS_DIST_SHAPES:
+        dist = dist_matrix(kind, b, n, gen, dev)
+        want = fps_from_dist_plain(dist, m)
+        got = public_ops.farthest_point_sample_from_dist(dist, m)
+        check(torch.equal(got, want), f"K2m disagrees with plain at {name} {[b, n, n]} -> {m}")
+        tied = 0
+        if kind == "lattice":  # how many picks were ties on the plain loop's own values
+            row = dist.gather(1, want.long()[:, :, None].expand(b, m, n))
+            run = row.cummin(1).values[:, :-1]  # the running minimum before each pick
+            top = run.amax(-1, keepdim=True)
+            tied = int(((run == top).sum(-1) > 1).sum())
+            check(tied >= b * (m - 1) // 2, f"only {tied} lattice picks were ties")
+        ppt = sampling.ffps_dist_ppt(n)
+        # bytes: the m rows read once and the picks written; operations: a
+        # min and a compare a point and pick
+        e = dict(shape=f"[{b}, {n}, {n}] -> {m}", tier="registers" if ppt else "global",
+                 ms=cuda_ms(lambda: public_ops.farthest_point_sample_from_dist(dist, m), 5),
+                 plain_ms=cuda_ms(lambda: fps_from_dist_plain(dist, m), 1),
+                 **bound(4 * (b * m * n + b * m), 2 * b * m * n))
+        shapes[name] = e
+        log(f"K2m {name} {e['shape']} ({kind}): picks equal to plain"
+            + (f", {tied} of {b * (m - 1)} picks ties" if kind == "lattice" else "")
+            + f"; {e['tier']} tier; {e['ms']:.4f} ms ({1e3 * e['ms'] / m:.2f} us a pick) vs "
+              f"plain {e['plain_ms']:.3f} ms; bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+              f"{100 * e['bound_ms'] / e['ms']:.1f}%")
+        del dist
+    main = shapes["HBM entry"]
+    report.append(dict(name="ffps_dist", route="cuda", source="ssd3d_torch/csrc/ffps_dist.cu",
+                       replaces="ssd3d/ops/pallas/fps.py:183 (ffps_pallas; ffps_pallas_hbm :291)",
+                       launches=0, max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                       bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+                       shape=f"HBM entry {main['shape']}",
+                       other_shapes={k: v for k, v in shapes.items() if k != "HBM entry"},
+                       check="picks equal to the plain loop's (fps_from_dist_plain)"))
+    # the path: the public ops a user calls, over a scan's SA2 segment
+    dist = dist_matrix("fused", BATCH, 4096, gen, dev)
+    xyz = torch.from_numpy(synthetic_scenes(2, N_POINTS, seed=12)["points"][..., :3]).to(dev)
+    _build.reset_launches()
+    picks = public_ops.farthest_point_sample_from_dist(dist, 512)
+    idx, cnt = public_ops.ball_query(0.8, 32, xyz, xyz[:, :1024].contiguous())
+    didx, dcnt = public_ops.ball_query_dilated(0.4, 0.8, 32, xyz, xyz[:, :1024].contiguous())
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    launches["routes"] = _build.route_launches()
+    log(f"kernel launches of the public op path (farthest_point_sample_from_dist on "
+        f"[{BATCH}, 4096, 4096], ball_query and ball_query_dilated on two scans): {launches}")
+    check(launches["ffps_dist"] == 1 and launches["ball_query"] == 2
+          and sum(launches[k] for k in launches if k not in ("ffps_dist", "ball_query",
+                                                               "routes")) == 0,
+          f"the public op path launched {launches}")
+    check(all(len(p.unique()) == 512 for p in picks) and bool((cnt > 0).all())
+          and bool((dcnt > 0).all()),
+          "the public ops' outputs are not plausible")
+    return {"public_ops": launches}
+
+
+# ----------------------------------------------------------------- phase 13
+
+@torch.inference_mode()
+def phase_std_kernels(report: list[dict]) -> None:
+    """K1, K3, K4, K6 and K7 against their plain versions on the inputs of
+    every launch of one STD forward at batch 4 (the RCNN's D-FPS over each
+    RoI's 6 x 6 x 6 voxel centres, K7 at n = 216); STD's shapes go into the
+    report's entries."""
+    log(f"== phase 13: STD's kernels against their plain versions, on the inputs of one "
+        f"forward at batch {TWO_STAGE_BATCH} (configs/kitti/std/std.yaml)")
+    cfg, pipe = std(device=DEV, seed=0)
+    n = cfg.MODEL.POINTS_NUM_FOR_TRAINING
+    points = torch.from_numpy(synthetic_scenes(TWO_STAGE_BATCH, n, seed=0)["points"]).to(DEV)
+    layers = (pipe.model.rcnn_backbone.rcnn_layer1, pipe.model.rcnn_backbone.rcnn_layer2)
+    seen = capture_two_stage_inputs(lambda p: pipe.model(p, pipe.rpn_spec), points, layers)
+    check(len(seen["three_nn"]) == 4 and len(seen["sa_fused"]) == 2,
+          f"captured {len(seen['three_nn'])} three_nn and {len(seen['sa_fused'])} fused-SA calls")
+    pool, k3 = check_path_kernels(seen, (3, 128, 1, 3 + 2 + 128), "STD")
+    by_name = {e["name"]: e for e in report}
+    by_name["gather"]["other_shapes"].update({f"STD {k}": v for k, v in pool.items()})
+    by_name["ball_query"]["routes"].update(k3)
+    # K1 at the RCNN's D-FPS over the voxel lattice, timed on both routes
+    (lattice, m), _ = seen["fps"][4]
+    check(tuple(lattice.shape) == (400, 216, 3), f"the RCNN's SA1 samples {tuple(lattice.shape)}")
+    plain = fps_plain(lattice, m)
+    x, y, z = lattice.unbind(-1)
+    run = torch.full(x.shape, float("inf"), device=x.device)
+    tied = 0
+    for i in range(1, m):  # ties on the plain arithmetic's own running distance
+        last = plain[:, i - 1:i].long()
+        run = torch.minimum(run, sampling.xyz_dist2(x - x.gather(1, last), y - y.gather(1, last),
+                                                    z - z.gather(1, last)))
+        tied += int(((run == run.amax(1, keepdim=True)).sum(1) > 1).sum())
+    times = {}
+    for route in ("block", "cluster"):
+        with on_route(route):
+            times[route] = cuda_ms(lambda: farthest_point_sample(lattice, m), 5)
+    b, n_vox = lattice.shape[:2]
+    k1 = dict(shape=f"{list(lattice.shape)} -> {m}", route=fps_route(b, n_vox), ties=tied,
+              block_ms=times["block"], cluster_ms=times["cluster"],
+              plain_ms=cuda_ms(lambda: fps_plain(lattice, m), 1),
+              **bound(4 * (b * n_vox * 3 + b * m), b * (m - 1) * n_vox * 10))
+    by_name["fps"]["routes"]["STD RCNN SA1 (voxel lattice)"] = k1
+    log(f"K1 D-FPS STD RCNN SA1 {k1['shape']}: picks equal to plain on both routes, "
+        f"{tied} of {b * (m - 1)} picks ties; one block a cloud {times['block']:.4f} ms, a "
+        f"cluster {times['cluster']:.4f} ms (takes the {k1['route']} route); plain "
+        f"{k1['plain_ms']:.3f} ms; bound {k1['bound_ms']:.4f} ms")
+    for (xyz1, xyz2), _ in seen["three_nn"]:
+        want_d, want_i = three_nn_plain(xyz1, xyz2)
+        got_d, got_i = three_nn(xyz1, xyz2)
+        check(torch.equal(got_i, want_i), f"K6 indices differ at STD {list(xyz1.shape)}")
+        ulp = int((got_d.view(torch.int32) - want_d.view(torch.int32)).abs().max())
+        check(ulp <= 1, f"K6 distances {ulp} ulp apart at STD {list(xyz1.shape)}")
+    log("K6 three_nn at STD's four FP layers: indices equal, distances within 1 ulp")
+    for name, (args, _) in zip(("SA1", "SA2"), seen["sa_fused"]):
+        src, idx_list, centers, masks, layers_list, agg = args
+        want = sa_fused.sa_fused_multi_plain(*args)
+        scale, err, t = float(want.abs().max()), {}, {}
+        for r in K7_ROUTES:
+            with on_sa_route(r):
+                err[r] = float((sa_fused.sa_fused_multi(*args) - want).abs().max())
+                check(err[r] <= K7_TOL * scale,
+                      f"K7 on the {r} route at STD {name} differs from plain by {err[r]:.3g}")
+                t[r] = cuda_ms(lambda: sa_fused.sa_fused_multi(*args), 5)
+        widths = [[w.shape[1] for w, *_ in lay] for lay in layers_list]
+        route = sa_fused.sa_fused_route(src.shape[2], [i.shape[2] for i in idx_list], widths)
+        bb, nn_, cp = src.shape
+        mm = centers.shape[1]
+        flops = sum(2 * bb * mm * idx.shape[2] * sum(w.shape[0] * w.shape[1] for w, *_ in lay)
+                    for idx, lay in zip(idx_list, layers_list))
+        params = sum(tt.numel() for lay in layers_list for layer_ in lay for tt in layer_)
+        n_bytes = 4 * (bb * nn_ * cp + sum(i.numel() for i in idx_list) + centers.numel()
+                       + masks.numel() + params + bb * mm * widths[-1][-1])
+        e = dict(ms=t[route], route=route, route_ms=t,
+                 plain_ms=cuda_ms(lambda: sa_fused.sa_fused_multi_plain(*args), 5),
+                 bound_fma_ms=bound(n_bytes, flops, H100_F32_FLOP_PER_S)["bound_ms"],
+                 **bound(n_bytes, 3 * flops, H100_TF32_FLOP_PER_S))
+        shape = f"STD {name} b {bb}, n {nn_}, cp {cp}, m {mm}, ns {idx_list[0].shape[2]}"
+        by_name["sa_fused"]["other_shapes"][shape] = e
+        log(f"K7 fused SA {shape}: takes the {route} route; max |K7 - plain| "
+            + ", ".join(f"{r} {v:.3g}" for r, v in err.items()) + f" (limit {K7_TOL:g} x "
+            f"{scale:.3g}); " + ", ".join(f"{r} {v:.3f} ms" for r, v in t.items())
+            + f" vs plain {e['plain_ms']:.3f} ms; bound {e['bound_ms']:.3f} ms (3xTF32), "
+              f"{e['bound_fma_ms']:.3f} ms (f32 FMA)")
+
+
+def phase_std() -> dict:
+    """STD inference at batch 4 through `two_stage_entry(config="std")` (the
+    pipeline of `models/api.py`): launches, routes, outputs, scans/s,
+    batch-1 latency, peak memory and a profile -> the path's launches."""
+    b = TWO_STAGE_BATCH
+    log(f"== phase 13: STD inference, batch {b}, {N_POINTS} points, f32, 100 proposals")
+    fn, (points,) = two_stage_entry(device=DEV, seed=0, batch=b, config="std")
+    _build.reset_launches()
+    det = fn(points)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    log(f"kernel launches in one STD forward: {launches}")
+    want = dict(three_nn=4, sa_fused=2, fps=6, ffps=0, scatter_add=0, ffps_dist=0)
+    check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
+    check(launches["ball_query"] == 6 and launches["gather"] > 0, "K3 or K4 was not launched")
+    launches["routes"] = check_routes("STD inference", "STD")
+    check(det["boxes"].shape == (b, 100, 7) and det["proposals"].shape == (b, 100, 7),
+          f"detections {tuple(det['boxes'].shape)}, proposals {tuple(det['proposals'].shape)}")
+    for key in ("boxes", "scores", "proposals"):
+        check(bool(torch.isfinite(det[key]).all()), f"STD: non-finite {key}")
+    check(bool((det["valid"].sum(-1) <= 100).all() and det["valid"].any()),
+          "STD: a scan has more than 100 boxes, or no scan has any")
+    log(f"STD boxes per scan {det['valid'].sum(-1).tolist()}, proposals per scan "
+        f"{det['proposals_valid'].sum(-1).tolist()}")
+    torch.cuda.reset_peak_memory_stats()
+    t = [timed_pass(fn, points) for _ in range(PASSES)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    one = points[:1].contiguous()
+    lat = [timed_pass(fn, one) * 1e3 for _ in range(PASSES + 1)]
+    wall, busy = profile_once(lambda: fn(points), f"STD batch of {b}", top=14,
+                              each="dfps|sa_fused")
+    log(f"STD throughput at batch {b}: {b * PASSES / sum(t):.2f} scans/s over {PASSES} passes "
+        f"(median pass {statistics.median(t) * 1e3:.2f} ms); batch-1 latency median "
+        f"{statistics.median(lat[1:]):.2f} ms of {PASSES}; device busy {busy:.2f} ms of a "
+        f"profiled {wall:.2f} ms pass; peak memory {peak:.2f} GiB")
+    return launches
+
+
+# ----------------------------------------------------------------- phase 14
+
+def phase_std_training() -> dict:
+    """STD's stage 2 (`std_stage2.yaml`: 1,000 proposals, 64-RoI minibatches)
+    at batch 4 from stage 1's weights, then the stage-wise CLI chain of STD
+    -> the launches of one step and of the chain."""
+    log(f"== phase 14: STD stage-2 training, batch {TWO_STAGE_BATCH}, {N_POINTS} points, f32, "
+        "Adam (std_stage2.yaml from pointrcnn_stage1.yaml's weights)")
+    step1, batch = two_stage_train_entry(device=DEV, stage=1, batch=TWO_STAGE_BATCH, seed=0)
+    step1(batch)
+    step2, _ = two_stage_train_entry(device=DEV, stage=2, batch=TWO_STAGE_BATCH, seed=0,
+                                     config="std")
+    state2 = step2.args[0]
+    # the warm start of bin.train: the tensors whose names and shapes match
+    merged, copied, _ = merge_by_name(state2.model.state_dict(), step1.args[0].model.state_dict())
+    state2.model.load_state_dict(merged)
+    params = dict(state2.model.named_parameters())
+    frozen = {k: v.clone() for k, v in params.items() if k.startswith("rpn")}
+    pooler = {k: v.clone() for k, v in params.items() if k.startswith("roi_pool")}
+    check(all(k in copied for k in frozen), "a stage-1 RPN tensor was not carried into STD")
+    launches, metrics = run_stage(step2, batch, "STD stage 2", "STD stage 2")
+    check(all(f"loss_stage1/{k}" in metrics[0] for k in TWO_STAGE_LOSS_KEYS[2]),
+          f"STD stage 2 losses {sorted(metrics[0])}")
+    params = dict(state2.model.named_parameters())
+    check(all(torch.equal(params[k], v) for k, v in frozen.items()),
+          "an rpn_* parameter moved in STD's stage 2")
+    moved = [k for k, v in pooler.items() if not torch.equal(params[k], v)]
+    check(any(".vfe." in k for k in moved) and any(".align." in k for k in moved),
+          f"STD's pooler did not train: moved {moved}")
+    log(f"STD stage 2: all {len(frozen)} rpn_* parameters bit for bit stage 1's; {len(moved)} of "
+        f"{len(pooler)} pooler parameters moved (align and vfe); losses finite")
+    return {"std_train_2": launches, **phase_two_stage_cli("std")}
+
+
+# ----------------------------------------------------------------- phase 15
+
+def augmented_card_vs_cpu(cfg, data: dict, n: int) -> dict:
+    """The device augmentation on both legs, same batch (with 15 crops of
+    512 points a scan) and draws: points and boxes within F32_TOL of their
+    largest |value|, labels equal -> the card's augmented batch, on the CPU."""
+    data = dict(data, **{k: torch.from_numpy(v) for k, v in
+                         synthetic_candidates(data["points"].shape[0], 15, 512).items()})
+    draws = device_aug.draw(torch.Generator().manual_seed(15), data["points"].shape[0], n,
+                            data["gt_boxes"].shape[1], "cpu")
+    card_draws = device_aug.AugDraws(**{k: v.to(DEV) for k, v in
+                                        dataclasses.asdict(draws).items()})
+    got = device_aug.augment_batch({k: v.to(DEV) for k, v in data.items()},
+                                   cfg.TRAIN.AUGMENTATIONS, card_draws)
+    want = device_aug.augment_batch(data, cfg.TRAIN.AUGMENTATIONS, draws)
+    _close("augmented points", got["points"].cpu(), want["points"], F32_TOL)
+    _close("augmented boxes", got["gt_boxes"].cpu(), want["gt_boxes"], F32_TOL)
+    check(torch.equal(got["gt_labels"].cpu(), want["gt_labels"]), "augmented labels differ")
+    pasted = int((want["gt_labels"] > 0).sum() - (data["gt_labels"] > 0).sum())
+    log(f"  device augmentation card against CPU on the same draws: points and boxes within "
+        f"{F32_TOL:g}, labels equal ({pasted} crops pasted over {data['points'].shape[0]} scans)")
+    return {k: v.cpu() for k, v in got.items()}
+
+
+def phase_train_options() -> dict:
+    """The flagship with TRAIN_OPTIONS (an IoU head, Dist-Anchor, AdaBound,
+    the device augmentation with 15 crops of 512 points a scan) at batch 8:
+    a few steps, their launches, then one f32 step card against CPU."""
+    log(f"== phase 15: the training options (IoU head, Dist-Anchor, AdaBound, device "
+        f"augmentation), flagship train step, batch {BATCH}")
+    step, batch = train_options_entry(device=DEV, seed=0, batch=BATCH)
+    state = step.args[0]
+    _build.reset_launches()
+    first = step(batch)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    log(f"kernel launches in one step with the training options: {launches}")
+    check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather", "scatter_add")),
+          f"a kernel of the train step was not launched: {launches}")
+    launches["routes"] = check_routes("the train step with the training options", "3DSSD")
+    times, metrics = [], [first]
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics.append(step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for m in metrics:
+        check(all(np.isfinite(float(v)) for v in m.values()), f"a metric is not finite: {m}")
+    check("iou" in first and state.optimizer.__class__.__name__ == "AdaBound"
+          and state.optimizer.param_groups[0]["count"] == len(metrics),
+          "the step did not run the IoU branch and AdaBound")
+    log("losses by step (cls, offset, angle, corner, vote, iou, total): " + "; ".join(
+        ", ".join(f"{float(m[k]):.4f}" for k in ("cls", "offset", "angle", "corner", "vote",
+                                                  "iou", "total")) for m in metrics)
+        + f"; median step {statistics.median(times):.2f} ms")
+    phase_train_card_vs_cpu(TRAIN_OPTIONS)
+    return {"train_options": launches}
 
 
 
@@ -2548,6 +2972,12 @@ def main() -> int:
     timed(phase_two_stage_card_vs_cpu, scans)
     paths = {"inference": infer_launches, "train": train_launches, "two_stage": two_stage_launches,
              **timed(phase_cli_chain), **timed(phase_two_stage_training, report)}
+    paths.update(timed(phase_ffps_dist, report))
+    timed(phase_std_kernels, report)
+    paths["std"] = timed(phase_std)
+    timed(phase_two_stage_card_vs_cpu, scans, "std")
+    paths.update(timed(phase_std_training))
+    paths.update(timed(phase_train_options))
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

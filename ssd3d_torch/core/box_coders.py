@@ -1,10 +1,18 @@
-"""Box encoding and decoding (counterpart of `ssd3d/core/box_coders.py`).
+"""Box encoding and decoding (counterpart of `ssd3d/core/box_coders.py`),
+all four regression methods:
 
-'Dist-Anchor-free' (3DSSD) and 'Bin-Anchor' (PointRCNN) encode and decode.
-Bin-Anchor codes x and z as a bin class plus an in-bin residual, y and the
-sizes as residuals against the anchor (the class's mean size, or a proposal
-in the second stage). 'Dist-Anchor' and 'Log-Anchor' wait for the configs
-that use them (ROADMAP Queue 1 item 10)."""
+- 'Dist-Anchor-free' (3DSSD): the offset from the point to the object's
+  volumetric centre, and half sizes;
+- 'Dist-Anchor': the centre's offset from the anchor and the sizes relative
+  to the anchor's;
+- 'Log-Anchor' (SECOND-style): the centre's offset scaled by the anchor's
+  diagonal (x, z) and height (y), and log size ratios;
+- 'Bin-Anchor' (PointRCNN): x and z as a bin class plus an in-bin residual,
+  y and the sizes as residuals against the anchor (the class's mean size,
+  or a proposal in the second stage).
+
+The heading is a bin class plus a normalised residual, relative to the
+anchor's heading for the anchor-based methods."""
 
 from __future__ import annotations
 
@@ -61,6 +69,46 @@ def decode_dist_anchor_free(center_xyz, det_offset, det_angle_cls, det_angle_res
     return torch.cat([ctr, lhw, pred_angle[..., None]], dim=-1)
 
 
+def encode_dist_anchor(gt_ctr, gt_size, anchor_ctr, anchor_size):
+    """-> (centre offset, size residual relative to the anchor's size)."""
+    return gt_ctr - anchor_ctr, (gt_size - anchor_size) / anchor_size
+
+
+def decode_dist_anchor(det_offset, det_angle_cls, det_angle_res, anchors,
+                       num_angle_cls: int) -> torch.Tensor:
+    """det_offset [bs, n, 6] against anchors [bs, n, 7] -> boxes [bs, n, 7]."""
+    ctr = anchors[..., 0:3] + det_offset[..., 0:3]
+    size = (anchors[..., 3:6] + det_offset[..., 3:6] * anchors[..., 3:6]).clamp(min=0.1)
+    pred_angle = anchors[..., 6] + decode_class_to_angle(
+        det_angle_cls.argmax(-1), det_angle_res, num_angle_cls, TWO_PI / num_angle_cls)
+    return torch.cat([ctr, size, pred_angle[..., None]], dim=-1)
+
+
+def encode_log_anchor(gt_ctr, gt_size, anchor_ctr, anchor_size):
+    """-> (centre offset over the anchor's diagonal (x, z) and height (y),
+    log size ratios)."""
+    a_l, a_h, a_w = anchor_size[..., 0], anchor_size[..., 1], anchor_size[..., 2]
+    a_d = torch.sqrt(a_l * a_l + a_w * a_w)
+    enc_ctr = torch.stack([(gt_ctr[..., 0] - anchor_ctr[..., 0]) / a_d,
+                           (gt_ctr[..., 1] - anchor_ctr[..., 1]) / a_h,
+                           (gt_ctr[..., 2] - anchor_ctr[..., 2]) / a_d], dim=-1)
+    return enc_ctr, torch.log(gt_size / anchor_size)
+
+
+def decode_log_anchor(det_offset, det_angle_cls, det_angle_res, anchors,
+                      num_angle_cls: int) -> torch.Tensor:
+    """det_offset [bs, n, 6] against anchors [bs, n, 7] -> boxes [bs, n, 7]."""
+    a_l, a_h, a_w = anchors[..., 3], anchors[..., 4], anchors[..., 5]
+    a_d = torch.sqrt(a_l * a_l + a_w * a_w)
+    ctr = torch.stack([det_offset[..., 0] * a_d + anchors[..., 0],
+                       det_offset[..., 1] * a_h + anchors[..., 1],
+                       det_offset[..., 2] * a_d + anchors[..., 2]], dim=-1)
+    size = (torch.exp(det_offset[..., 3:6]) * anchors[..., 3:6]).clamp(min=0.1)
+    pred_angle = anchors[..., 6] + decode_class_to_angle(
+        det_angle_cls.argmax(-1), det_angle_res, num_angle_cls, TWO_PI / num_angle_cls)
+    return torch.cat([ctr, size, pred_angle[..., None]], dim=-1)
+
+
 def _encode_bin_residual(res: torch.Tensor, half_range: float, num_bins: int):
     """Scalar residual -> (bin class as f32, residual normalised in the bin)."""
     interval = half_range * 2.0 / num_bins
@@ -108,9 +156,8 @@ class BoxCoder:
 
     def __init__(self, method: str, num_angle_cls: int, half_range: float = 3.0,
                  num_bins: int = 12):
-        if method not in ("Dist-Anchor-free", "Bin-Anchor"):
-            raise NotImplementedError(
-                f"BoxCoder: {method!r} is not ported yet (ROADMAP Queue 1 item 10)")
+        if method not in ("Dist-Anchor-free", "Dist-Anchor", "Log-Anchor", "Bin-Anchor"):
+            raise ValueError(f"BoxCoder: unknown regression method {method!r}")
         self.method = method
         self.num_angle_cls = num_angle_cls
         self.half_range = half_range
@@ -123,8 +170,8 @@ class BoxCoder:
     def encode(self, center_xyz, gt_boxes, anchors):
         """center_xyz [bs, pts, 3]; gt_boxes and anchors [bs, pts, cls, 7]
         -> (target [bs, pts, cls, 6 | 8], angle bin int32, angle residual).
-        Anchor-free: the point is the anchor, so `anchors` is not read;
-        Bin-Anchor codes the heading relative to the anchor's."""
+        Anchor-free: the point is the anchor, so `anchors` is not read; the
+        anchor-based methods code the heading relative to the anchor's."""
         bs, pts, cls_num, _ = gt_boxes.shape
         gt_flat = gt_boxes.reshape(bs, pts * cls_num, 7)
         if self.method == "Dist-Anchor-free":
@@ -133,9 +180,13 @@ class BoxCoder:
             gt_angle = gt_boxes[..., 6]
         else:
             an_flat = anchors.reshape(bs, pts * cls_num, -1)
-            enc_ctr, enc_size = encode_bin_anchor(gt_flat[..., 0:3], gt_flat[..., 3:6],
-                                                  an_flat[..., 0:3], an_flat[..., 3:6],
-                                                  self.half_range, self.num_bins)
+            args = (gt_flat[..., 0:3], gt_flat[..., 3:6], an_flat[..., 0:3], an_flat[..., 3:6])
+            if self.method == "Bin-Anchor":
+                enc_ctr, enc_size = encode_bin_anchor(*args, self.half_range, self.num_bins)
+            elif self.method == "Dist-Anchor":
+                enc_ctr, enc_size = encode_dist_anchor(*args)
+            else:
+                enc_ctr, enc_size = encode_log_anchor(*args)
             gt_angle = gt_boxes[..., 6] - anchors[..., 6]
         enc_ctr = enc_ctr.reshape(bs, pts, cls_num, -1)
         enc_size = enc_size.reshape(bs, pts, cls_num, -1)
@@ -152,8 +203,14 @@ class BoxCoder:
         if self.method == "Dist-Anchor-free":
             out = decode_dist_anchor_free(center_xyz, off, a_cls, a_res, self.num_angle_cls)
         else:
-            out = decode_bin_anchor(off, a_cls, a_res, anchors.reshape(bs, pts * cls_num, -1),
-                                    self.num_angle_cls, self.half_range, self.num_bins)
+            an = anchors.reshape(bs, pts * cls_num, -1)
+            if self.method == "Bin-Anchor":
+                out = decode_bin_anchor(off, a_cls, a_res, an, self.num_angle_cls,
+                                        self.half_range, self.num_bins)
+            elif self.method == "Dist-Anchor":
+                out = decode_dist_anchor(off, a_cls, a_res, an, self.num_angle_cls)
+            else:
+                out = decode_log_anchor(off, a_cls, a_res, an, self.num_angle_cls)
         return out.reshape(bs, pts, cls_num, 7)
 
 

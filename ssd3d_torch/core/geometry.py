@@ -7,6 +7,8 @@ its z axis, `h` upward (-y), `ry` is the rotation about y.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -61,6 +63,12 @@ def points_in_boxes(points: torch.Tensor, boxes: torch.Tensor, expand: float = 0
     inside_y = (canon[..., 1] <= expand / 2.0) & (canon[..., 1] >= -(h[..., None]))
     inside_z = canon[..., 2].abs() <= (w[..., None] / 2.0)
     return (inside_x & inside_y & inside_z).transpose(-1, -2)
+
+
+def flip_boxes_x(boxes: torch.Tensor) -> torch.Tensor:
+    """Mirror boxes across the x = 0 plane (KITTI's flip augmentation):
+    x -> -x, ry -> pi - ry."""
+    return torch.cat([-boxes[..., 0:1], boxes[..., 1:6], math.pi - boxes[..., 6:7]], dim=-1)
 
 
 def boxes_to_bev_aabb(boxes: torch.Tensor) -> torch.Tensor:

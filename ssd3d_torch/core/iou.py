@@ -7,6 +7,9 @@ buffers (a quad clipped by 4 half-planes has at most 8 vertices), with the
 JAX package's arithmetic step for step. The BEV plane is (x, z); a box is
 [x, y, z, l, h, w, ry] with y its bottom face (camera frame, y down), so 3D
 IoU multiplies the BEV overlap by the overlap of [y - h, y].
+`boxes_iou_matched` pairs two box sets element by element (the IoU branch's
+targets); `bev_rects_overlap` only tests whether footprints overlap (the
+device augmentation's collision test).
 """
 
 from __future__ import annotations
@@ -132,3 +135,53 @@ def boxes_iou_bev_3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor):
     vol_b = area_b * boxes_b[..., 4][..., None, :]
     iou_3d = inter_3d / (vol_a + vol_b - inter_3d).clamp(min=1e-8)
     return iou_bev, iou_3d
+
+
+def boxes_iou_matched(boxes_a: torch.Tensor, boxes_b: torch.Tensor):
+    """Elementwise-paired IoU (the reference's calc_matching_iou,
+    evaluate.cpp:1196): boxes_a and boxes_b [..., 7] of one shape ->
+    (iou_bev [...], iou_3d [...])."""
+    flat_a, flat_b = boxes_a.reshape(-1, 7), boxes_b.reshape(-1, 7)
+    overlap = _pair_bev_overlap(_box_bev_corners(flat_a), _box_bev_corners(flat_b))
+    area_a = flat_a[:, 3] * flat_a[:, 5]
+    area_b = flat_b[:, 3] * flat_b[:, 5]
+    iou_bev = overlap / (area_a + area_b - overlap).clamp(min=1e-8)
+    y_over = (torch.minimum(flat_a[:, 1], flat_b[:, 1])
+              - torch.maximum(flat_a[:, 1] - flat_a[:, 4], flat_b[:, 1] - flat_b[:, 4])
+              ).clamp(min=0.0)
+    inter_3d = overlap * y_over
+    union_3d = (area_a * flat_a[:, 4] + area_b * flat_b[:, 4] - inter_3d).clamp(min=1e-8)
+    shape = boxes_a.shape[:-1]
+    return iou_bev.reshape(shape), (inter_3d / union_3d).reshape(shape)
+
+
+def bev_rects_overlap(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """bool [..., n, m]: whether the rotated BEV footprints of boxes_a
+    [..., n, 7] and boxes_b [..., m, 7] overlap with positive area, by the
+    separating-axis test over the four rectangle axes (exact for
+    rectangles; footprints that only touch do not overlap); leading axes
+    are a batch of independent sets. The collision test of the device
+    augmentation (`train/device_aug.py`)."""
+    n, m = boxes_a.shape[-2], boxes_b.shape[-2]
+    lead = torch.broadcast_shapes(boxes_a.shape[:-2], boxes_b.shape[:-2])
+
+    def axes(b):
+        c, s = torch.cos(b[..., 6]), torch.sin(b[..., 6])
+        # the heading (length) axis and the width axis in the (x, z) plane
+        return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)  # [.., k, 2, 2]
+
+    aa, ab = axes(boxes_a), axes(boxes_b)
+    half_a = torch.stack([boxes_a[..., 3], boxes_a[..., 5]], -1) * 0.5  # [..., n, 2]
+    half_b = torch.stack([boxes_b[..., 3], boxes_b[..., 5]], -1) * 0.5
+    d = (torch.stack([boxes_b[..., 0], boxes_b[..., 2]], -1)[..., None, :, :]
+         - torch.stack([boxes_a[..., 0], boxes_a[..., 2]], -1)[..., :, None, :])
+    # the 4 candidate axes of each pair: a's two, then b's two [..., n, m, 4, 2]
+    ax = torch.cat([aa[..., :, None, :, :].expand(*lead, n, m, 2, 2),
+                    ab[..., None, :, :, :].expand(*lead, n, m, 2, 2)], dim=-2)
+    # each rectangle's half-extent along each axis
+    h_a = (torch.einsum("...nmke,...nie->...nmki", ax, aa.expand(*lead, n, 2, 2)).abs()
+           * half_a[..., :, None, None, :]).sum(-1)
+    h_b = (torch.einsum("...nmke,...mie->...nmki", ax, ab.expand(*lead, m, 2, 2)).abs()
+           * half_b[..., None, :, None, :]).sum(-1)
+    dist = torch.einsum("...nmke,...nme->...nmk", ax, d).abs()
+    return ~(dist >= h_a + h_b).any(-1)

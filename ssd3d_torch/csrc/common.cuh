@@ -1,9 +1,10 @@
 // Shared helpers for the ssd3d_torch kernels.
 //
 // Every file is compiled with -fmad=false: the plain PyTorch versions round
-// each product and each sum separately, and with FMA contraction a squared
-// distance would differ in the last bit, which changes ring membership at the
-// radius boundaries and flips FPS ties.
+// each operation as written, and with FMA contraction a squared distance
+// would differ in the last bit, which changes ring membership at the radius
+// boundaries and flips FPS ties. Where the plain version's chain has a fused
+// multiply-add (K1's squared distance), the kernel calls __fmaf_rn.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -3,9 +3,10 @@
 // Replaces the Pallas kernels ssd3d/ops/pallas/fps.py:_fps_batch_kernel
 // (via _fps_pallas_batch, batch >= 4) and _fps_kernel (via _fps_pallas_tiled,
 // batch < 4). Contract: pick 0 is index 0; each point keeps the running
-// minimum squared distance ((dx*dx + dy*dy) + dz*dz, exact per-coordinate
-// differences) to the picked set; the next pick is the argmax, ties to the
-// lowest index.
+// minimum squared distance (fma(dz, dz, fma(dy, dy, dx*dx)), exact
+// per-coordinate differences: the chain the JAX package's CPU path computes,
+// where XLA contracts its sum of squares into fused multiply-adds) to the
+// picked set; the next pick is the argmax, ties to the lowest index.
 //
 // What bounds it on the H100: the m picks are sequential, and each one needs
 // an argmax over the whole cloud, so the kernel is bound by the latency of
@@ -67,6 +68,13 @@ using namespace ssd3d;
 
 namespace {
 
+// the squared distance as the JAX package's CPU path rounds it: dx * dx,
+// then two fused multiply-adds (the file is compiled with -fmad=false, so
+// these are the only ones)
+__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
+  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, dx * dx));
+}
+
 constexpr int kThreads = 1024;
 constexpr int kMaxPoints = 16384;
 
@@ -110,7 +118,7 @@ __global__ void __launch_bounds__(kThreads)
         const float dx = sx[j] - lx;
         const float dy = sy[j] - ly;
         const float dz = sz[j] - lz;
-        const float d = (dx * dx + dy * dy) + dz * dz;
+        const float d = dist2(dx, dy, dz);
         const float nd = fminf(dist[k], d);
         dist[k] = nd;
         if (ssd3d::better(nd, j, bd, bi)) {
@@ -222,7 +230,7 @@ __global__ void __launch_bounds__(kCtaThreads)
       const float dx = px[k] - lx;
       const float dy = py[k] - ly;
       const float dz = pz[k] - lz;
-      const float d = (dx * dx + dy * dy) + dz * dz;
+      const float d = dist2(dx, dy, dz);
       const float nd = fminf(dist[k], d);
       dist[k] = nd;
       const unsigned long long key = j < n ? fps_key(nd, j) : 0ull;
@@ -417,7 +425,7 @@ __global__ void __launch_bounds__(TIER == kRegisters ? kCtaThreads : kSliceThrea
         const float dx = __ldg(q) - lx;
         const float dy = __ldg(q + 1) - ly;
         const float dz = __ldg(q + 2) - lz;
-        const float d = (dx * dx + dy * dy) + dz * dz;
+        const float d = dist2(dx, dy, dz);
         const float nd = fminf(s > 1 ? sd[e] : INFINITY, d);
         sd[e] = nd;
         const unsigned long long key = fps_key(nd, first + e);
@@ -434,7 +442,7 @@ __global__ void __launch_bounds__(TIER == kRegisters ? kCtaThreads : kSliceThrea
         const float dx = x - lx;
         const float dy = y - ly;
         const float dz = z - lz;
-        const float d = (dx * dx + dy * dy) + dz * dz;
+        const float d = dist2(dx, dy, dz);
         const float nd = fminf(dist[k], d);
         dist[k] = nd;
         const unsigned long long key = in ? fps_key(nd, first + e) : 0ull;

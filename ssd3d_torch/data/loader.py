@@ -5,8 +5,7 @@ The port's copy of `ssd3d/data/loader.py` (`KittiLoader`, `MixupDatabase`,
 `mp_method` through to its worker processes, where the reference drops it
 and always forks. A process that has initialised CUDA must not fork, so the
 port's trainer asks for "forkserver" on every device. The single-host loader
-keeps no per-host row range and no device-augmentation candidates (those
-wait for ROADMAP Queue 1 items 12 and 8a).
+keeps no per-host row range (that waits for ROADMAP Queue 1 item 12).
 
 Each sample is a pure function of (epoch seed, sample index), so any batch
 is reproducible regardless of worker scheduling, and delivery is in
@@ -126,11 +125,17 @@ def budget_points(rng: np.random.Generator, points, sem_labels, sem_dists,
 
 class KittiLoader:
     """Loads preprocessed .npz scans, augments (train), budgets points, and
-    emits fixed-shape batches."""
+    emits fixed-shape batches. With `device_aug` the host augments nothing
+    and emits the road plane and GT-crop candidates for the train step's
+    augmentation on the device instead."""
+
+    CAND_POINTS = 512  # fixed per-crop point cap for pasting on the device
 
     def __init__(self, cfg, split: str, data_dir: str | None = None,
                  training: bool = True, seed: int = 0,
-                 mixup_db: MixupDatabase | None = None):
+                 mixup_db: MixupDatabase | None = None,
+                 device_aug: bool = False):
+        self.device_aug = device_aug and training
         kcfg = cfg.DATASET.KITTI
         self.cfg = cfg
         self.training = training
@@ -151,7 +156,7 @@ class KittiLoader:
             )
         self.mixup_db = mixup_db if (training and cfg.TRAIN.AUGMENTATIONS.MIXUP.OPEN) else None
         self.augmentor = (
-            Augmentor(cfg, mixup_db) if training else None
+            Augmentor(cfg, mixup_db) if (training and not self.device_aug) else None
         )
         self.scene = (
             KittiScene(kcfg.BASE_DIR_PATH, "training") if training else None
@@ -178,6 +183,7 @@ class KittiLoader:
         rng = np.random.default_rng(
             np.random.SeedSequence([self.seed, epoch_seed, int(name)])
         )
+        extras = {}
         if self.training:
             try:
                 plane = self.scene.plane(int(name))
@@ -187,6 +193,8 @@ class KittiLoader:
                 points, sem_labels, sem_dists, boxes, classes = self.augmentor(
                     rng, points, sem_labels, sem_dists, boxes, classes, plane
                 )
+            elif self.device_aug:
+                extras = self._mixup_candidates(rng, plane)
         points, sem_labels, sem_dists = budget_points(
             rng, points, sem_labels, sem_dists, self.points_num
         )
@@ -209,7 +217,39 @@ class KittiLoader:
             ),
             "name": int(name),
         }
+        out.update(extras)
         return out
+
+    def _mixup_candidates(self, rng, plane):
+        """Fixed-shape GT-crop candidates for pasting on the device
+        (`train/device_aug.py`), with the road plane."""
+        if self.mixup_db is None:
+            return {"plane": plane.astype(np.float32)}
+        boxes, classes, pts_list = self.mixup_db.sample(rng)
+        # static candidate count: the round-robin sampler can return fewer
+        # near the end of its permutation
+        k = int(sum(self.mixup_db.num_list))
+        p = self.CAND_POINTS
+        cand = np.zeros((k, p, 4), np.float32)
+        cand_boxes = np.zeros((k, 7), np.float32)
+        cand_labels = np.zeros((k,), np.int32)
+        valid = np.zeros((k,), bool)
+        for i, pts in enumerate(pts_list[:k]):
+            if len(pts) == 0:
+                continue
+            m = min(len(pts), p)
+            cand[i, :] = pts[0, :4]  # pad by repeating the first point
+            cand[i, :m] = pts[:m, :4]
+            cand_boxes[i] = boxes[i]
+            cand_labels[i] = classes[i]
+            valid[i] = True
+        return {
+            "cand_points": cand,
+            "cand_boxes": cand_boxes,
+            "cand_labels": cand_labels,
+            "cand_valid": valid,
+            "plane": plane.astype(np.float32),
+        }
 
     # ------------------------------------------------------------------
     def _index_stream(self, batch_size: int, epochs: int | None,

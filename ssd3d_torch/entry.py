@@ -1,8 +1,10 @@
 """Entry points of the port, with seeded weights: the flagship 3DSSD
-detector (KITTI Car, `configs/kitti/3dssd/3dssd.yaml`), PointRCNN (KITTI
-Car, `configs/kitti/pointrcnn/pointrcnn_test.yaml`) and its two training
-stages (`pointrcnn_stage1.yaml`, `pointrcnn_stage2.yaml`), on 16,384-point
-scans.
+detector (KITTI Car, `configs/kitti/3dssd/3dssd.yaml`) and its train step,
+also with the training options no shipped config turns on
+(`train_options_entry`), PointRCNN (KITTI Car,
+`configs/kitti/pointrcnn/pointrcnn_test.yaml`) and its two training stages
+(`pointrcnn_stage1.yaml`, `pointrcnn_stage2.yaml`), and STD
+(`configs/kitti/std/std.yaml`), on 16,384-point scans.
 
 Counterpart of `__graft_entry__._flagship` / `entry` and the single-device
 train step of `__graft_entry__._dryrun_body`. Every entry point runs on the
@@ -19,6 +21,7 @@ default raises. Usage:
 
     fn, (points,) = two_stage_entry()   # PointRCNN, batch 4
     detections = fn(points)   # as above, plus proposals / proposals_valid
+    fn, (points,) = two_stage_entry(config="std")   # STD, batch 4
 
     step, batch = two_stage_train_entry(stage=1)   # PointRCNN's RPN, batch 4
     metrics = step(batch)     # loss_stage0/* (stage 2: loss_stage1/* too)
@@ -35,15 +38,27 @@ import numpy as np
 import torch
 
 from ssd3d_torch.config import load_cfg
+from ssd3d_torch.data.loader import KittiLoader
 from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.models.single_stage import build_detector
 from ssd3d_torch.nn.layers import BatchNorm, Dense
 from ssd3d_torch.train.train_step import TrainGraph
-from ssd3d_torch.utils.synth import make_scene
+from ssd3d_torch.utils.synth import GROUND_Y, make_scene, sample_cars
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs" / "kitti"
 FLAGSHIP_CFG = CONFIGS / "3dssd" / "3dssd.yaml"
 POINTRCNN_CFG = CONFIGS / "pointrcnn" / "pointrcnn_test.yaml"
+STD_CFG = CONFIGS / "std" / "std.yaml"
+# the KITTI training options no shipped config turns on, as config overrides
+# of the flagship: an IoU head beside its detection head, Dist-Anchor
+# regression (the IoU branch needs anchor boxes), AdaBound and the
+# augmentation on the device
+TRAIN_OPTIONS = ["MODEL.NETWORK.FIRST_STAGE.HEAD",
+                 "[[[6], [6], 'conv1d', [128], True, 'Det', ''], "
+                 "[[6], [6], 'conv1d', [128], True, 'IoU', 'iou_head']]",
+                 "MODEL.FIRST_STAGE.REGRESSION_METHOD.TYPE", "Dist-Anchor",
+                 "SOLVER.TYPE", "AdaBound",
+                 "TPU.DEVICE_AUGMENT", "True"]
 
 
 def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
@@ -67,11 +82,12 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
 
 
 def flagship(shrink: int = 1, compute_dtype: str | None = None,
-             device: torch.device | str = "cuda", seed: int = 0):
+             device: torch.device | str = "cuda", seed: int = 0, opts=()):
     """-> (cfg, model, spec, n). `shrink` divides the FPS ranges, sample
     counts and scan size as `__graft_entry__._flagship` does (widths stay);
-    `compute_dtype` ("float32" | "bfloat16") overrides TPU.COMPUTE_DTYPE."""
-    cfg = load_cfg(str(FLAGSHIP_CFG))
+    `compute_dtype` ("float32" | "bfloat16") overrides TPU.COMPUTE_DTYPE;
+    `opts` are config overrides (key, value, ...)."""
+    cfg = load_cfg(str(FLAGSHIP_CFG), list(opts))
     if shrink > 1:
         for layer in cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE:
             layer[6] = [r if r == -1 else r // shrink for r in layer[6]]
@@ -132,18 +148,69 @@ def train_entry(device: torch.device | str = "cuda", seed: int = 0, batch: int =
             {k: torch.from_numpy(v).to(device) for k, v in data.items()})
 
 
+def synthetic_candidates(batch: int, k: int, p: int, seed: int = 0) -> dict:
+    """GT-crop candidates for the device augmentation's paste, as the
+    loader emits them (`KittiLoader._mixup_candidates`): k car boxes a scan
+    on the flat road of the synthetic scenes, each with p points inside it
+    (`utils.synth.sample_cars` and uniform interior points), all valid, and
+    the road plane -> numpy arrays cand_points [b, k, p, 4], cand_boxes
+    [b, k, 7], cand_labels [b, k], cand_valid [b, k], plane [b, 4]."""
+    rng = np.random.default_rng(seed + 1)
+    cand_points = np.zeros((batch, k, p, 4), np.float32)
+    cand_boxes = np.zeros((batch, k, 7), np.float32)
+    for b in range(batch):
+        boxes = sample_cars(rng, k)
+        while len(boxes) < k:
+            boxes = np.concatenate([boxes, sample_cars(rng, k)])[:k]
+        cand_boxes[b] = boxes[:k]
+        for i, (x, y, z, l, h, w, ry) in enumerate(boxes[:k]):
+            local = rng.uniform(-0.5, 0.5, (p, 3)) * [l, h, w] + [0.0, -h / 2, 0.0]
+            c, s_ = np.cos(ry), np.sin(ry)
+            cand_points[b, i, :, 0] = x + c * local[:, 0] + s_ * local[:, 2]
+            cand_points[b, i, :, 1] = y + local[:, 1]
+            cand_points[b, i, :, 2] = z - s_ * local[:, 0] + c * local[:, 2]
+            cand_points[b, i, :, 3] = rng.uniform(0, 1, p)
+    return {"cand_points": cand_points, "cand_boxes": cand_boxes,
+            "cand_labels": np.ones((batch, k), np.int32),
+            "cand_valid": np.ones((batch, k), bool),
+            "plane": np.tile(np.float32([0.0, -1.0, 0.0, GROUND_Y]), (batch, 1))}
+
+
+def train_options_entry(device: torch.device | str = "cuda", seed: int = 0, batch: int = 8,
+                        shrink: int = 1, compute_dtype: str | None = None,
+                        cand_points: int = KittiLoader.CAND_POINTS):
+    """(step, batch) as `train_entry` gives them, for the flagship with the
+    training options of `TRAIN_OPTIONS` (an IoU head, Dist-Anchor
+    regression, AdaBound, the augmentation on the device), its batch with
+    the paste's candidates (15 a scan, the config's MIXUP NUMBER, of
+    `cand_points` points, the loader's cap of 512 by default; the 15 crops'
+    points must not outnumber a scan's) and the road plane; `step(batch)`
+    draws the augmentation from (seed, step)."""
+    cfg, model, spec, n = flagship(shrink=shrink, compute_dtype=compute_dtype, device=device,
+                                   seed=seed, opts=TRAIN_OPTIONS)
+    graph = TrainGraph.build(cfg, model, spec)
+    state = graph.init_state()
+    data = synthetic_scenes(batch, n, seed)
+    data.update(synthetic_candidates(batch, int(sum(cfg.TRAIN.AUGMENTATIONS.MIXUP.NUMBER)),
+                                     cand_points, seed))
+    return (functools.partial(graph.train_step, state, seed=seed),
+            {k: torch.from_numpy(v).to(device) for k, v in data.items()})
+
+
 def two_stage_train_entry(device: torch.device | str = "cuda", stage: int = 1, batch: int = 4,
-                          seed: int = 0):
+                          seed: int = 0, config: str = "pointrcnn"):
     """(step, batch): a PointRCNN training stage at full width with seeded
     weights (`configs/kitti/pointrcnn/pointrcnn_stage{stage}.yaml`; stage 1
-    trains the RPN, stage 2 the RCNN with the RPN frozen), its TwoStageGraph
+    trains the RPN, stage 2 the RCNN with the RPN frozen; with config "std"
+    stage 2 is STD's, `configs/kitti/std/std_stage2.yaml`), its TwoStageGraph
     and TrainState, and a fixed batch of synthetic scenes on `device` (the
     configs' global batch is BATCH_SIZE 2 x GPU_NUM 2 = 4). `step(batch)`
     runs one optimizer step, drawing stage 2's minibatch from (seed, step),
     and returns its metrics; the TrainState is `step.args[0]`."""
-    if stage not in (1, 2):
-        raise ValueError(f"two_stage_train_entry: stage {stage} is not 1 or 2")
-    cfg = load_cfg(str(CONFIGS / "pointrcnn" / f"pointrcnn_stage{stage}.yaml"))
+    if stage not in (1, 2) or config not in ("pointrcnn", "std"):
+        raise ValueError(f"two_stage_train_entry: stage {stage}, config {config!r}")
+    cfg = load_cfg(str(CONFIGS / "std" / "std_stage2.yaml") if (config, stage) == ("std", 2)
+                   else str(CONFIGS / "pointrcnn" / f"pointrcnn_stage{stage}.yaml"))
     pipe = build_pipeline(cfg, nms_pre_topk=cfg.TPU.NMS_PRE_TOPK or 2048, device=device)
     init_weights(pipe.model, seed)
     state = pipe.graph.init_state()
@@ -172,11 +239,26 @@ def pointrcnn(shrink: int = 1, device: torch.device | str = "cuda", seed: int = 
     return cfg, pipe.model, pipe.rpn_spec, pipe.rcnn_spec, cfg.MODEL.POINTS_NUM_FOR_TRAINING
 
 
-def two_stage_entry(device: torch.device | str = "cuda", seed: int = 0, batch: int = 4):
-    """(fn, (points,)): fn runs PointRCNN inference (RPN, proposals, RCNN,
+def std(device: torch.device | str = "cuda", seed: int = 0):
+    """-> (cfg, pipeline): STD (`configs/kitti/std/std.yaml`: PointRCNN's
+    RPN, the PointsPool voxel pooler, 100 proposals) at full widths and
+    depth with seeded weights, f32 as shipped."""
+    cfg = load_cfg(str(STD_CFG))
+    pipe = build_pipeline(cfg, device=device)
+    init_weights(pipe.model, seed)
+    return cfg, pipe
+
+
+def two_stage_entry(device: torch.device | str = "cuda", seed: int = 0, batch: int = 4,
+                    config: str = "pointrcnn"):
+    """(fn, (points,)): fn runs two-stage inference (RPN, proposals, RCNN,
     NMS) on `batch` synthetic KITTI-like scans made from `seed` and returns
-    the detection dict with `proposals` and `proposals_valid`."""
-    cfg, pipe = _pointrcnn_pipeline(1, device, seed)
+    the detection dict with `proposals` and `proposals_valid`; `config` is
+    "pointrcnn" (`pointrcnn_test.yaml`) or "std" (`std.yaml`)."""
+    if config not in ("pointrcnn", "std"):
+        raise ValueError(f"two_stage_entry: config {config!r} is not pointrcnn or std")
+    cfg, pipe = (_pointrcnn_pipeline(1, device, seed) if config == "pointrcnn"
+                 else std(device, seed))
     n = cfg.MODEL.POINTS_NUM_FOR_TRAINING
     points = torch.from_numpy(synthetic_scenes(batch, n, seed)["points"]).to(device)
     return pipe.infer, (points,)

@@ -1,5 +1,5 @@
-"""Detection head (counterpart of `ssd3d/models/heads.py`, without the
-nuScenes attribute / velocity branches)."""
+"""Detection and IoU heads (counterpart of `ssd3d/models/heads.py`, without
+the nuScenes attribute / velocity branches)."""
 
 from __future__ import annotations
 
@@ -43,3 +43,23 @@ class DetectionHead(nn.Module):
             "angle_cls": reg[..., rc:rc + na],
             "angle_res": reg[..., rc + na:],
         }
+
+
+class IoUHead(nn.Module):
+    """The IoU-prediction branch (sparse-to-dense rescoring): shared MLP
+    trunk, a 128-wide conv, then one output per class, in f32 whatever the
+    compute dtype, as in flax. Its output multiplies the class scores at
+    decode time and is trained by `train.losses.iou_branch_loss`."""
+
+    def __init__(self, in_channels: int, mlp, cls_channels: int, bn: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.trunk = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype)
+        self.pred_iou_base = PointConv(self.trunk.out_channels, 128, bn=bn,
+                                       compute_dtype=compute_dtype)
+        self.pred_iou = PointConv(128, cls_channels, bn=False, activation=False)
+
+    def forward(self, features: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
+        """features: [bs, n, c] -> predicted IoU [bs, n, cls_channels]."""
+        x = self.trunk(features, bn_momentum)
+        return self.pred_iou(self.pred_iou_base(x, bn_momentum))

@@ -19,14 +19,14 @@ from torch import nn
 from ssd3d_torch.core.box_coders import AnchorGenerator, BoxCoder
 from ssd3d_torch.core.geometry import boxes_to_bev_aabb
 from ssd3d_torch.models.backbone import PointBackbone
-from ssd3d_torch.models.heads import DetectionHead
+from ssd3d_torch.models.heads import DetectionHead, IoUHead
 from ssd3d_torch.ops import _build
 from ssd3d_torch.ops.nms import batched_class_nms
 
 
 class SingleStageDetector(nn.Module):
-    """Backbone + detection heads, config-driven. Head modules are named
-    after their scope, or `head{i}` when it is empty, as in flax."""
+    """Backbone + detection and IoU heads, config-driven. Head modules are
+    named after their scope, or `head{i}` when it is empty, as in flax."""
 
     def __init__(self, architecture: Sequence[Sequence[Any]],
                  head_cfg: Sequence[Sequence[Any]], in_channels: int,
@@ -40,18 +40,22 @@ class SingleStageDetector(nn.Module):
                                       aggregation_sa_feature, compute_dtype)
         cls_channels = num_classes if cls_activation == "Sigmoid" else num_classes + 1
         self.heads: list[tuple] = []  # (name, xyz sources, feature sources)
+        self.iou_heads: list[tuple] = []  # (name, feature sources)
         for i, (xyz_idx, feat_idx, _op, mlp, bn, head_type, scope) in enumerate(head_cfg):
-            if head_type != "Det":
-                raise NotImplementedError(
-                    f"{head_type} heads are not ported yet (ROADMAP Queue 1 item 11)"
-                )
             name = scope if scope else f"head{i}"
             c_in = sum(self.backbone.feature_channels[j] for j in feat_idx)
-            self.add_module(name, DetectionHead(
-                c_in, mlp, cls_channels, reg_base, reg_channels, num_angle_cls,
-                bn=bn, compute_dtype=compute_dtype,
-            ))
-            self.heads.append((name, xyz_idx, feat_idx))
+            if head_type == "Det":
+                self.add_module(name, DetectionHead(
+                    c_in, mlp, cls_channels, reg_base, reg_channels, num_angle_cls,
+                    bn=bn, compute_dtype=compute_dtype,
+                ))
+                self.heads.append((name, xyz_idx, feat_idx))
+            elif head_type == "IoU":
+                self.add_module(name, IoUHead(c_in, mlp, num_classes, bn=bn,
+                                              compute_dtype=compute_dtype))
+                self.iou_heads.append((name, feat_idx))
+            else:
+                raise ValueError(f"unknown head type {head_type!r}")
 
     def forward(self, points: torch.Tensor, bn_momentum: float = 0.9) -> dict:
         """points: [bs, n, 3 + c] -> dict of raw network outputs. In train
@@ -73,6 +77,10 @@ class SingleStageDetector(nn.Module):
         out["base_xyz"] = torch.cat(det_xyz, dim=1)
         for key in ("feature", "cls", "offset", "angle_cls", "angle_res"):
             out[key] = torch.cat([p[key] for p in det_preds], dim=1)
+        if self.iou_heads:
+            out["iou"] = torch.cat(
+                [getattr(self, name)(torch.cat([net["features"][j] for j in feat_idx], dim=1),
+                                     bn_momentum) for name, feat_idx in self.iou_heads], dim=1)
         return out
 
 
@@ -86,10 +94,12 @@ class DetectorSpec:
     cls_activation: str
     max_output: int
     nms_threshold: float
+    has_iou_head: bool = False
 
     def decode(self, outputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """Raw head outputs -> every candidate's (boxes [b, n, cls, 7],
-        scores [b, n, cls]), before NMS."""
+        scores [b, n, cls]), before NMS; with an IoU head the scores are
+        the class scores times the predicted IoU."""
         base_xyz = outputs["base_xyz"]
         boxes = self.coder.decode(base_xyz, outputs["offset"], outputs["angle_cls"],
                                   outputs["angle_res"], self.anchors(base_xyz))
@@ -97,6 +107,8 @@ class DetectorSpec:
             score = torch.softmax(outputs["cls"], dim=-1)[..., 1:]
         else:
             score = torch.sigmoid(outputs["cls"])
+        if self.has_iou_head:
+            score = score * outputs["iou"]
         return boxes, score
 
     def decode_and_nms(self, outputs: dict) -> dict:
@@ -151,5 +163,6 @@ def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str =
         cls_activation=stage_cfg.CLS_ACTIVATION,
         max_output=stage_cfg.MAX_OUTPUT_NUM,
         nms_threshold=stage_cfg.NMS_THRESH,
+        has_iou_head=any(h[5] == "IoU" for h in net_cfg.HEAD),
     )
     return module, spec

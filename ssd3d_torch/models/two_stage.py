@@ -1,18 +1,21 @@
-"""PointRCNN two-stage detector (counterpart of `ssd3d/models/two_stage.py`).
+"""PointRCNN / STD two-stage detector (counterpart of
+`ssd3d/models/two_stage.py`).
 
 Stage 1 (RPN): a PointNet++ encoder-decoder over the raw scan, a per-point
 Bin-Anchor head, class-unaware NMS into a fixed buffer of proposals. Stage 2
-(RCNN): `RegionPool` gathers the first 512 RPN points inside each expanded
-proposal with their features, in the proposal's frame; a small SA stack runs
-over batch x proposals such clouds (its SA layers take the fused kernel K7),
-and a head refines each proposal.
+(RCNN): the RoI pooler gathers the first 512 RPN points inside each
+expanded proposal with their features, in the proposal's frame: PointRCNN's
+`RegionPool` hands those points to the RCNN, STD's `PointsPool` voxelises
+them (a 6 x 6 x 6 grid in `configs/kitti/std`) and hands over the voxel
+centres with their pooled features. A small SA stack runs over batch x
+proposals such clouds (its SA layers take the fused kernel K7), and a head
+refines each proposal.
 
 Submodules carry the flax scope names (`rpn_backbone`, `rpn_head`,
-`roi_pool.align`, `rcnn_backbone`, `rcnn_head`), so a flax variable tree
-converts with `utils.convert.flax_to_state_dict` and loads strictly. In train
-mode (`module.train()`) `rpn` and `rcnn` are the stages of
-`train.two_stage_step.TwoStageGraph`. STD's `PointsPool` is not ported yet
-(ROADMAP Queue 1 item 10).
+`roi_pool.align`, `roi_pool.vfe`, `rcnn_backbone`, `rcnn_head`), so a flax
+variable tree converts with `utils.convert.flax_to_state_dict` and loads
+strictly. In train mode (`module.train()`) `rpn` and `rcnn` are the stages
+of `train.two_stage_step.TwoStageGraph`.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ from ssd3d_torch.core.geometry import boxes_bottom_to_center, boxes_to_bev_aabb,
 from ssd3d_torch.models.backbone import PointBackbone
 from ssd3d_torch.models.heads import DetectionHead
 from ssd3d_torch.nn.layers import SharedMLP
+from ssd3d_torch.nn.modules import max_pool
 from ssd3d_torch.ops import _build
-from ssd3d_torch.ops.grouping import group_points, query_boxes_3d_points
+from ssd3d_torch.ops.grouping import _first_k, gather_rows, group_points, query_boxes_3d_points
 from ssd3d_torch.ops.nms import batched_class_nms, class_unaware_nms
 
 
@@ -81,6 +85,100 @@ class RegionPool(nn.Module):
         return out.reshape(bs * p, ns, c), has
 
 
+class PointsPool(nn.Module):
+    """STD's RoI pooler: the first `sample_pts_num` RPN points inside each
+    proposal grown by `context_range`, in the proposal's frame, scattered
+    into an l x h x w voxel grid (the first `vox_k` points of each voxel, in
+    index order, padded by the first), each point given its offset from its
+    voxel's centre, the `align` and `vfe` MLPs over them, and a max-pool a
+    voxel masked where the voxel is empty. Returns the voxel centres (in the
+    proposal's frame) with the pooled features, one row a voxel."""
+
+    def __init__(self, feature_channels: int, sample_pts_num: int, context_range: float,
+                 info_keys: Sequence[str], align_channels: Sequence[int], grid: Sequence[int],
+                 vfe_channels: Sequence[int], bn: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.sample_pts_num = sample_pts_num
+        self.context_range = context_range
+        self.info_keys = [k for k in info_keys if k in ("mask", "dist")]
+        self.grid = tuple(int(g) for g in grid)  # (l, h, w, points a voxel)
+        # each gathered point: canonical xyz, the info keys, the RPN
+        # features, then its offset from its voxel's centre
+        point_channels = 3 + len(self.info_keys) + feature_channels + 3
+        self.align = SharedMLP(point_channels, align_channels, bn=bn, compute_dtype=compute_dtype)
+        self.vfe = SharedMLP(self.align.out_channels, vfe_channels, bn=bn,
+                             compute_dtype=compute_dtype)
+        self.out_channels = 3 + self.vfe.out_channels
+
+    def voxel_ids(self, canonical: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+        """canonical [bs, p, ns, 3] in boxes of size [bs, p, 3] (l, h, w) ->
+        each point's voxel int32 [bs, p, ns]: x in [-l/2, l/2], y in [-h, 0]
+        and z in [-w/2, w/2] scaled to the grid, truncated, then clamped,
+        in the JAX package's order of operations (a point on a voxel face
+        goes where the reference puts it)."""
+        gl, gh, gw, _ = self.grid
+        fx = (canonical[..., 0] / size[..., None, 0] + 0.5) * gl
+        fy = (canonical[..., 1] / size[..., None, 1] + 1.0) * gh
+        fz = (canonical[..., 2] / size[..., None, 2] + 0.5) * gw
+        vx = fx.to(torch.int32).clamp(0, gl - 1)
+        vy = fy.to(torch.int32).clamp(0, gh - 1)
+        vz = fz.to(torch.int32).clamp(0, gw - 1)
+        return (vx * gh + vy) * gw + vz
+
+    def unit_centres(self, device: torch.device) -> torch.Tensor:
+        """The voxel centres in the unit box, [l * h * w, 3], voxel v =
+        (x * h + y) * w + z: (i + 0.5) / g - 0.5 (- 1.0 for y), each step
+        rounded to f32, as XLA folds the JAX package's constant expression.
+        Computed on the CPU and then moved: on the card PyTorch divides a
+        tensor by a number as a product with its reciprocal, which rounds
+        otherwise, and the ties between the centres' distances (the RCNN's
+        D-FPS) would fall another way."""
+        gl, gh, gw, _ = self.grid
+        ii = torch.arange(gl * gh * gw, dtype=torch.int32)
+        cx = ((ii // (gh * gw)).float() + 0.5) / gl - 0.5
+        cy = (((ii // gw) % gh).float() + 0.5) / gh - 1.0
+        cz = ((ii % gw).float() + 0.5) / gw - 0.5
+        return torch.stack([cx, cy, cz], dim=-1).to(device)
+
+    def forward(self, base_xyz, base_feature, base_mask, proposals, bn_momentum: float = 0.9):
+        """base_*: [bs, pts, *]; proposals: [bs, p, 7] -> (pooled [bs * p,
+        l * h * w, out_channels], has-points mask int32 [bs, p, 1])."""
+        gl, gh, gw, vox_k = self.grid
+        nvox = gl * gh * gw
+        expanded = expand_boxes(proposals, self.context_range)
+        idx, cnt = query_boxes_3d_points(base_xyz, expanded, self.sample_pts_num)
+        has = (cnt > 0).to(torch.int32)[..., None]
+        idx = idx * has
+        pool_xyz = group_points(base_xyz, idx)  # [bs, p, ns, 3]
+        pool_feat = group_points(base_feature, idx)
+        info = []
+        for key in self.info_keys:
+            if key == "mask":
+                info.append(group_points(base_mask, idx))
+            else:  # dist: |xyz| of the pooled point
+                info.append(pool_xyz.square().sum(-1, keepdim=True).sqrt())
+        canonical = canonicalize_pool(pool_xyz, expanded)
+        bs, p, ns, _ = canonical.shape
+        size = expanded[..., 3:6]
+        vox_id = self.voxel_ids(canonical, size).reshape(bs * p, ns)
+        # the first vox_k points of each voxel, by the first-k of the ball query
+        valid = vox_id[:, None, :] == torch.arange(nvox, dtype=torch.int32,
+                                                   device=vox_id.device)[None, :, None]
+        sel_idx, sel_cnt = _first_k(valid, vox_k)  # [bs * p, nvox, vox_k], [bs * p, nvox]
+        feats = torch.cat([canonical] + info + [pool_feat], dim=-1).reshape(bs * p, ns, -1)
+        gathered = gather_rows(feats, sel_idx.reshape(bs * p, nvox * vox_k))
+        gathered = gathered.reshape(bs * p, nvox, vox_k, -1)
+        vox_has = (sel_cnt > 0).to(feats.dtype)[..., None]  # [bs * p, nvox, 1]
+        vox_ctrs = (self.unit_centres(canonical.device)[None, None]
+                    * size[..., None, :]).reshape(bs * p, nvox, 3)
+        pillar = gathered[..., 0:3] - vox_ctrs[:, :, None, :]
+        encoded = self.vfe(self.align(torch.cat([gathered, pillar], dim=-1), bn_momentum),
+                           bn_momentum)
+        dense = max_pool(encoded) * vox_has  # [bs * p, nvox, c]
+        return torch.cat([vox_ctrs, dense], dim=-1), has
+
+
 class TwoStageDetector(nn.Module):
     """RPN + RCNN; the stages are methods (`rpn`, `rcnn`) so that inference
     can run the RCNN over chunks of proposals and training can assign and
@@ -97,14 +195,16 @@ class TwoStageDetector(nn.Module):
         rpn_ch = self.rpn_backbone.feature_channels
         self.rpn_heads = self._heads(rpn_head_cfg, rpn_ch, "rpn_head", rpn_cls_channels,
                                      rpn_reg_base, rpn_reg_channels, num_angle_cls, compute_dtype)
-        if pooler_cfg[0] != "RegionPool":
-            raise NotImplementedError(
-                f"{pooler_cfg[0]} (STD's voxelising RoI pooler) is not ported yet "
-                f"(ROADMAP Queue 1 item 10)")
         head_feat = getattr(self, self.rpn_heads[0][0]).trunk.out_channels  # rpn "feature"
         self.pool_name = pooler_cfg[8] or "roi_pool"
-        pooler = RegionPool(head_feat, pooler_cfg[3], pooler_cfg[4], pooler_cfg[1],
-                            pooler_cfg[2], bn=pooler_cfg[7], compute_dtype=compute_dtype)
+        pool_args = (head_feat, pooler_cfg[3], pooler_cfg[4], pooler_cfg[1], pooler_cfg[2])
+        if pooler_cfg[0] == "RegionPool":
+            pooler = RegionPool(*pool_args, bn=pooler_cfg[7], compute_dtype=compute_dtype)
+        elif pooler_cfg[0] == "PointsPool":
+            pooler = PointsPool(*pool_args, grid=pooler_cfg[5], vfe_channels=pooler_cfg[6],
+                                bn=pooler_cfg[7], compute_dtype=compute_dtype)
+        else:
+            raise ValueError(f"unknown RoI pooler {pooler_cfg[0]!r}")
         self.add_module(self.pool_name, pooler)
         # the RCNN's lists start with the proposal centres (no features)
         self.rcnn_backbone = PointBackbone(rcnn_architecture, pooler.out_channels - 3,
@@ -118,9 +218,8 @@ class TwoStageDetector(nn.Module):
                compute_dtype):
         heads = []
         for i, (xyz_idx, feat_idx, _op, mlp, bn, head_type, scope) in enumerate(head_cfg):
-            if head_type != "Det":
-                raise NotImplementedError(f"{head_type} heads are not ported yet "
-                                          f"(ROADMAP Queue 1 item 10)")
+            # the JAX package's two-stage model builds detection heads only
+            assert head_type == "Det", f"two-stage {head_type} heads are not used by any config"
             name = scope or f"{prefix}{i}"
             self.add_module(name, DetectionHead(sum(feat_ch[j] for j in feat_idx), mlp, cls_ch,
                                                 reg_base, reg_ch, num_angle_cls, bn=bn,

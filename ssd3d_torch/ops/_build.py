@@ -155,7 +155,10 @@ THREE_NN = Kernel("three_nn", "ssd3d_three_nn", [P, P, P, P, I, I, I, I])
 # both K7 routes (the last int: 0 FMA, 1 wgmma)
 SA_FUSED = Kernel("sa_fused", "ssd3d_sa_fused",
                   [P, P, P, P, P, I, I, I, I, I, P, P, P, I, P, P, P, P, I])
-KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD, THREE_NN, SA_FUSED)
+# F-FPS over a given distance matrix (the last int: running minima a thread
+# in registers, 0 for the scratch buffer)
+FFPS_DIST = Kernel("ffps_dist", "ssd3d_ffps_dist", [P, P, P, I, I, I, I])
+KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD, THREE_NN, SA_FUSED, FFPS_DIST)
 
 
 def reset_launches() -> None:

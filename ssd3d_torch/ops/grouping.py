@@ -1,13 +1,14 @@
 """Neighbourhood grouping: the multi-ring ball query, the grouping gather and
 the rotated-box interior query of the RoI pool.
 
-Counterpart of `ssd3d/ops/grouping.py` (`ball_query_multi`, `group_points`,
-`query_boxes_3d_points`, `query_boxes_3d_mask`).
+Counterpart of `ssd3d/ops/grouping.py` (`ball_query_multi`, `ball_query`,
+`ball_query_dilated`, `group_points`, `query_boxes_3d_points`,
+`query_boxes_3d_mask`, `query_points_iou`).
 Each function dispatches on the device of its inputs: CUDA tensors launch the
 hand-written kernel (`csrc/ball_query.cu` on one of its two routes,
 `csrc/gather.cu`, and for the gather's backward `csrc/scatter_add.cu`), CPU
-tensors take the plain PyTorch version beside it. The box queries are plain
-PyTorch on every device, as they are plain XLA in the JAX package.
+tensors take the plain PyTorch version beside it. The box queries and the
+point IoU are plain PyTorch on every device, as they are plain XLA in the JAX package.
 
 The ball-query contract is the reference CUDA one (tf_grouping_g.cu:215-255,
 :308-357): per ring, the first `ns` points in index order inside the ring,
@@ -180,15 +181,36 @@ def ball_query_multi(radius_list, nsample_list, xyz: torch.Tensor,
     xyz: f32 [b, n, 3]; new_xyz: f32 [b, m, 3] -> list per radius of
     (idx int32 [b, m, ns], cnt int32 [b, m]). With dilated=True, scale i > 0
     selects the annulus r_{i-1} <= d < r_i plus the d == 0 self point."""
+    return _ball_query_specs("ball_query_multi", ring_specs(radius_list, nsample_list, dilated),
+                             xyz, new_xyz)
+
+
+def _ball_query_specs(op: str, specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
     for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
         if t.dim() != 3 or t.shape[-1] != 3 or t.dtype != torch.float32:
-            raise ValueError(f"ball_query_multi: {name} must be f32 [b, *, 3]")
+            raise ValueError(f"{op}: {name} must be f32 [b, *, 3]")
     if xyz.shape[0] != new_xyz.shape[0]:
-        raise ValueError(f"ball_query_multi: batch {xyz.shape[0]} != {new_xyz.shape[0]}")
-    specs = ring_specs(radius_list, nsample_list, dilated)
-    if _build.require_cuda("ball_query_multi", xyz, new_xyz):
+        raise ValueError(f"{op}: batch {xyz.shape[0]} != {new_xyz.shape[0]}")
+    if _build.require_cuda(op, xyz, new_xyz):
         return _ball_query_cuda(specs, xyz, new_xyz)
     return ball_query_multi_plain(specs, xyz, new_xyz)
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """The first `nsample` points with d < radius, in index order: xyz
+    [b, n, 3], new_xyz [b, m, 3] -> (idx int32 [b, m, nsample], cnt [b, m]).
+    One ring of `ball_query_multi` (K3 on the card)."""
+    return ball_query_multi([radius], [nsample], xyz, new_xyz)[0]
+
+
+def ball_query_dilated(min_radius: float, max_radius: float, nsample: int,
+                       xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """The annulus min_radius <= d < max_radius, the d == 0 self point always
+    in (3DSSD's dilated grouping): -> (idx int32 [b, m, nsample], cnt
+    [b, m]). One annulus ring of K3 on the card."""
+    spec = (float(np.float32(min_radius * min_radius)),
+            float(np.float32(max_radius * max_radius)), int(nsample), True)
+    return _ball_query_specs("ball_query_dilated", [spec], xyz, new_xyz)[0]
 
 
 def _points_in_boxes(xyz: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -214,6 +236,20 @@ def query_boxes_3d_mask(xyz: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """Interior mask of rotated boxes (tf_grouping_g.cu:100). xyz: [b, n, 3];
     boxes: [b, m, 7] -> int32 [b, m, n]."""
     return _points_in_boxes(xyz, boxes).to(torch.int32)
+
+
+def query_points_iou(xyz: torch.Tensor, anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                     iou_3d: torch.Tensor) -> torch.Tensor:
+    """The point-membership IoU of each anchor with each GT box: the points
+    inside both over the points inside either (at least 1), where their 3D
+    IoU is at least 1e-3, else 0 (the reference CUDA op,
+    tf_grouping_g.cu:139). xyz: [b, n, 3]; anchors: [b, a, 7]; gt_boxes:
+    [b, g, 7]; iou_3d: [b, a, g] -> [b, a, g]."""
+    in_a = _points_in_boxes(xyz, anchors).float()  # [b, a, n]
+    in_g = _points_in_boxes(xyz, gt_boxes).float()  # [b, g, n]
+    inter = torch.einsum("ban,bgn->bag", in_a, in_g)  # counts, exact in f32
+    union = (in_a.sum(-1)[:, :, None] + in_g.sum(-1)[:, None, :] - inter).clamp(min=1.0)
+    return torch.where(iou_3d >= 1e-3, inter / union, 0.0)
 
 
 def gather_rows_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,24 @@
 """Point sampling: D-FPS, F-FPS, the row gather of sampled points and the
 first-k gather by mask.
 
-Counterpart of `ssd3d/ops/sampling.py`. The two FPS functions dispatch on the
-device of their input: a CUDA tensor launches the hand-written kernel
+Counterpart of `ssd3d/ops/sampling.py`. The three FPS functions dispatch on
+the device of their input: a CUDA tensor launches the hand-written kernel
 (`csrc/fps.cu`, `csrc/ffps.cu`, each with three routes chosen from the
-shape, which together take any n and c),
-a CPU tensor takes the plain PyTorch version beside it. Both follow the JAX
+shape, which together take any n and c; `csrc/ffps_dist.cu` over a given
+distance matrix, any n), a CPU tensor takes the plain PyTorch version
+beside it. `farthest_point_sample_with_preidx` and `prob_sample` are plain
+PyTorch on every device, as the JAX package has no kernel for them. Both follow the JAX
 package's contract: pick 0 is index 0, the running minimum of squared
 distance decides the next pick, argmax ties go to the lowest index.
 
-Squared distances are written as separate rounded operations in a fixed
-order, ((dx*dx + dy*dy) + dz*dz) for xyz and a channel-ordered running sum
-for fused vectors, and the kernels are compiled without FMA contraction, so
-the kernel and its plain version agree bit for bit.
+Squared distances are written in a fixed order of rounded operations, so
+the kernel and its plain version agree bit for bit: for xyz the chain
+fma(dz, dz, fma(dy, dy, dx*dx)) (`xyz_dist2`), which is what the JAX
+package's CPU path computes (XLA contracts its sum of squares into fused
+multiply-adds; on a lattice of voxel centres, where distances tie, any other
+rounding picks other points), and for fused vectors a channel-ordered
+running sum of separately rounded terms. The kernels are compiled without
+FMA contraction and call the FMA explicitly where the chain has one.
 """
 
 from __future__ import annotations
@@ -31,6 +37,18 @@ def _check_points(op: str, x: torch.Tensor, c: int | None = None) -> None:
 
 # ---------------------------------------------------------------- D-FPS (K1)
 
+def xyz_dist2(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """Squared distances from f32 coordinate differences as fma(dz, dz,
+    fma(dy, dy, dx * dx)), each fused multiply-add rounded once to f32 (K1's
+    `__fmaf_rn`). A product of two f32 is exact in float64, so each step is
+    its float64 sum rounded to f32, which is the one rounding of the fused
+    operation unless the float64 sum falls exactly on an f32 halfway point
+    after rounding away nonzero bits (about 2^-28 of random inputs)."""
+    t = (dx * dx).double()
+    t = (dy.double() * dy.double() + t).float().double()
+    return (dz.double() * dz.double() + t).float()
+
+
 def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Plain D-FPS. xyz: f32 [b, n, 3] -> int32 [b, npoint]."""
     b, n, _ = xyz.shape
@@ -42,7 +60,7 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         dx = x - x.gather(1, last)
         dy = y - y.gather(1, last)
         dz = z - z.gather(1, last)
-        dist = torch.minimum(dist, (dx * dx + dy * dy) + dz * dz)
+        dist = torch.minimum(dist, xyz_dist2(dx, dy, dz))
         last = dist.argmax(dim=1, keepdim=True)
         out[:, i] = last[:, 0]
     return out.to(torch.int32)
@@ -168,8 +186,9 @@ def fused_square_distance(fused: torch.Tensor) -> torch.Tensor:
 
 
 def fps_from_dist_plain(dist: torch.Tensor, npoint: int) -> torch.Tensor:
-    """FPS over a precomputed [b, n, n] distance matrix -> int32 [b, npoint]
-    (counterpart of `farthest_point_sample_from_dist`)."""
+    """Plain F-FPS over a given distance matrix: dist [b, n, n] (any float
+    dtype) -> int32 [b, npoint]. Each step takes the row of the last pick,
+    as given (the matrix need not be symmetric)."""
     b, n, _ = dist.shape
     out = torch.zeros(b, npoint, dtype=torch.int64, device=dist.device)
     min_dist = torch.full((b, n), float("inf"), dtype=dist.dtype, device=dist.device)
@@ -181,6 +200,54 @@ def fps_from_dist_plain(dist: torch.Tensor, npoint: int) -> torch.Tensor:
         out[:, i] = nxt
         last = nxt[:, None, None]
     return out.to(torch.int32)
+
+
+# K2m (csrc/ffps_dist.cu): one block of 1,024 threads a cloud, each thread
+# keeping the running minima of its points t + k * 1024 in registers (up to
+# 16 a thread, n <= 16,384), past that in a scratch buffer [b, n].
+FFPS_DIST_THREADS = 1024
+FFPS_DIST_MAX_PPT = 16
+
+
+def ffps_dist_ppt(n: int) -> int:
+    """K2m's running minima a thread for clouds of n points: the least power
+    of two that covers n over 1,024 threads, or 0 (the scratch buffer) past
+    16."""
+    ppt = 1
+    while ppt * FFPS_DIST_THREADS < n:
+        ppt *= 2
+    return ppt if ppt <= FFPS_DIST_MAX_PPT else 0
+
+
+def _ffps_dist_cuda(dist: torch.Tensor, npoint: int) -> torch.Tensor:
+    if dist.dtype != torch.float32:
+        raise ValueError(f"farthest_point_sample_from_dist: the kernel takes float32, "
+                         f"got {dist.dtype}")
+    b, n, _ = dist.shape
+    dist = dist.contiguous()
+    out = torch.empty(b, npoint, dtype=torch.int32, device=dist.device)
+    if out.numel() == 0:
+        return out
+    ppt = ffps_dist_ppt(n)
+    scratch = None if ppt else torch.empty(b, n, dtype=torch.float32, device=dist.device)
+    _build.FFPS_DIST(dist.data_ptr(), out.data_ptr(),
+                     scratch.data_ptr() if scratch is not None else None, b, n, npoint, ppt)
+    return out
+
+
+def farthest_point_sample_from_dist(dist: torch.Tensor, npoint: int) -> torch.Tensor:
+    """F-FPS over a given squared-distance matrix: dist [b, n, n] -> int32
+    [b, npoint]. Pick 0 is index 0; each point keeps the running minimum of
+    the picked points' rows; the next pick is the argmax, ties to the lowest
+    index. A CUDA tensor launches K2m and must be float32, as the TPU's
+    kernels take; a CPU tensor of any float dtype takes the plain loop."""
+    if dist.dim() != 3 or dist.shape[1] != dist.shape[2]:
+        raise ValueError(f"farthest_point_sample_from_dist: expected [b, n, n], "
+                         f"got {tuple(dist.shape)}")
+    dist = dist.detach()
+    if _build.require_cuda("farthest_point_sample_from_dist", dist):
+        return _ffps_dist_cuda(dist, npoint)
+    return fps_from_dist_plain(dist, npoint)
 
 
 def ffps_plain(fused: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -347,6 +414,44 @@ def fps_pick_shortfall(points: torch.Tensor, picks: torch.Tensor) -> float:
         got = min_d.gather(1, idx[:, i:i + 1])[:, 0]
         worst = torch.maximum(worst, ((best - got) / best.clamp(min=1e-30)).amax())
     return float(worst)
+
+
+def farthest_point_sample_with_preidx(xyz: torch.Tensor, preidx: torch.Tensor,
+                                      npoint: int) -> torch.Tensor:
+    """D-FPS seeded by earlier picks: the running minimum starts as each
+    point's least squared distance to the `preidx` points, and every one of
+    the `npoint` picks is an argmax (ties to the lowest index), the first
+    included. xyz: f32 [b, n, 3]; preidx: int [b, m1] -> int32 [b, npoint].
+    Plain PyTorch on every device, as the JAX package has no kernel for it."""
+    _check_points("farthest_point_sample_with_preidx", xyz, 3)
+    b, n, _ = xyz.shape
+    xyz = xyz.detach()
+    seeds = gather_points(xyz, preidx)  # [b, m1, 3]
+    min_dist = xyz_dist2(*(xyz[:, :, None, :] - seeds[:, None, :, :]).unbind(-1)).amin(-1)
+    out = torch.zeros(b, npoint, dtype=torch.int64, device=xyz.device)
+    for i in range(npoint):
+        nxt = min_dist.argmax(dim=1)
+        out[:, i] = nxt
+        pick = xyz.gather(1, nxt[:, None, None].expand(b, 1, 3))
+        min_dist = torch.minimum(min_dist, xyz_dist2(*(xyz - pick).unbind(-1)))
+    return out.to(torch.int32)
+
+
+def prob_sample(weights: torch.Tensor, num: int, gumbel: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Categorical sampling by weight, with replacement: weights [b, n] ->
+    int32 [b, num]. Each draw is the argmax of log(max(w, 1e-20)) plus
+    Gumbel noise, which is how `jax.random.categorical` draws; `gumbel`
+    [b, num, n] is that noise (a test hands in JAX's own), else it is drawn
+    from `generator` on the weights' device. Plain PyTorch on every device."""
+    b, n = weights.shape
+    logits = torch.log(weights.clamp(min=1e-20))
+    if gumbel is None:
+        tiny = torch.finfo(weights.dtype).tiny
+        u = torch.rand(b, num, n, generator=generator, device=weights.device,
+                       dtype=weights.dtype).clamp(min=tiny)
+        gumbel = -torch.log(-torch.log(u))
+    return (logits[:, None, :] + gumbel).argmax(-1).to(torch.int32)
 
 
 # ---------------------------------------------------------------- gathers

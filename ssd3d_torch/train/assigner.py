@@ -1,7 +1,7 @@
 """Target assignment (counterpart of `ssd3d/train/assigner.py`): the Mask
-method (point-in-box membership) and the IoU method (rotated BEV or 3D IoU of
-each anchor with its assigned GT box), gated by a valid mask, with the
-reference's random minibatch subsampling.
+method (point-in-box membership) and the IoU method (the rotated BEV or 3D
+IoU, or the point-membership IoU, of each anchor with its assigned GT box),
+gated by a valid mask, with the reference's random minibatch subsampling.
 
 Shapes (GT boxes are zero-padded to a fixed count per batch):
     points      [bs, pts, 3]
@@ -22,6 +22,7 @@ import torch
 
 from ssd3d_torch.core.geometry import points_in_boxes
 from ssd3d_torch.core.iou import boxes_iou_bev_3d
+from ssd3d_torch.ops.grouping import query_points_iou
 
 # an IoU-assigned negative overlaps its GT box by at least this much
 MIN_NEG_IOU = 0.05
@@ -117,12 +118,14 @@ def assign_targets(cfg: AssignerConfig, points: torch.Tensor, anchors: torch.Ten
         pmask = (fg[..., None] & dist_ok).float() * label_mask * valid_mask
         nmask = (~fg)[..., None].expand(bs, pts_num, cls_num).float() * label_mask * valid_mask
     else:
-        if cfg.iou_sample_type not in ("BEV", "3D"):
-            raise NotImplementedError(
-                f"assign_targets: the {cfg.iou_sample_type!r} IoU (query_points_iou) is not "
-                f"ported yet (ROADMAP Queue 1 item 10)")
-        iou_bev, iou_3d = boxes_iou_bev_3d(anchors.reshape(bs, pts_num * cls_num, 7), gt_boxes)
-        iou = iou_bev if cfg.iou_sample_type == "BEV" else iou_3d
+        boxes = anchors.reshape(bs, pts_num * cls_num, 7)
+        iou_bev, iou_3d = boxes_iou_bev_3d(boxes, gt_boxes)
+        if cfg.iou_sample_type == "BEV":
+            iou = iou_bev
+        elif cfg.iou_sample_type == "3D":
+            iou = iou_3d
+        else:  # Point: the membership-count IoU, gated by the 3D IoU
+            iou = query_points_iou(points, boxes, gt_boxes, iou_3d)
         iou = torch.where(gt_valid[:, None, :], iou, 0.0).reshape(bs, pts_num, cls_num, -1)
         # the IoU of each anchor with its point's assigned GT box
         iou = iou.gather(-1, assigned_idx[:, :, None, None].expand(bs, pts_num, cls_num, 1))[..., 0]

@@ -9,7 +9,8 @@ The reference's masking and normalisation are kept exactly:
 - angle: softmax CE on the bin + huber on the selected residual, masked
   inside the huber as the reference does;
 - corner loss on the predicted box decoded under the GT angle bin;
-- vote loss against the vote targets.
+- vote loss against the vote targets;
+- the IoU branch: huber against the targets' 3D IoU, rescaled to [-1, 1].
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import dataclasses
 import torch
 
 from ssd3d_torch.core.geometry import boxes_to_corners, centerness
+from ssd3d_torch.core.iou import boxes_iou_matched
 from ssd3d_torch.train.assigner import vote_targets
 
 
@@ -189,6 +191,29 @@ def vote_loss(vote_offset: torch.Tensor, vote_mask: torch.Tensor,
     return per.sum() / vote_mask.sum().clamp(min=1.0)
 
 
+def iou_branch_loss(cfg: LossConfig, outputs: dict, targets: dict,
+                    anchors: torch.Tensor) -> torch.Tensor:
+    """The IoU branch (sparse-to-dense rescoring): huber of the predicted
+    IoU [bs, pts, cls] against 2 x (3D IoU of each anchor box with its
+    assigned GT box) - 1 on the GT's class (0 on the others), averaged over
+    the classes, over the positive points. anchors: [bs, pts, cls, 7]; an
+    anchor-free stage has no anchor boxes, and raises (the JAX package's
+    reshape to boxes fails or misreads there)."""
+    if anchors.shape[-1] != 7:
+        raise ValueError("iou_branch_loss: the IoU branch needs anchor boxes [bs, pts, cls, 7], "
+                         f"got {tuple(anchors.shape)} (an anchor-free regression method)")
+    pmask = targets["pmask"].amax(-1)
+    norm = pmask.sum().clamp(min=1.0)
+    onehot = one_hot(targets["gt_cls"] - 1, cfg.num_classes)
+    cls_num = anchors.shape[2]
+    with torch.no_grad():
+        _, iou_3d = boxes_iou_matched(anchors.reshape(-1, 7),
+                                      targets["gt_boxes"][:, :, :cls_num].reshape(-1, 7))
+    tgt = (iou_3d.reshape(anchors.shape[:3]) * 2.0 - 1.0) * onehot[..., :cls_num]
+    per = huber(outputs["iou"] - tgt).mean(-1) * pmask
+    return per.sum() / norm
+
+
 def compute_stage_losses(cfg: LossConfig, coder, outputs: dict, targets: dict,
                          anchors: torch.Tensor, base_xyz: torch.Tensor,
                          gt_boxes_scene: torch.Tensor | None = None) -> dict:
@@ -196,10 +221,10 @@ def compute_stage_losses(cfg: LossConfig, coder, outputs: dict, targets: dict,
     outputs; this adds the encoded regression targets. anchors: [bs, n, cls,
     7] (anchor-free: [bs, n, 1, 3]); base_xyz: [bs, n, 3]; gt_boxes_scene:
     [bs, g, 7], the raw scene GTs (vote loss only)."""
-    if cfg.iou_loss or cfg.attr_velo_loss:
+    if cfg.attr_velo_loss:
         raise NotImplementedError(
-            "compute_stage_losses: the IoU branch and the attribute/velocity "
-            "losses are not ported yet (ROADMAP Queue 1 items 10 and 11)")
+            "compute_stage_losses: the attribute/velocity losses are not ported yet "
+            "(ROADMAP Queue 1 item 11)")
     gt_offset, gt_angle_cls, gt_angle_res = coder.encode(base_xyz, targets["gt_boxes"], anchors)
     targets = dict(targets, gt_offset=gt_offset, gt_angle_cls=gt_angle_cls,
                    gt_angle_res=gt_angle_res)
@@ -219,4 +244,6 @@ def compute_stage_losses(cfg: LossConfig, coder, outputs: dict, targets: dict,
         vmask, vtarget = vote_targets(outputs["vote_base"][0], gt_boxes_scene,
                                       expand=cfg.expand_dims_length)
         loss_dict["vote"] = vote_loss(outputs["vote_offset"][0], vmask, vtarget)
+    if cfg.iou_loss:
+        loss_dict["iou"] = iou_branch_loss(cfg, outputs, targets, anchors)
     return loss_dict

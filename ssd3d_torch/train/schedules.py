@@ -12,14 +12,16 @@ from __future__ import annotations
 import numpy as np
 
 
-def piecewise_value(step: int, boundaries, values) -> float:
+def piecewise_values(step: int, boundaries, values) -> float:
+    """values[k], k the number of boundaries at or below `step`, as a float32
+    value."""
     return float(np.float32(values[sum(int(step) >= int(b) for b in boundaries)]))
 
 
 def learning_rate(solver_cfg, step: int) -> float:
     steps = list(solver_cfg.STEPS)
     values = [solver_cfg.BASE_LR * solver_cfg.GAMMA ** i for i in range(len(steps) + 1)]
-    return piecewise_value(step, steps, values)
+    return piecewise_values(step, steps, values)
 
 
 def bn_momentum(solver_cfg, step: int) -> float:
@@ -27,4 +29,4 @@ def bn_momentum(solver_cfg, step: int) -> float:
     values = [min(solver_cfg.BN_DECAY_CLIP,
                   1.0 - solver_cfg.BN_INIT_DECAY * solver_cfg.BN_DECAY_DECAY_RATE ** i)
               for i in range(len(steps) + 1)]
-    return piecewise_value(step, steps, values)
+    return piecewise_values(step, steps, values)

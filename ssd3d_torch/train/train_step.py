@@ -1,12 +1,14 @@
 """Single-stage train step (counterpart of `ssd3d/train/train_step.py`):
-forward in train mode, target assignment, losses, backward and the
-optimizer update.
+the device augmentation where TPU.DEVICE_AUGMENT asks for it
+(`device_aug.py`), forward in train mode, target assignment, losses (with an
+IoU head, its branch), backward and the optimizer update.
 
 The update is optax's chain as the JAX package builds it: clip by global
 norm 5.0, written as optax writes it ((g / norm) * 5 only when the norm
 reaches 5; `clip_grad_norm_` adds 1e-6 and differs), then Adam (b1 0.9,
 b2 0.999, eps 1e-8) or SGD with momentum, with the learning rate of the step
-before its increment. `torch.optim.SGD` computes optax's SGD update. Adam is
+before its increment, or AdaBound (`adabound.py`, its own schedule).
+`torch.optim.SGD` computes optax's SGD update. Adam is
 written out (`Adam` below) because optax rounds its bias corrections to
 float32, where 1 - 0.999^t loses five digits and moves the first updates by
 ~1e-5 relative from `torch.optim.Adam`, which keeps them in float64.
@@ -25,7 +27,10 @@ import numpy as np
 import torch
 
 from ssd3d_torch.train import losses as L
+from ssd3d_torch.train.adabound import AdaBound
 from ssd3d_torch.train.assigner import AssignerConfig, assign_targets
+from ssd3d_torch.train.device_aug import AugDraws, augment_batch
+from ssd3d_torch.train.device_aug import draw as draw_augmentation
 from ssd3d_torch.train.schedules import bn_momentum, learning_rate
 
 MAX_GRAD_NORM = 5.0
@@ -80,16 +85,16 @@ def trained_parameters(model: torch.nn.Module, train_param_prefix=()) -> list:
 
 
 def make_optimizer(solver_cfg, params) -> torch.optim.Optimizer:
-    """Adam or SGD + momentum over `params`; the learning rate is set each
-    step from `learning_rate` (`apply_update`)."""
+    """Adam, SGD + momentum or AdaBound over `params`; the learning rate is
+    set each step from `learning_rate` (`apply_update`; AdaBound reads the
+    schedule itself, `train/adabound.py`)."""
     lr = learning_rate(solver_cfg, 0)
     if solver_cfg.TYPE == "Adam":
         return Adam(params, lr=lr)
     if solver_cfg.TYPE == "SGD":
         return torch.optim.SGD(params, lr=lr, momentum=solver_cfg.MOMENTUM)
     if solver_cfg.TYPE == "AdaBound":
-        raise NotImplementedError("make_optimizer: AdaBound is not ported yet "
-                                  "(ROADMAP Queue 1 item 8a)")
+        return AdaBound(params, schedule=lambda step: learning_rate(solver_cfg, step))
     raise ValueError(f"unknown solver {solver_cfg.TYPE}")
 
 
@@ -169,26 +174,24 @@ class TrainGraph:
     assigner_cfg: AssignerConfig
     solver_cfg: Any
     train_param_prefix: tuple = ()
+    aug_cfg: Any = None  # TRAIN.AUGMENTATIONS when TPU.DEVICE_AUGMENT is on
     # SUMMARY_HISTOGRAMS: global grad / param norms in the metrics
     histograms: bool = False
 
     @classmethod
     def build(cls, cfg, model, spec) -> "TrainGraph":
-        arch = cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE
-        if any(h[5] == "IoU" for h in cfg.MODEL.NETWORK.FIRST_STAGE.HEAD):
-            raise NotImplementedError("TrainGraph: IoU heads are not ported yet "
-                                      "(ROADMAP Queue 1 item 10)")
-        if cfg.TPU.DEVICE_AUGMENT and cfg.TRAIN.AUGMENTATIONS.OPEN:
-            raise NotImplementedError("TrainGraph: device augmentation is not ported "
-                                      "yet (ROADMAP Queue 1 item 8a)")
+        net = cfg.MODEL.NETWORK.FIRST_STAGE
+        device_aug = cfg.TPU.DEVICE_AUGMENT and cfg.TRAIN.AUGMENTATIONS.OPEN
         return cls(
             model=model,
             spec=spec,
             loss_cfg=L.LossConfig.from_cfg(
-                cfg, "FIRST_STAGE", vote=any(l[11] == "Vote_Layer" for l in arch)),
+                cfg, "FIRST_STAGE", vote=any(l[11] == "Vote_Layer" for l in net.ARCHITECTURE),
+                iou=any(h[5] == "IoU" for h in net.HEAD)),
             assigner_cfg=AssignerConfig.from_cfg(cfg.MODEL.FIRST_STAGE),
             solver_cfg=cfg.SOLVER,
             train_param_prefix=tuple(cfg.TRAIN.CONFIG.TRAIN_PARAM_PREFIX),
+            aug_cfg=cfg.TRAIN.AUGMENTATIONS if device_aug else None,
             histograms=bool(cfg.TRAIN.CONFIG.SUMMARY_HISTOGRAMS),
         )
 
@@ -199,10 +202,14 @@ class TrainGraph:
                              trained_parameters(self.model, self.train_param_prefix))
         return TrainState(step=0, model=self.model, optimizer=opt)
 
-    def compute_losses(self, batch: dict, bn_m: float):
+    def compute_losses(self, batch: dict, bn_m: float, draws: AugDraws | None = None):
         """batch: points [bs, n, 3 + c], gt_boxes [bs, g, 7], gt_labels
-        [bs, g] -> (total, loss dict). Moves the BatchNorm running statistics
-        by `bn_m` (the JAX version returns them as mutated batch_stats)."""
+        [bs, g] (with device augmentation also the loader's plane and
+        candidates, augmented first with `draws`) -> (total, loss dict).
+        Moves the BatchNorm running statistics by `bn_m` (the JAX version
+        returns them as mutated batch_stats)."""
+        if self.aug_cfg is not None:
+            batch = augment_batch(batch, self.aug_cfg, draws)
         outputs = self.model(batch["points"], bn_m)
         base_xyz = outputs["base_xyz"]
         anchors = self.spec.anchors(base_xyz)
@@ -212,8 +219,17 @@ class TrainGraph:
                                            anchors, base_xyz, gt_boxes_scene=batch["gt_boxes"])
         return sum(loss_dict.values()), loss_dict
 
-    def train_step(self, state: TrainState, batch: dict, seed: int = 0) -> dict:
-        """One optimizer step (`optimizer_step`); `seed` is unused, as the
-        single-stage step draws nothing (the two-stage step's signature)."""
+    def train_step(self, state: TrainState, batch: dict, seed: int = 0,
+                   draws: AugDraws | None = None) -> dict:
+        """One optimizer step (`optimizer_step`). With device augmentation
+        its draws are `draws` where given, else drawn from a generator on
+        the batch's device seeded by (seed, step), so that a resumed run
+        draws what the unbroken run drew; without, the step draws nothing."""
+        if self.aug_cfg is not None and draws is None:
+            points = batch["points"]
+            gen = torch.Generator(device=points.device).manual_seed((seed << 32) + state.step)
+            draws = draw_augmentation(gen, points.shape[0], points.shape[1],
+                                      batch["gt_boxes"].shape[1], points.device)
         return optimizer_step(state, self.solver_cfg,
-                              lambda bn_m: self.compute_losses(batch, bn_m), self.histograms)
+                              lambda bn_m: self.compute_losses(batch, bn_m, draws),
+                              self.histograms)

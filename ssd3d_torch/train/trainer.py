@@ -196,7 +196,13 @@ class Trainer:
         self.ckpt = CheckpointManager(os.path.join(self.log_dir, "ckpt"),
                                       cfg.TRAIN.CONFIG.MAX_CHECKPOINTS_TO_KEEP)
         self.restore_model_path = restore_model_path
-        self.batch_keys = ("points", "gt_boxes", "gt_labels")
+        batch_keys = ["points", "gt_boxes", "gt_labels"]
+        if cfg.TPU.DEVICE_AUGMENT and cfg.TRAIN.AUGMENTATIONS.OPEN:
+            # the device augmentation's inputs (train/device_aug.py)
+            batch_keys += ["plane"]
+            if cfg.TRAIN.AUGMENTATIONS.MIXUP.OPEN:
+                batch_keys += ["cand_points", "cand_boxes", "cand_labels", "cand_valid"]
+        self.batch_keys = tuple(batch_keys)
 
     def log(self, msg: str) -> None:
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"

@@ -37,7 +37,7 @@ def _cloud(seed, b, n, scale=5.0):
 
 # ------------------------------------------------------------------ D-FPS
 
-@pytest.mark.parametrize("kind", ["gaussian", "grid_ties", "duplicates"])
+@pytest.mark.parametrize("kind", ["gaussian", "grid_ties", "duplicates", "voxel_lattice"])
 def test_dfps_matches_jax(kind):
     rng = np.random.RandomState(1)
     if kind == "gaussian":
@@ -46,6 +46,14 @@ def test_dfps_matches_jax(kind):
         # integer lattice: many exactly equal distances exercise the
         # lowest-index tie rule
         xyz = rng.randint(-6, 7, size=(2, 700, 3)).astype(np.float32)
+    elif kind == "voxel_lattice":
+        # STD's voxel centres, (i + 0.5) / 8 - 0.5 times a box's sizes: their
+        # distances tie in exact arithmetic, and which of them tie in f32
+        # follows the rounding of the sum of squares, which the JAX CPU path
+        # computes as fma(dz, dz, fma(dy, dy, dx * dx))
+        unit = (np.stack(np.meshgrid(*[np.arange(8)] * 3, indexing="ij"), -1).reshape(-1, 3)
+                + 0.5) / 8 - 0.5
+        xyz = (unit[None] * rng.uniform(2, 6, (2, 1, 3))).astype(np.float32)
     else:
         base = _cloud(2, 2, 300)
         xyz = np.concatenate([base, base[:, ::-1]], axis=1)
@@ -429,8 +437,10 @@ def test_cpu_tensors_take_the_plain_versions():
     src = xyz.clone().requires_grad_(True)
     grouping.group_points(src, idx).sum().backward()  # the scatter-add backward
     assert src.grad.shape == xyz.shape
+    sampling.farthest_point_sample_from_dist(sampling.fused_square_distance(xyz), 8)
     assert _build.launches() == {"fps": 0, "ffps": 0, "ball_query": 0, "gather": 0,
-                                 "scatter_add": 0, "three_nn": 0, "sa_fused": 0}
+                                 "scatter_add": 0, "three_nn": 0, "sa_fused": 0,
+                                 "ffps_dist": 0}
     assert _build._lib is None  # nothing was built or loaded
 
 

@@ -55,7 +55,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert {f"ssd3d_torch.data.{m}" for m in ("kitti_io", "augment", "preprocess", "loader")} <= names
     assert {"ssd3d_torch.eval.kitti_ap", "ssd3d_torch.eval.predictions", "ssd3d_torch.native",
             "ssd3d_torch.train.trainer", "ssd3d_torch.train.two_stage_step",
-            "ssd3d_torch.utils.viz"} <= names
+            "ssd3d_torch.utils.viz", "ssd3d_torch.train.adabound",
+            "ssd3d_torch.train.device_aug"} <= names
 
 
 def test_entry_runs_the_flagship_on_a_cpu_scan():
@@ -88,6 +89,8 @@ def test_kernel_library_is_keyed_by_its_sources(monkeypatch, tmp_path):
 def test_each_kernel_source_names_the_tpu_kernel_it_replaces():
     for name, pallas in [("fps.cu", "fps.py:_fps_batch_kernel"),
                          ("ffps.cu", "fps.py:_ffps_hbm_kernel"),
+                         ("ffps_dist.cu", "fps.py:_ffps_kernel"),
+                         ("ffps_dist.cu", "fps.py:_ffps_hbm_kernel"),
                          ("ball_query.cu", "ring_words.py:_kernel"),
                          ("gather.cu", "gather.py:_kernel"),
                          ("scatter_add.cu", "scatter_add.py:_scatter_add_raw"),

@@ -37,6 +37,7 @@ from ssd3d_torch.entry import flagship, synthetic_scenes, train_entry
 from ssd3d_torch.nn.layers import BatchNorm
 from ssd3d_torch.ops import _build, grouping
 from ssd3d_torch.train import assigner, losses, schedules
+from ssd3d_torch.train.adabound import AdaBound
 from ssd3d_torch.train.train_step import TrainGraph, clip_by_global_norm, make_optimizer
 from ssd3d_torch.utils.convert import flax_to_state_dict
 
@@ -540,9 +541,13 @@ def test_schedules_match_jax():
             jschedules.learning_rate(cfg.SOLVER, step))
         assert schedules.bn_momentum(cfg.SOLVER, step) == float(
             jschedules.bn_momentum(cfg.SOLVER, step))
-    with pytest.raises(NotImplementedError, match="item 8a"):
-        cfg.SOLVER.TYPE = "AdaBound"
-        make_optimizer(cfg.SOLVER, [torch.nn.Parameter(torch.zeros(1))])
+    # AdaBound is ported (tests/test_torch_train_options.py holds it to optax)
+    cfg.SOLVER.TYPE = "AdaBound"
+    opt = make_optimizer(cfg.SOLVER, [torch.nn.Parameter(torch.zeros(1))])
+    assert isinstance(opt, AdaBound) and opt.schedule(7) == schedules.learning_rate(cfg.SOLVER, 7)
+    for step in (0, 3, 7, 100):
+        assert schedules.piecewise_values(step, [3, 7], [1.0, 0.5, 0.25]) == float(
+            jschedules.piecewise_values(step, [3, 7], [1.0, 0.5, 0.25]))
 
 
 # ---------------------------------------------------- training, end to end

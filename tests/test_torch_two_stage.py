@@ -300,7 +300,14 @@ def test_only_first_stage_returns_the_proposals(slice_run):
 
 
 def test_points_pool_is_not_ported_yet():
+    """STD's PointsPool is ported now (tests/test_torch_std.py holds it to
+    the JAX package): its pooler row builds, and an unknown pooler raises."""
+    from ssd3d_torch.models.two_stage import PointsPool
+
     cfg = _shrunk_cfg()
     cfg.MODEL.NETWORK.FIRST_STAGE.POINTS_POOLER[0] = "PointsPool"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    model, _, _ = build_two_stage(cfg, device="cpu")
+    assert isinstance(model.roi_pool, PointsPool)
+    cfg.MODEL.NETWORK.FIRST_STAGE.POINTS_POOLER[0] = "VoxelPool"
+    with pytest.raises(ValueError, match="unknown RoI pooler"):
         build_two_stage(cfg, device="cpu")

@@ -34,6 +34,8 @@ from ssd3d.config import load_cfg as jax_load_cfg
 from ssd3d.core import box_coders as jcoders
 from ssd3d.models.api import build_pipeline as jax_build_pipeline
 from ssd3d.nn import layers as jlayers
+from ssd3d.models import two_stage as jtwo_stage
+from ssd3d.nn import modules as jmodules
 from ssd3d.ops import grouping as jgrouping
 from ssd3d.ops import sampling as jsampling
 from ssd3d.train import assigner as jassigner
@@ -278,11 +280,12 @@ def _jax_leaves(state) -> dict:
     return out
 
 
-def _port_step(stage, variables, data, uniforms, jrpn=None):
-    """One f32 step of the port from the flax `variables`. Stage 2 takes the
-    JAX RPN's outputs `jrpn` (its own RPN runs for the statistics).
+def _port_step(stage, variables, data, uniforms, jrpn=None, opts=STEP_OPTS):
+    """One f32 step of the port from the flax `variables` at the tiny
+    config of `stage` with `opts`. Stage 2 takes the JAX RPN's outputs
+    `jrpn` (its own RPN runs for the statistics).
     -> (metrics, state leaves after, stage-2 (proposals, targets))."""
-    pipe = build_pipeline(config.load_cfg(TINY.format(stage), STEP_OPTS),
+    pipe = build_pipeline(config.load_cfg(TINY.format(stage), opts),
                           nms_pre_topk=PRE_TOPK, device="cpu")
     pipe.model.load_state_dict(flax_to_state_dict(variables), strict=True)
     graph = pipe.graph
@@ -350,19 +353,60 @@ def _to64(tree):
         else jnp.asarray(x), tree)
 
 
-def _jax_float64_step(jgraph, jpipe, variables, data, rng, jrpn: dict):
+class _F32Proposals:
+    """The stage's spec, but `propose` returns `proposals` (the f32 step's)."""
+
+    def __init__(self, spec, proposals):
+        self.spec, self.proposals = spec, proposals
+
+    def propose(self, outputs):
+        return self.proposals
+
+    def __getattr__(self, name):
+        return getattr(self.spec, name)
+
+
+def _f32_dfps(xyz, npoint, *args):
+    """The JAX D-FPS on xyz rounded to f32: the f32 step's picks."""
+    return jsampling.farthest_point_sample(xyz.astype(jnp.float32), npoint, *args)
+
+
+def _f32_expand_boxes(boxes, context):
+    """The pooler's grown boxes rounded to f32, as the f32 step rounds them."""
+    return _EXPAND_BOXES(boxes, context).astype(jnp.float32).astype(boxes.dtype)
+
+
+_EXPAND_BOXES = jtwo_stage.expand_boxes
+
+
+def _jax_float64_step(jgraph, jpipe, variables, data, rng, jrpn: dict,
+                      f32_lattice: bool = False):
     """The JAX stage-2 step in float64 from the f32 `variables` on `data`,
     stage 2 fed the f32 RPN outputs `jrpn` (its RPN runs for the statistics),
     with the f32 step's draws -> (leaves before, leaves after, metrics,
-    its minibatch). The RCNN's discrete decisions take the float64 values."""
-    with _float64():
+    its minibatch). The RCNN's discrete decisions take the float64 values,
+    but with `f32_lattice` (STD's voxel centres, whose distances tie) the
+    proposals are the f32 step's, the pooler's grown boxes are rounded to
+    f32 as the f32 step rounds them, and each D-FPS picks on its xyz rounded
+    to f32: where the grid is a power of two (the tests' 4 x 4 x 4) the
+    float64 lattice, dyadic unit centres times the f32 sizes, is then
+    exact, and rounded to f32 it is the f32 step's lattice, so its picks
+    are the f32 step's, where float64 rounding would break the ties
+    otherwise."""
+    proposals = tuple(jgraph.rpn_spec.propose(jrpn)) if f32_lattice else None
+    with _float64(), contextlib.ExitStack() as stack:
         params = _to64(variables)
         graph = dataclasses.replace(jgraph, model=_RpnOutputs(jpipe.model, _to64(jrpn)))
+        if f32_lattice:
+            graph = dataclasses.replace(graph, rpn_spec=_F32Proposals(jgraph.rpn_spec,
+                                                                      _to64(proposals)))
+            stack.enter_context(mock.patch.object(jmodules, "farthest_point_sample", _f32_dfps))
+            stack.enter_context(mock.patch.object(jtwo_stage, "expand_boxes", _f32_expand_boxes))
         state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params["params"],
                               batch_stats=params["batch_stats"],
                               opt_state=graph.tx.init(params["params"]))
         after, metrics = jax.jit(graph.train_step)(state, _to64(data), rng)
-        minibatch = _jax_minibatch(jgraph, _to64(jrpn), data, rng)
+        minibatch = _jax_minibatch(graph, _to64(jrpn), data, rng)
         return _jax_leaves(state), _jax_leaves(after), _np(metrics), minibatch
 
 
@@ -374,47 +418,52 @@ def stage_steps():
     for stage 2 also both packages' minibatches} for one f32 step of each
     stage from the same seeded state on the same batch."""
     data = synthetic_scenes(BATCH, 2048, seed=5)
-    out = {}
-    for stage in (1, 2):
-        jcfg = jax_load_cfg(TINY.format(stage), STEP_OPTS)
-        jpipe = jax_build_pipeline(jcfg, nms_pre_topk=PRE_TOPK)
-        jgraph = jpipe.graph
-        shapes = jax.eval_shape(
-            lambda p: jpipe.model.init(jax.random.PRNGKey(0), p, False, 0.9,
-                                       rpn_spec=jgraph.rpn_spec),
-            jnp.asarray(data["points"][:1]))
-        variables = _fill(shapes, 21)
-        jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
-                               batch_stats=variables["batch_stats"],
-                               opt_state=jgraph.tx.init(variables["params"]))
-        rng = jax.random.PRNGKey(5)
-        jafter, jmetrics = jax.jit(jgraph.train_step)(
-            jstate, {k: jnp.asarray(v) for k, v in data.items()}, rng)
-        run = dict(jax=(_jax_leaves(jstate), _jax_leaves(jafter), _np(jmetrics)),
-                   before=flax_to_state_dict(variables), lr=float(jmetrics["lr"]))
-        if stage == 1:
-            run["metrics"], run["after"], _ = _port_step(1, variables, data, None)
-            run["ref"] = run["jax"]
-        else:
-            # the frozen RPN's outputs are data to stage 2: the port's RPN
-            # runs (its statistics move) and stage 2 takes the JAX RPN's
-            # outputs, so that the RCNN's discrete decisions (RoI members,
-            # D-FPS picks of canonical points) see the same inputs. The two
-            # RPNs part by ~5e-5 of the largest output (stage 1's test holds
-            # them), which moves a proposal by ~1e-4 m: enough to flip a
-            # D-FPS pick of the RCNN.
-            jrpn = jax.jit(lambda v, p: jpipe.model.apply(
-                v, p, True, 0.9, method="rpn", mutable=["batch_stats"])[0])(
-                variables, jnp.asarray(data["points"]))
-            uniforms = _t(_jax_uniforms(rng, 0, BATCH, jgraph.rpn_spec.max_output))
-            run["metrics"], run["after"], run["minibatch"] = _port_step(
-                2, variables, data, uniforms,
-                {k: _t(v) if isinstance(v, jax.Array) else v for k, v in jrpn.items()})
-            run["jax_minibatch"] = _jax_minibatch(jgraph, jrpn, data, rng)
-            *run["ref"], run["ref_minibatch"] = _jax_float64_step(
-                jgraph, jpipe, variables, data, rng, jrpn)
-        out[stage] = run
-    return out
+    return {stage: stage_run(stage, data) for stage in (1, 2)}
+
+
+def stage_run(stage: int, data: dict, opts=STEP_OPTS, f32_lattice: bool = False) -> dict:
+    """One f32 step of the tiny config of `stage` with `opts` in both
+    packages from the same seeded state on `data` (a `stage_steps` run);
+    `f32_lattice` as `_jax_float64_step` takes it."""
+    jcfg = jax_load_cfg(TINY.format(stage), opts)
+    jpipe = jax_build_pipeline(jcfg, nms_pre_topk=PRE_TOPK)
+    jgraph = jpipe.graph
+    shapes = jax.eval_shape(
+        lambda p: jpipe.model.init(jax.random.PRNGKey(0), p, False, 0.9,
+                                   rpn_spec=jgraph.rpn_spec),
+        jnp.asarray(data["points"][:1]))
+    variables = _fill(shapes, 21)
+    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                           batch_stats=variables["batch_stats"],
+                           opt_state=jgraph.tx.init(variables["params"]))
+    rng = jax.random.PRNGKey(5)
+    jafter, jmetrics = jax.jit(jgraph.train_step)(
+        jstate, {k: jnp.asarray(v) for k, v in data.items()}, rng)
+    run = dict(jax=(_jax_leaves(jstate), _jax_leaves(jafter), _np(jmetrics)),
+               before=flax_to_state_dict(variables), lr=float(jmetrics["lr"]))
+    if stage == 1:
+        run["metrics"], run["after"], _ = _port_step(1, variables, data, None, opts=opts)
+        run["ref"] = run["jax"]
+    else:
+        # the frozen RPN's outputs are data to stage 2: the port's RPN
+        # runs (its statistics move) and stage 2 takes the JAX RPN's
+        # outputs, so that the RCNN's discrete decisions (RoI members,
+        # D-FPS picks of canonical points) see the same inputs. The two
+        # RPNs part by ~5e-5 of the largest output (stage 1's test holds
+        # them), which moves a proposal by ~1e-4 m: enough to flip a
+        # D-FPS pick of the RCNN.
+        jrpn = jax.jit(lambda v, p: jpipe.model.apply(
+            v, p, True, 0.9, method="rpn", mutable=["batch_stats"])[0])(
+            variables, jnp.asarray(data["points"]))
+        uniforms = _t(_jax_uniforms(rng, 0, BATCH, jgraph.rpn_spec.max_output))
+        run["metrics"], run["after"], run["minibatch"] = _port_step(
+            2, variables, data, uniforms,
+            {k: _t(v) if isinstance(v, jax.Array) else v for k, v in jrpn.items()},
+            opts=opts)
+        run["jax_minibatch"] = _jax_minibatch(jgraph, jrpn, data, rng)
+        *run["ref"], run["ref_minibatch"] = _jax_float64_step(
+            jgraph, jpipe, variables, data, rng, jrpn, f32_lattice)
+    return run
 
 
 def _jax_minibatch(jgraph, rpn: dict, data: dict, rng) -> dict:
@@ -442,7 +491,13 @@ def _jax_minibatch(jgraph, rpn: dict, data: dict, rng) -> dict:
 
 @pytest.mark.parametrize("stage", [1, 2])
 def test_stage_step_losses_match_jax(stage_steps, stage, record_property):
-    run = stage_steps[stage]
+    check_step_losses(stage_steps[stage], stage, record_property)
+
+
+def check_step_losses(run: dict, stage: int, record_property, tol: float = STEP_LOSS_TOL) -> None:
+    """A stage's step losses (a run of `stage_steps`) against its reference,
+    each within `tol` of the largest loss, and stage 2's minibatch against
+    the JAX step's."""
     want, got = run["ref"][2], run["metrics"]
     assert set(got) == set(want)
     losses_ = [k for k in want if k.startswith("loss_stage")]
@@ -450,7 +505,7 @@ def test_stage_step_losses_match_jax(stage_steps, stage, record_property):
                                                    else {"loss_stage0", "loss_stage1"})
     largest = max(abs(float(want[k])) for k in losses_)
     for key in losses_:
-        assert abs(got[key] - float(want[key])) <= STEP_LOSS_TOL * largest, (
+        assert abs(got[key] - float(want[key])) <= tol * largest, (
             key, got[key], float(want[key]))
     trained = [k for k in losses_ if stage == 1 or k.startswith("loss_stage1/")]
     assert got["total"] == pytest.approx(sum(got[k] for k in trained), rel=1e-6)
@@ -477,7 +532,12 @@ def test_stage_step_losses_match_jax(stage_steps, stage, record_property):
 
 @pytest.mark.parametrize("stage", [1, 2])
 def test_stage_step_state_matches_jax(stage_steps, stage):
-    run = stage_steps[stage]
+    check_step_state(stage_steps[stage], stage)
+
+
+def check_step_state(run: dict, stage: int) -> None:
+    """The state after a stage's step (a run of `stage_steps`) against its
+    reference, leaf by leaf; stage 2's frozen RPN bit for bit."""
     jbefore, jafter, _ = run["jax"]
     ref = run["ref"][1]
     mine, lr = run["after"], run["lr"]
