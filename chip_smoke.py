@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases, each of which raises on failure (no error is caught):
+Sixteen phases, each of which raises on failure (no error is caught):
 
 1. Environment: the card's name and power limit, torch / CUDA / nvcc
    versions, and the build of the CUDA kernels from `ssd3d_torch/csrc/`
@@ -44,7 +44,8 @@ Fifteen phases, each of which raises on failure (no error is caught):
    the step time, training scans/s, peak memory and a profile of one step;
    then holds K5 at the inputs of the step's 8 calls, bit for bit, timed.
 6. One f32 train step on the card against the CPU on 2 scans, same weights:
-   sampling picks, losses, every gradient leaf and the new BatchNorm
+   sampling picks, losses (each above 0 on both legs, so its gradients
+   are compared), every gradient leaf and the new BatchNorm
    statistics; and reports (not asserted: cuBLAS and the BatchNorm
    reductions keep no fixed order) how many gradient leaves two card steps
    from the same state give bit for bit.
@@ -124,6 +125,23 @@ Fifteen phases, each of which raises on failure (no error is caught):
    with 15 crops of 512 points a scan) on the flagship at batch 8: four
    steps, finite losses, launches; the augmentation card against CPU on the
    same draws; one f32 step card against CPU as phase 6.
+16. 3DSSD on nuScenes (`configs/nuscenes/3dssd/3dssd.yaml`: 10 classes, the
+   velocity and attribute heads, bf16, 200 outputs a class, seeded
+   weights) on a synthetic raw tree (`utils/synth_nuscenes.py`, 3 scenes
+   of 6 key frames) that `bin.preprocess` converts (up to 10 sweeps a key
+   frame) and the loader budgets to 16,384 points: K1, K2, K3 (both routes;
+   the grid's cell grown past the outer radius over the +-50 m range) and
+   K4 against their plain versions on the inputs of one forward at batch 4;
+   inference at batch 4 (launches by kernel and route) and at batch 1, 2
+   and 4 (scans/s, batch-1 latency, device busy time, peak memory); one
+   scan budgeted to 65,536 points (K1's slice route, K3's brute force)
+   against the plain versions and timed; card against CPU at f32 on one
+   scan (heads, velocity and attribute included); the bf16 train step at
+   batch 8 (Adam; K5 at its 8 calls; every loss finite and above 0) and
+   one f32 step card against CPU on two scans whose boxes carry an
+   attribute and a finite velocity, every loss above 0 on both legs;
+   then `bin.train` (4 iterations), `bin.evaluate` (mAP, NDS) and
+   `bin.test` (`nuscenes_result.json`, read back).
 
 The second line from the end is a JSON object with one entry per kernel:
 `launches_by_path` counts its launches in one run of each path (flagship
@@ -132,7 +150,9 @@ inference, phase 3; one training step, phase 5; PointRCNN inference, phase
 and PointRCNN's evaluate and test; one step of each PointRCNN training
 stage and the stage-wise CLI chain, phase 11; the public op path, phase 12;
 STD inference, phase 13; one STD stage-2 step and STD's CLI chain, phase 14;
-one step with the training options, phase 15), `launches` is their sum;
+one step with the training options, phase 15; nuScenes inference at batch 4
+and at 65,536 points, one nuScenes train step and nuScenes' CLI chain,
+phase 16), `launches` is their sum;
 times and bounds are of the shape in `shape`
 (K1's, K2's and K3's on the route that shape takes; `routes` holds every
 route's times at each shape of theirs, and `launches_by_route` their
@@ -154,6 +174,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -174,14 +195,17 @@ from ssd3d_torch.config import load_cfg
 from ssd3d_torch.core.geometry import boxes_to_bev_aabb, canonicalize_points
 from ssd3d_torch.core.iou import aabb_iou
 from ssd3d_torch.data.loader import KittiLoader
+from ssd3d_torch.data.nuscenes import NuScenesLoader
 import ssd3d_torch.ops as public_ops
 from ssd3d_torch.entry import (
     FLAGSHIP_CFG,
+    NUSCENES_CFG,
     POINTRCNN_CFG,
     STD_CFG,
     TRAIN_OPTIONS,
     flagship,
     init_weights,
+    nuscenes,
     pointrcnn,
     std,
     synthetic_candidates,
@@ -225,12 +249,12 @@ from ssd3d_torch.train.schedules import bn_momentum
 from ssd3d_torch.train.train_step import TrainGraph, trained_parameters
 from ssd3d_torch.train.two_stage_step import TwoStageGraph
 from ssd3d_torch.train.trainer import CheckpointManager, merge_by_name
-from ssd3d_torch.utils import synth
+from ssd3d_torch.utils import synth, synth_nuscenes
 from ssd3d_torch.utils.timing import cuda_ms
 
 BATCH = 8
 N_POINTS = 16384
-DEV = "cuda"  # the device of phases 12-15 (a rehearsal on the CPU sets "cpu")
+DEV = "cuda"  # the device of phases 12-16 (a rehearsal on the CPU sets "cpu")
 # An F-FPS pick may fall short of the step's farthest distance by this much
 # (relative): kernel and plain version sum d2 in the same order, so any gap
 # beyond float32 rounding is a wrong pick.
@@ -255,6 +279,8 @@ TRAIN_STEPS = 10
 TRAIN_GRAD_TOL = 1e-3
 _relu = torch.relu
 TWO_STAGE_BATCH = 4
+# the ball queries of one PointRCNN or STD forward, in launch order
+TWO_STAGE_SA_NAMES = ("RPN SA1", "RPN SA2", "RPN SA3", "RPN SA4", "RCNN SA1", "RCNN SA2")
 # timed PointRCNN passes per batch size (phase 8)
 PASSES = 9
 # K7 against its plain version, relative to the largest |value|: both sum
@@ -367,6 +393,13 @@ PATH_CALLS = {
     "STD stage 2": dict(fps=[(4, 16384), (4, 4096), (4, 1024), (4, 256), (256, 216),
                              (256, 128)], ffps=[],
                         ball_query=[16384, 4096, 1024, 256, 216, 128], sa_fused=[]),
+    # 3DSSD on nuScenes (phase 16): inference at batch 4, and one scan of
+    # 65,536 points (its train step at batch 8 takes the "3DSSD" calls)
+    "nuScenes": dict(fps=[(4, 16384), (4, 4096), (4, 512)], ffps=[(4, 4096, 67), (4, 512, 131)],
+                     ball_query=[16384, 4096, 1024, 512], sa_fused=[]),
+    "nuScenes 65,536": dict(fps=[(1, 65536), (1, 4096), (1, 512)],
+                            ffps=[(1, 4096, 67), (1, 512, 131)],
+                            ball_query=[65536, 4096, 1024, 512], sa_fused=[]),
 }
 
 
@@ -425,13 +458,15 @@ def phase_environment() -> str:
 
 # ----------------------------------------------------------------- phase 2
 
-def ball_query_routes(name: str, pts, q, radii, ns, dilated: bool, plain: bool = True) -> dict:
-    """K3 on both routes against its plain version at one shape (idx and cnt
-    equal), each route timed; the plain version timed too with `plain`."""
+def ball_query_routes(name: str, pts, q, radii, ns, dilated: bool, plain: bool = True,
+                      routes=("grid", "brute")) -> dict:
+    """K3 on both routes (or on `routes`) against its plain version at one
+    shape (idx and cnt equal), each route timed; the plain version timed too
+    with `plain`."""
     specs = ring_specs(radii, ns, dilated)
     ref = ball_query_multi_plain(specs, pts, q)
     times = {}
-    for route in ("grid", "brute"):
+    for route in routes:
         with on_ball_route(route):
             got = ball_query_multi(radii, ns, pts, q, dilated=dilated)
             for (gi, gc), (ri, rc) in zip(got, ref):
@@ -452,9 +487,10 @@ def ball_query_routes(name: str, pts, q, radii, ns, dilated: bool, plain: bool =
                                   3 if pts.shape[1] >= 4096 else 20)
     fill = [f"{float(c.float().mean()):.1f}" for _, c in ref]
     log(f"K3 ball query {out['shape']} rings {list(radii)} ns {list(ns)}: idx and cnt equal on "
-        f"both routes (mean cnt {fill}); grid {times['grid']:.4f} ms, brute force "
-        f"{times['brute']:.4f} ms ({times['brute'] / times['grid']:.2f}x); takes the {route} "
-        f"route" + (f"; plain {out['plain_ms']:.3f} ms" if plain else "")
+        f"{' and '.join(routes)} (mean cnt {fill}); "
+        + ", ".join(f"{r} {t:.4f} ms" for r, t in times.items())
+        + (f" ({times['brute'] / times['grid']:.2f}x)" if len(times) == 2 else "")
+        + f"; takes the {route} route" + (f"; plain {out['plain_ms']:.3f} ms" if plain else "")
         + f"; {pairs} pairs inside the outer ring, bound {out['bound_ms']:.4f} ms "
           f"({out['bound_by']})")
     return out
@@ -893,14 +929,19 @@ def _close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> None
     check(err <= tol * scale, f"{name} differ by {err:.3g}")
 
 
+HEAD_KEYS = ("cls", "offset", "angle_cls", "angle_res", "attribute", "velocity")
+
+
 def compare_with_cpu(scan: torch.Tensor, dtype: str, state_dict: dict | None = None,
-                     bf16_tol: float = BF16_TOL) -> bool:
+                     bf16_tol: float = BF16_TOL, build=None) -> bool:
     """Kernel path on the card against the plain path on the CPU for one
-    scan, with seeded weights or those of `state_dict`. Continuous values
+    scan, with seeded weights or those of `state_dict`, of the flagship or
+    of `build(dtype) -> (cfg, model on the card, spec)`. Continuous values
     are held to the tolerance (F32_TOL, or `bf16_tol` at bf16) wherever the
     two runs took the same discrete decisions (sampling picks, heading bins,
     NMS keeps); returns whether they took every one of them alike."""
-    cfg, gmodel, gspec, _ = flagship(device="cuda", seed=0, compute_dtype=dtype)
+    cfg, gmodel, gspec = (build(dtype) if build else
+                          flagship(device="cuda", seed=0, compute_dtype=dtype)[:3])
     if state_dict is not None:
         gmodel.load_state_dict(state_dict)
     cmodel = copy.deepcopy(gmodel).cpu()
@@ -936,7 +977,7 @@ def compare_with_cpu(scan: torch.Tensor, dtype: str, state_dict: dict | None = N
     if not picks_equal:
         return False
     tol = F32_TOL if dtype == "float32" else bf16_tol
-    for key in ("cls", "offset", "angle_cls", "angle_res"):
+    for key in (k for k in HEAD_KEYS if k in cout):
         _close(f"{dtype} head {key}", gout[key].float().cpu(), cout[key].float(), tol)
     # a heading bin is an argmax: where two logits lie within the tolerance
     # the bins may differ, and the decoded heading then by a whole bin
@@ -955,6 +996,10 @@ def compare_with_cpu(scan: torch.Tensor, dtype: str, state_dict: dict | None = N
            cdet["boxes"][0, rows[1], :6], tol)
     _close(f"{dtype} kept scores", gdet["scores"][0, rows[0]].cpu(),
            cdet["scores"][0, rows[1]], tol)
+    for key in ("velocity", "attribute"):  # nuScenes: gathered by the source point
+        if key in cdet:
+            _close(f"{dtype} kept {key}", gdet[key][0, rows[0]].float().cpu(),
+                   cdet[key][0, rows[1]].float(), tol)
     one_side = len(keep[0]) + len(keep[1]) - 2 * len(both)
     log(f"  {dtype}: {len(both)} detections kept on both, {one_side} on one side only")
     return one_side == 0 and not bool(flipped.any())
@@ -1159,11 +1204,19 @@ def phase_train_card_vs_cpu(opts=()) -> None:
     log(f"== phase {15 if opts else 6}: one f32 train step, card against CPU, {n_scans} scans of "
         f"{N_POINTS} points, same weights" + (", the training options" if opts else ""))
     cfg, gmodel, spec, n = flagship(device="cuda", seed=0, compute_dtype="float32", opts=opts)
-    cmodel = copy.deepcopy(gmodel).cpu()
-    gmodel2 = copy.deepcopy(gmodel)  # the same state, for a second card step
     data = {k: torch.from_numpy(v) for k, v in synthetic_scenes(n_scans, n).items()}
     if opts:
         data = augmented_card_vs_cpu(cfg, data, n)
+    hold_train_step_to_cpu(cfg, gmodel, spec, data)
+
+
+def hold_train_step_to_cpu(cfg, gmodel, spec, data: dict) -> None:
+    """One f32 loss and backward of `gmodel` (on the card, f32) on the CPU
+    batch `data`, card against a CPU copy of the same state, the card's
+    discrete decisions replayed on the CPU leg (`DecisionReplay`): picks,
+    losses, every gradient leaf and the new BatchNorm statistics."""
+    cmodel = copy.deepcopy(gmodel).cpu()
+    gmodel2 = copy.deepcopy(gmodel)  # the same state, for a second card step
     gmodel.train()
     gmodel2.train()
     cmodel.train()
@@ -1195,6 +1248,12 @@ def phase_train_card_vs_cpu(opts=()) -> None:
         + ", ".join(f"{k} {replay.differ[k]} of {replay.total[k]}" for k in replay.KINDS))
     vote_err = float((g_out["vote_offset"][0].cpu() - c_out["vote_offset"][0]).detach().abs().max())
     log(f"  vote offsets (the CG layer's centres): max |card - CPU| {vote_err:.3g}")
+    # a loss of 0 (no entries to average) has no gradient to compare
+    dead = [k for k in c_losses if not (g_losses[k] > 0 and c_losses[k] > 0)]
+    if dead:
+        log("  losses that read 0, card / CPU: " + "; ".join(
+            f"{k} {g_losses[k]:.6g} / {c_losses[k]:.6g}" for k in dead))
+    check(not dead, f"losses {dead} are not above 0 on both legs, so they compare nothing")
     loss_err = {k: abs(g_losses[k] - c_losses[k]) / abs(c_losses[k]) for k in c_losses}
     log("  losses, card / CPU (relative difference): " + "; ".join(
         f"{k} {g_losses[k]:.6f} / {c_losses[k]:.6f} ({loss_err[k]:.2g})" for k in c_losses))
@@ -1230,12 +1289,14 @@ def phase_train_card_vs_cpu(opts=()) -> None:
 
 def capture_two_stage_inputs(forward, points: torch.Tensor, sa_layers) -> dict:
     """One PointRCNN forward, recording the inputs of every launch of the
-    path's kernels: D-FPS (RPN SA1-SA4, RCNN SA1-SA2), ball query, row
+    path's kernels: D-FPS (RPN SA1-SA4, RCNN SA1-SA2), F-FPS (none; 3DSSD's
+    SA2 and SA3 on nuScenes, phase 16), ball query, row
     gather (RPN grouping; RegionPool's xyz, features and mask), three_nn
     (the four FP layers) and fused SA (RCNN SA1, SA2); and the inputs of the
     RCNN's SA modules `sa_layers`. Each kind's calls are held to its
     kernel's launches in that forward, so no launch goes unrecorded."""
     kinds = {"fps": (modules, "farthest_point_sample"),
+             "ffps": (modules, "farthest_point_sample_features"),
              "ball_query": (modules, "ball_query_multi"),
              "gather": (grouping, "_gather_rows"),
              "three_nn": (modules, "three_nn"),
@@ -1268,53 +1329,100 @@ def capture_two_stage_inputs(forward, points: torch.Tensor, sa_layers) -> dict:
     return seen
 
 
-def check_path_kernels(seen: dict, pool_widths=(3, 128, 1), what: str = "PointRCNN") -> dict:
-    """K1, K3 and K4 against their plain versions on the card, at every call
-    of one two-stage forward (phase 2 holds them at 3DSSD's shapes); K1 and
-    K3 on both routes. `pool_widths`: the widths of the RoI pooler's
-    gathers, the forward's last (RegionPool's xyz, features and mask;
-    PointsPool's, then its voxels' points). -> (K4's and torch.gather's
-    times at the pooler's gathers; K3's times on both routes at each
-    call)."""
+def check_path_kernels(report: list[dict], seen: dict, what: str, names, pool_widths=(),
+                       fps_routes=("block", "cluster"), timed: bool = False) -> None:
+    """K1, K2, K3 and K4 against their plain versions on the card, at every
+    call of one forward captured by `capture_two_stage_inputs` (phase 2
+    holds them at 3DSSD's KITTI shapes). K1 on `fps_routes` (past 16,384
+    points on the slice route alone), K2 on each route its shape admits
+    (picks equal), K3 on both routes (brute force alone past the grid's
+    16,384 points) at the ball queries `names`, K4 bit for bit. K4 is timed
+    against torch.gather at the RoI pooler's gathers, the forward's last,
+    of widths `pool_widths`, or at the first gather where the path has no
+    pooler; with `timed`, K1's and K2's routes and K3's plain version are
+    timed too. The shapes and times go into the report's entries, named
+    after `what`."""
+    by_name = {e["name"]: e for e in report}
     shapes = []
-    for (xyz, npoint), _ in seen["fps"]:
-        plain = fps_plain(xyz, npoint)
-        for route in ("block", "cluster"):
+    for (xyz, m), _ in seen["fps"]:
+        b, n = xyz.shape[:2]
+        plain = fps_plain(xyz, m)
+        routes = fps_routes if n <= 16384 else ("slice",)
+        times = {}
+        for route in routes:
             with on_route(route):
-                check(torch.equal(farthest_point_sample(xyz, npoint), plain),
-                      f"D-FPS {route} route disagrees with plain at {list(xyz.shape)} -> {npoint}")
-        shapes.append(f"{list(xyz.shape)}->{npoint} ({fps_route(*xyz.shape[:2])})")
-    log(f"K1 D-FPS at the path's {len(shapes)} calls, picks equal on both routes: "
-        f"{', '.join(shapes)}")
-    names = ["RPN SA1", "RPN SA2", "RPN SA3", "RPN SA4", "RCNN SA1", "RCNN SA2"]
+                check(torch.equal(farthest_point_sample(xyz, m), plain),
+                      f"{what}: D-FPS {route} route disagrees with plain at {[b, n]} -> {m}")
+                if timed:
+                    times[route] = cuda_ms(lambda: farthest_point_sample(xyz, m), 5)
+        shape = f"{[b, n, 3]} -> {m}"
+        shapes.append(f"{shape} ({fps_route(b, n)})")
+        if timed:
+            by_name["fps"]["routes"][f"{what} {shape}"] = dict(
+                route=fps_route(b, n), times=times,
+                **bound(4 * (b * n * 3 + b * m), b * (m - 1) * n * 10))
+            log(f"K1 D-FPS {what} {shape}: " + ", ".join(f"{r} {t:.4f} ms"
+                                                       for r, t in times.items()))
+    log(f"K1 D-FPS at {what}'s {len(shapes)} calls, picks equal on "
+        f"{', '.join(fps_routes)} (slice past 16,384 points): {', '.join(shapes)}")
+    for (fused, m), _ in seen["ffps"]:
+        b, n, c = fused.shape
+        plain = ffps_plain(fused, m)
+        routes = [r for r, ok in (("cluster", sampling.ffps_cluster_size(b, n, c)),
+                                  ("block", sampling.ffps_block_fits(n, c)),
+                                  ("stream", True)) if ok]
+        times = {}
+        for route in routes:
+            with on_ffps_route(route):
+                check(torch.equal(farthest_point_sample_features(fused, m), plain),
+                      f"{what}: F-FPS {route} route disagrees with plain at {[b, n, c]} -> {m}")
+                if timed:
+                    times[route] = cuda_ms(lambda: farthest_point_sample_features(fused, m), 5)
+        short = fps_pick_shortfall(fused, plain)
+        check(short <= FFPS_TIE_RTOL, f"{what}: F-FPS pick {short:.3g} below the farthest point")
+        shape = f"{[b, n, c]} -> {m}"
+        if timed:
+            by_name["ffps"]["routes"][f"{what} {shape}"] = dict(
+                route=sampling.ffps_route(b, n, c), times=times,
+                **bound(4 * (b * n * c + b * m), b * (m - 1) * n * (3 * c + 2)))
+        log(f"K2 F-FPS {what} {shape} ({fused.dtype}): picks equal to plain on "
+            f"{', '.join(routes)}; " + ", ".join(f"{r} {t:.4f} ms" for r, t in times.items())
+            + f"; takes the {sampling.ffps_route(b, n, c)} route")
     check(len(seen["ball_query"]) == len(names), f"{len(seen['ball_query'])} ball queries")
-    k3 = {}
     for name, ((radii, ns, xyz, new_xyz), kwargs) in zip(names, seen["ball_query"]):
-        k3[f"{what} {name}"] = ball_query_routes(f"{what} {name}", xyz, new_xyz, radii, ns,
-                                                 kwargs.get("dilated", False), plain=False)
-    shapes, pool = [], {}
-    n_pool = len(pool_widths)
-    check([src.shape[2] for (src, _), _ in seen["gather"][-n_pool:]] == list(pool_widths),
-          f"the RoI pooler's gathers are not the forward's last {n_pool}")
+        n, dilated = xyz.shape[1], kwargs.get("dilated", False)
+        if grouping.ball_query_route(n) == "grid":
+            specs = ring_specs(radii, ns, dilated)
+            log(f"K3 at {what} {name}: grid cell {grid_cell_edge(xyz, specs):.3f} m for an outer "
+                f"radius of {max(radii)} m (least cell {grouping.grid_cell_min(specs):.3f} m, at "
+                f"most {grouping.grid_cell_cap(n)} cells a cloud)")
+        by_name["ball_query"]["routes"][f"{what} {name}"] = ball_query_routes(
+            f"{what} {name}", xyz, new_xyz, radii, ns, dilated, plain=timed and n <= 16384,
+            routes=("grid", "brute") if n <= 16384 else ("brute",))
+    n_gather = len(seen["gather"])
+    pool = range(n_gather - len(pool_widths), n_gather)
+    check([seen["gather"][k][0][0].shape[2] for k in pool] == list(pool_widths),
+          f"the RoI pooler's gathers are not the forward's last {len(pool)}")
+    timed_at = pool if pool_widths else range(1)
+    shapes = []
     for k, ((src, idx), _) in enumerate(seen["gather"]):
         got, ref = grouping._gather_rows(src, idx), gather_rows_plain(src, idx)
         check(got.dtype == ref.dtype and torch.equal(got.view(torch.int32), ref.view(torch.int32)),
-              f"gather not bit-identical at {list(src.shape)} x {idx.shape[1]} rows")
+              f"{what}: gather not bit-identical at {list(src.shape)} x {idx.shape[1]} rows")
         shape = f"{list(src.shape)} x {idx.shape[1]} rows"
         shapes.append(shape)
-        if k >= len(seen["gather"]) - n_pool:
+        if k in timed_at:
             wide = idx.long().clamp(0, src.shape[1] - 1)[..., None].expand(-1, -1, src.shape[2])
             b, rows, c = idx.shape[0], idx.shape[1], src.shape[2]
-            pool[shape] = dict(ms=cuda_ms(lambda: grouping._gather_rows(src, idx), 20),
-                               library_ms=cuda_ms(lambda: src.gather(1, wide), 20),
-                               **bound(4 * (b * min(rows, src.shape[1]) * c + b * rows
-                                            + b * rows * c), 0))
-            log(f"K4 gather {what}'s RoI pool {shape}: {pool[shape]['ms']:.4f} ms vs torch.gather "
-                f"{pool[shape]['library_ms']:.4f} ms (K4 / torch.gather "
-                f"{pool[shape]['ms'] / pool[shape]['library_ms']:.2f}), bound "
-                f"{pool[shape]['bound_ms']:.4f} ms")
-    log(f"K4 gather at the path's {len(shapes)} calls, bit-identical: {', '.join(shapes)}")
-    return pool, k3
+            t = dict(ms=cuda_ms(lambda: grouping._gather_rows(src, idx), 20),
+                     plain_ms=cuda_ms(lambda: gather_rows_plain(src, idx), 20),
+                     library_ms=cuda_ms(lambda: src.gather(1, wide), 20),
+                     **bound(4 * (b * min(rows, src.shape[1]) * c + b * rows + b * rows * c), 0))
+            by_name["gather"]["other_shapes"][f"{what} {shape}"] = t
+            log(f"K4 gather {what} {shape}: {t['ms']:.4f} ms vs torch.gather "
+                f"{t['library_ms']:.4f} ms (K4 / torch.gather {t['ms'] / t['library_ms']:.2f}), "
+                f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+    log(f"K4 gather at {what}'s {len(shapes)} calls, bit-identical: {', '.join(shapes)}")
 
 
 @torch.inference_mode()
@@ -1331,9 +1439,7 @@ def phase_two_stage_kernels(report: list[dict]) -> list[dict]:
     check(len(seen["three_nn"]) == 4 and len(seen["sa_fused"]) == 2
           and len(seen["sa_module"]) == 2,
           f"captured {len(seen['three_nn'])} three_nn and {len(seen['sa_fused'])} fused-SA calls")
-    pool, k3 = check_path_kernels(seen)
-    next(e for e in report if e["name"] == "gather")["other_shapes"].update(pool)
-    next(e for e in report if e["name"] == "ball_query")["routes"].update(k3)
+    check_path_kernels(report, seen, "PointRCNN", TWO_STAGE_SA_NAMES, (3, 128, 1))
     report = []
 
     # K6 at the four FP shapes, FP4 (256 x 64) to FP1 (16,384 x 4,096), with
@@ -2744,10 +2850,8 @@ def phase_std_kernels(report: list[dict]) -> None:
     seen = capture_two_stage_inputs(lambda p: pipe.model(p, pipe.rpn_spec), points, layers)
     check(len(seen["three_nn"]) == 4 and len(seen["sa_fused"]) == 2,
           f"captured {len(seen['three_nn'])} three_nn and {len(seen['sa_fused'])} fused-SA calls")
-    pool, k3 = check_path_kernels(seen, (3, 128, 1, 3 + 2 + 128), "STD")
+    check_path_kernels(report, seen, "STD", TWO_STAGE_SA_NAMES, (3, 128, 1, 3 + 2 + 128))
     by_name = {e["name"]: e for e in report}
-    by_name["gather"]["other_shapes"].update({f"STD {k}": v for k, v in pool.items()})
-    by_name["ball_query"]["routes"].update(k3)
     # K1 at the RCNN's D-FPS over the voxel lattice, timed on both routes
     (lattice, m), _ = seen["fps"][4]
     check(tuple(lattice.shape) == (400, 216, 3), f"the RCNN's SA1 samples {tuple(lattice.shape)}")
@@ -2944,6 +3048,305 @@ def phase_train_options() -> dict:
     return {"train_options": launches}
 
 
+# ----------------------------------------------------------------- phase 16
+
+# Phase 16's synthetic raw nuScenes tree (`utils/synth_nuscenes.py`): scenes
+# of key frames 0.5 s apart with one sweep between, a frame of about the
+# points a 32-beam LIDAR_TOP returns; scene 0 is the val split. A key frame
+# aggregates up to 10 sweeps (NSWEEPS) before the voxel budget.
+NUSC_SCENES, NUSC_SAMPLES, NUSC_FRAME_POINTS = 3, 6, 34000
+NUSC_BATCHES = (1, 2, 4)
+# the config's global batch (BATCH_SIZE 4 x GPU_NUM 2)
+NUSC_TRAIN_BATCH = 8
+NUSC_TRAIN_STEPS = 3
+# the point budget of the reference bench's nuScenes row
+# (benchmarks/bench_configs.py:101)
+NUSC_BIG = 65536
+NUSC_CLI_ITERS = 4
+NUSC_LOSS_KEYS = LOSS_KEYS + ("attribute", "velocity")
+NUSC_INPUTS = ("points", "gt_boxes", "gt_labels", "gt_velocity", "gt_attribute")
+# the ball queries of one nuScenes 3DSSD forward, in launch order, and K1's
+# routes held at its shapes up to 16,384 points (past them the slice route)
+NUSC_SA_NAMES = ("SA1", "SA2", "SA3", "CG-SA")
+NUSC_FPS_ROUTES = ("block", "cluster", "slice")
+
+
+def grid_cell_edge(xyz: torch.Tensor, specs) -> float:
+    """K3's grid cell edge for the first cloud of `xyz` [b, n, 3]: the rule of
+    `grid_build_kernel` (csrc/ball_query.cu), at least the outer ring's radius
+    with its margin, grown by 1.25 until the cloud's box takes at most
+    `grid_cell_cap(n)` cells."""
+    pts = xyz[0].double().cpu()
+    ext = (pts.amax(0) - pts.amin(0)).tolist()
+    cell = max(grouping.grid_cell_min(specs), max(ext) / 1023)
+    while math.prod(int(math.floor(e / cell)) + 1 for e in ext) > grouping.grid_cell_cap(
+            xyz.shape[1]):
+        cell *= 1.25
+    return cell
+
+
+def nuscenes_inference(pipe, scans: torch.Tensor, path: str, what: str) -> dict:
+    """One forward, decode and NMS of `scans` with its launches by kernel and
+    route, outputs checked -> the launches."""
+    _build.reset_launches()
+    det = pipe.infer(scans)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    log(f"kernel launches in one {what} forward, decode and NMS: {launches}")
+    check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather"))
+          and launches["scatter_add"] == launches["three_nn"] == launches["sa_fused"] == 0,
+          f"{what}: launches {launches}")
+    launches["routes"] = check_routes(what, path)
+    b, k = scans.shape[0], 10 * pipe.spec.max_output
+    check(det["boxes"].shape == (b, k, 7) and det["velocity"].shape == (b, k, 2)
+          and det["attribute"].shape == (b, k, 8), f"{what}: detections "
+          f"{tuple(det['boxes'].shape)}, velocity {tuple(det['velocity'].shape)}, attribute "
+          f"{tuple(det['attribute'].shape)}")
+    valid = det["valid"]
+    for key in ("boxes", "scores", "velocity", "attribute"):
+        check(bool(torch.isfinite(det[key][valid]).all()), f"{what}: non-finite kept {key}")
+    check(bool(valid.any() and (valid.sum(-1) <= k).all()), f"{what}: no scan kept a box")
+    per_class = torch.stack([valid[:, c0:c0 + pipe.spec.max_output].sum(-1)
+                             for c0 in range(0, k, pipe.spec.max_output)], -1)
+    log(f"{what}: boxes kept per scan {valid.sum(-1).tolist()} (per class, scan 0: "
+        f"{per_class[0].tolist()})")
+    return launches
+
+
+def nuscenes_sweep(pipe, scans: torch.Tensor) -> None:
+    """Inference at NUSC_BATCHES: for each a warm-up, PASSES timed passes,
+    peak memory and one profiled pass (device busy time, launches)."""
+    walls, busies = [], []
+    for bb in NUSC_BATCHES:
+        chunk = scans[:bb].contiguous()
+        timed_pass(pipe.infer, chunk)
+        torch.cuda.reset_peak_memory_stats()
+        dts = sorted(timed_pass(pipe.infer, chunk) * 1e3 for _ in range(PASSES))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        walls.append(statistics.median(dts))
+        wall, busy = profile_once(lambda: pipe.infer(chunk), f"nuScenes batch of {bb}",
+                                  top=12 if bb == NUSC_BATCHES[-1] else 0, each="dfps")
+        busies.append(busy)
+        log(f"nuScenes batch {bb}: median {walls[-1]:.2f} ms of {PASSES} passes (min "
+            f"{dts[0]:.2f}, max {dts[-1]:.2f}); {bb * 1e3 / walls[-1]:.2f} scans/s; device busy "
+            f"{busy:.2f} ms of a profiled {wall:.2f} ms pass (host share "
+            f"{100 * (1 - busy / wall):.1f}%); peak memory {peak:.2f} GiB")
+    fixed, per_scan = linear_fit(NUSC_BATCHES, walls)
+    busy_fixed, busy_per_scan = linear_fit(NUSC_BATCHES, busies)
+    log(f"nuScenes batch scaling fit over b {list(NUSC_BATCHES)}: wall {fixed:.2f} ms + "
+        f"{per_scan:.2f} ms a scan; device busy {busy_fixed:.2f} ms + {busy_per_scan:.2f} ms a "
+        f"scan; batch-1 latency {walls[0]:.2f} ms")
+
+
+def nuscenes_big(report: list[dict], data_opts: list) -> dict:
+    """One scan budgeted to NUSC_BIG points (the config's sample counts as
+    shipped): its kernels against their plain versions (K1's slice route,
+    K3's brute force), launches and routes, timed passes -> the launches."""
+    cfg = load_cfg(str(NUSCENES_CFG), data_opts + [
+        "DATASET.NUSCENES.MAX_CUR_SAMPLE_POINTS_NUM", str(NUSC_BIG),
+        "MODEL.POINTS_NUM_FOR_TRAINING", str(NUSC_BIG)])
+    loader = NuScenesLoader(cfg, "val", training=False)
+    sample = loader.load_sample(NUSC_SAMPLES - 1)  # the last key frame: 10 sweeps
+    scan = torch.from_numpy(sample["points"][None]).to(DEV)
+    check(scan.shape == (1, NUSC_BIG, 4), f"the {NUSC_BIG}-point scan is {tuple(scan.shape)}")
+    pipe = build_pipeline(cfg, device=DEV)
+    init_weights(pipe.model, 0)
+    check_path_kernels(report, capture_two_stage_inputs(pipe.infer, scan, ()),
+                       f"nuScenes {NUSC_BIG}", NUSC_SA_NAMES, fps_routes=NUSC_FPS_ROUTES,
+                       timed=True)
+    launches = nuscenes_inference(pipe, scan, "nuScenes 65,536", f"nuScenes {NUSC_BIG}")
+    timed_pass(pipe.infer, scan)
+    torch.cuda.reset_peak_memory_stats()
+    dts = sorted(timed_pass(pipe.infer, scan) * 1e3 for _ in range(PASSES))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall, busy = profile_once(lambda: pipe.infer(scan), f"nuScenes {NUSC_BIG} points, batch 1",
+                              top=8, each="dfps|ball_query")
+    log(f"nuScenes at {NUSC_BIG} points, batch 1: median {dts[len(dts) // 2]:.2f} ms of {PASSES} "
+        f"passes (min {dts[0]:.2f}, max {dts[-1]:.2f}); device busy {busy:.2f} ms of a profiled "
+        f"{wall:.2f} ms pass; peak memory {peak:.2f} GiB")
+    return launches
+
+
+def nuscenes_training(report: list[dict], batch: dict) -> dict:
+    """The bf16 train step at the config's global batch (Adam at
+    SOLVER.BASE_LR): a warm-up and NUSC_TRAIN_STEPS timed steps, launches,
+    K5 at the step's calls; then one f32 step card against CPU on two of its
+    scans whose boxes give the attribute and velocity losses targets, every
+    loss above 0 on both legs -> the launches of one step."""
+    cfg, model, spec = nuscenes(device=DEV, seed=0)
+    graph = TrainGraph.build(cfg, model, spec)
+    state = graph.init_state()
+    data = {k: torch.from_numpy(batch[k]).to(DEV) for k in NUSC_INPUTS}
+    _build.reset_launches()
+    first = graph.train_step(state, data)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    log(f"kernel launches in one nuScenes train step: {launches}")
+    check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather"))
+          and launches["scatter_add"] == 8 and launches["three_nn"] == launches["sa_fused"] == 0,
+          f"nuScenes train step: launches {launches}")
+    launches["routes"] = check_routes("the nuScenes train step", "3DSSD")
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [first], []
+    for _ in range(NUSC_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(graph.train_step(state, data))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for m in metrics:
+        check(set(NUSC_LOSS_KEYS) <= set(m)
+              and all(np.isfinite(float(m[k])) and float(m[k]) > 0
+                      for k in NUSC_LOSS_KEYS + ("total",)),
+              f"nuScenes train step: a loss is missing, not finite or 0: {m}")
+    lr = state.optimizer.param_groups[0]["lr"]
+    check(state.optimizer.__class__.__name__ == "Adam"
+          and math.isclose(lr, cfg.SOLVER.BASE_LR, rel_tol=1e-6),
+          f"the nuScenes step is not Adam at SOLVER.BASE_LR: {type(state.optimizer)}, lr {lr}")
+    wall, busy = profile_once(lambda: graph.train_step(state, data),
+                              f"nuScenes train step at batch {NUSC_TRAIN_BATCH}", top=12)
+    step_ms = statistics.median(times)
+    log("losses by step (" + ", ".join(NUSC_LOSS_KEYS) + ", total): " + "; ".join(
+        ", ".join(f"{float(m[k]):.4f}" for k in NUSC_LOSS_KEYS + ("total",)) for m in metrics))
+    log(f"nuScenes bf16 train step at batch {NUSC_TRAIN_BATCH}: median {step_ms:.2f} ms (min "
+        f"{min(times):.2f}, max {max(times):.2f}) over {NUSC_TRAIN_STEPS} steps; "
+        f"{NUSC_TRAIN_BATCH * 1e3 / step_ms:.2f} training scans/s; device busy {busy:.2f} ms of "
+        f"a profiled {wall:.2f} ms step; peak memory {peak:.2f} GiB")
+    calls = []
+
+    def recorded(idx, g, n):
+        calls.append((idx.detach().clone(), g.detach().clone(), n))
+        return scatter_add_rows(idx, g, n)
+
+    with mock.patch.object(grouping, "scatter_add_rows", recorded):
+        graph.train_step(state, data)
+    check(len(calls) == 8, f"recorded {len(calls)} scatter-add calls in a nuScenes train step")
+    entry = next(e for e in report if e["name"] == "scatter_add")
+    entry["nuscenes_train_step_shapes"] = [
+        k5_check(f"nuScenes train call {i}: {g.shape[0] * g.shape[1]} x {g.shape[2]} into {n}",
+                 idx, g, n) for i, (idx, g, n) in enumerate(calls)]
+    del graph, state, model
+    # two scans each holding a box with an attribute and a finite velocity,
+    # so the attribute and velocity losses have targets on both legs
+    live = ((batch["gt_labels"] > 0) & (batch["gt_attribute"] >= 0)
+            & np.isfinite(batch["gt_velocity"]).all(-1))
+    pick = np.flatnonzero(live.any(-1))[:2]
+    check(len(pick) == 2, f"scans with an attributed, moving box: {pick.tolist()}")
+    log(f"one f32 nuScenes train step, card against CPU, scans {pick.tolist()} of the batch "
+        f"({live[pick].sum(-1).tolist()} boxes with an attribute and a finite velocity), same "
+        "weights:")
+    cfg32, gmodel, spec32 = nuscenes(compute_dtype="float32", device=DEV, seed=0)
+    hold_train_step_to_cpu(cfg32, gmodel, spec32,
+                           {k: torch.from_numpy(batch[k][pick]) for k in NUSC_INPUTS})
+    return launches
+
+
+def nuscenes_cli(root: str, data_opts: list, lists: dict) -> dict:
+    """bin.train of the full config for NUSC_CLI_ITERS iterations,
+    bin.evaluate (NDS and mAP) and bin.test (the submission JSON, read back)
+    on the tree bin.preprocess converted -> the chain's launches."""
+    run = os.path.join(root, "run")
+    opts = data_opts + ["TRAIN.CONFIG.MAX_ITERATIONS", str(NUSC_CLI_ITERS),
+                        "TRAIN.CONFIG.CHECKPOINT_INTERVAL", str(NUSC_CLI_ITERS),
+                        "TRAIN.CONFIG.SUMMARY_INTERVAL", "1", "TEST.BATCH_SIZE", "4"]
+    cfg_path = str(NUSCENES_CFG)
+    seconds = {}
+
+    def chain():
+        for name, fn in (("train", lambda: train_cli.main(["--cfg", cfg_path, "--log_dir", run]
+                                                           + opts)),
+                         ("evaluate", lambda: evaluate_cli.main(
+                             ["--cfg", cfg_path, "--log_dir", run, "--once", "--cls_threshold",
+                              "0.0"] + opts)),
+                         ("test", lambda: test_cli.main(["--cfg", cfg_path, "--log_dir", run,
+                                                         "--cls_threshold", "0.0"] + opts))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+
+    launches = cli_launches("the nuScenes bin.train, bin.evaluate and bin.test", chain)
+    check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather", "scatter_add"))
+          and launches["three_nn"] == launches["sa_fused"] == 0,
+          f"the nuScenes CLI chain launched {launches}")
+    metrics = _metrics(run)
+    check([m["iter"] for m in metrics] == list(range(1, NUSC_CLI_ITERS + 1))
+          and all(np.isfinite(m[k]) for m in metrics for k in NUSC_LOSS_KEYS + ("total",)),
+          f"bin.train logged {metrics}")
+    sec = [m["sec_per_it"] for m in metrics[1:]]
+    wait = [m["loader_wait_s"] for m in metrics[1:]]
+    with open(os.path.join(run, f"eval_{NUSC_CLI_ITERS}.json")) as f:
+        res = json.load(f)
+    check(np.isfinite(res["NDS"]) and np.isfinite(res["mAP"]) and 0 <= res["NDS"] <= 1,
+          f"NDS {res['NDS']}, mAP {res['mAP']}")
+    with open(os.path.join(run, "nuscenes_result.json")) as f:
+        dump = json.load(f)
+    records = [r for recs in dump["results"].values() for r in recs]
+    check(sorted(dump["results"]) == sorted(lists["val"]) and records
+          and all(len(r["translation_cam"]) == 3 and len(r["velocity_cam"]) == 2
+                  and 0 <= r["attribute_id"] < 8 for r in records),
+          "nuscenes_result.json does not hold the val split's detections")
+    log(f"nuScenes CLI: bin.train at batch {NUSC_TRAIN_BATCH}, iterations 2-{NUSC_CLI_ITERS}: "
+        f"median {statistics.median(sec):.4f} s/it, loader wait "
+        f"{100 * sum(wait) / sum(sec):.1f}%; bin.evaluate of {len(lists['val'])} val scans at "
+        f"TEST.BATCH_SIZE 4: mAP {res['mAP']:.4f}, NDS {res['NDS']:.4f}; bin.test wrote "
+        f"{len(records)} records; seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return launches
+
+
+def phase_nuscenes(report: list[dict]) -> dict:
+    """3DSSD on nuScenes (`configs/nuscenes/3dssd/3dssd.yaml`) on scans of a
+    synthetic raw tree converted by bin.preprocess and read by the loader:
+    the kernels at its shapes, inference at NUSC_BATCHES and at NUSC_BIG
+    points, card against CPU, the train step and the CLI chain -> the
+    launches of its paths."""
+    log("== phase 16: nuScenes 3DSSD (configs/nuscenes/3dssd/3dssd.yaml: 10 classes, velocity "
+        "and attribute heads, bf16, 200 outputs a class) on the card")
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="ssd3d_nusc_") as root:
+        raw, npz = os.path.join(root, "raw"), os.path.join(root, "npz")
+        t0 = time.perf_counter()
+        version = synth_nuscenes.write_tree(raw, n_scenes=NUSC_SCENES,
+                                            samples_per_scene=NUSC_SAMPLES,
+                                            n_points=NUSC_FRAME_POINTS, seed=0)
+        t1 = time.perf_counter()
+        data_opts = ["DATASET.NUSCENES.BASE_DIR_PATH", raw, "DATASET.NUSCENES.VERSION", version,
+                     "DATASET.NUSCENES.SAVE_NUMPY_PATH", npz]
+        lists = preprocess_cli.main(["--cfg", str(NUSCENES_CFG), "--device", DEV] + data_opts)
+        t2 = time.perf_counter()
+        check(len(lists["train"]) == (NUSC_SCENES - 1) * NUSC_SAMPLES
+              and len(lists["val"]) == NUSC_SAMPLES, f"bin.preprocess wrote {lists}")
+        sizes = [len(np.load(os.path.join(npz, split, f"{name}.npz"))["points"])
+                 for split in lists for name in lists[split]]
+        log(f"wrote a raw tree of {NUSC_SCENES} scenes x {NUSC_SAMPLES} key frames "
+            f"({NUSC_FRAME_POINTS} points a frame) in {t1 - t0:.1f} s; bin.preprocess aggregated "
+            f"{len(sizes)} key frames of {min(sizes)}-{max(sizes)} points in {t2 - t1:.1f} s")
+        cfg = load_cfg(str(NUSCENES_CFG), data_opts)
+        batch = next(NuScenesLoader(cfg, "train", seed=0).batches(NUSC_TRAIN_BATCH))
+        scans = torch.from_numpy(batch["points"]).to(DEV)
+        check(scans.shape == (NUSC_TRAIN_BATCH, 16384, 4), f"the loader gave {tuple(scans.shape)}")
+        log(f"loader batch: {NUSC_TRAIN_BATCH} scans of 16384 points (x, y, z, time lag up to "
+            f"{float(batch['points'][..., 3].max()):.2f} s), "
+            f"{int((batch['gt_labels'] > 0).sum())} boxes")
+        pipe = build_pipeline(cfg, device=DEV)
+        init_weights(pipe.model, 0)
+        b = NUSC_BATCHES[-1]
+        check_path_kernels(report, capture_two_stage_inputs(pipe.infer, scans[:b].contiguous(), ()),
+                           "nuScenes", NUSC_SA_NAMES, fps_routes=NUSC_FPS_ROUTES, timed=True)
+        paths["nuscenes"] = nuscenes_inference(pipe, scans[:b].contiguous(), "nuScenes",
+                                               f"nuScenes batch {b}")
+        nuscenes_sweep(pipe, scans)
+        del pipe
+        paths["nuscenes_65536"] = nuscenes_big(report, data_opts)
+        log("nuScenes card against CPU, one scan, same weights, f32:")
+        check(compare_with_cpu(scans[:1].contiguous(), "float32", build=lambda dtype: nuscenes(
+            compute_dtype=dtype, device=DEV, seed=0)),
+            "nuScenes float32: picks, bins or kept detections differ between card and CPU")
+        paths["nuscenes_train"] = nuscenes_training(report, batch)
+        paths["nuscenes_cli"] = nuscenes_cli(root, ["--device", DEV] + data_opts, lists)
+    return paths
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2978,6 +3381,7 @@ def main() -> int:
     timed(phase_two_stage_card_vs_cpu, scans, "std")
     paths.update(timed(phase_std_training))
     paths.update(timed(phase_train_options))
+    paths.update(timed(phase_nuscenes, report))
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

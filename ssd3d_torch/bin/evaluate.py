@@ -3,8 +3,8 @@
 device: the card unless `--device cpu`.
 
 Polls the checkpoint dir, evaluates new checkpoints on the val split, keeps
-the best by Car-Moderate-3D AP (or mean Ped/Cyc), and copies the best
-checkpoint aside (evaluator.py:94-135). Takes single-stage (3DSSD) and
+the best by Car-Moderate-3D AP (or mean Ped/Cyc; on nuScenes by NDS), and
+copies the best checkpoint aside (evaluator.py:94-135). Takes single-stage (3DSSD) and
 two-stage (PointRCNN) configs through `models.api.build_pipeline`.
 
     python -m ssd3d_torch.bin.evaluate --cfg <yaml> --log_dir runs/3dssd \
@@ -25,6 +25,7 @@ from ssd3d_torch.bin import cli_device
 from ssd3d_torch.config import load_cfg
 from ssd3d_torch.data import build_loader
 from ssd3d_torch.data.kitti_io import KittiScene
+from ssd3d_torch.eval import nuscenes_predictions as nusc
 from ssd3d_torch.eval.predictions import (
     evaluate_recall,
     evaluate_split,
@@ -50,10 +51,13 @@ def evaluate_checkpoint(cfg, pipeline, split="val", cls_thresh=0.3, limit=None,
                         log=print, viz_dir=None, viz_scans=0):
     """The pipeline (its weights loaded) over a split -> (results, the
     model-selection metric)."""
-    if cfg.DATASET.TYPE.upper() == "NUSCENES":
-        raise NotImplementedError("bin.evaluate: nuScenes is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
     loader = build_loader(cfg, split, training=False)
+    if cfg.DATASET.TYPE.upper() == "NUSCENES":
+        # mAP and NDS; NDS selects the checkpoint
+        det, gt, _ = nusc.run_inference_on_split(
+            cfg, pipeline, loader, cls_thresh=cls_thresh, log=log, limit=limit,
+            batch_size=cfg.TEST.BATCH_SIZE)
+        return nusc.evaluate_split(cfg, det, gt, pipeline.cls_list, log=log)
     scene = KittiScene(cfg.DATASET.KITTI.BASE_DIR_PATH, "training")
     props = []  # stage-1 proposals (two-stage models only)
     det, gt, _ = run_inference_on_split(

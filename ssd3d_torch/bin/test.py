@@ -1,6 +1,8 @@
-"""One-shot inference + KITTI result files (counterpart of
-`ssd3d/bin/test.py`, the reference's lib/core/tester.py), on one device:
-the card unless `--device cpu`.
+"""One-shot inference + prediction dump (counterpart of `ssd3d/bin/test.py`,
+the reference's lib/core/tester.py), on one device: the card unless
+`--device cpu`. KITTI configs write per-scan result txts; nuScenes configs
+write one submission-style JSON, `<log_dir>/nuscenes_result.json`
+(`eval/nuscenes_predictions.py`).
 
     python -m ssd3d_torch.bin.test --cfg <yaml> --log_dir runs/3dssd \
         [--split val] [--cls_threshold 0.3] [--device cpu]
@@ -21,6 +23,7 @@ from ssd3d_torch.bin import cli_device
 from ssd3d_torch.config import load_cfg
 from ssd3d_torch.data import build_loader
 from ssd3d_torch.data.kitti_io import KittiScene
+from ssd3d_torch.eval import nuscenes_predictions as nusc
 from ssd3d_torch.eval.predictions import run_inference_on_split
 from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.train.trainer import CheckpointManager, restore_from_path
@@ -46,9 +49,6 @@ def main(argv: list[str] | None = None):
     args = ap.parse_args(argv)
     device = cli_device(args.device)
     cfg = load_cfg(args.cfg, args.opts)
-    if cfg.DATASET.TYPE.upper() == "NUSCENES":
-        raise NotImplementedError("bin.test: nuScenes is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
     pipeline = build_pipeline(cfg, device=device)
     loader = build_loader(cfg, args.split, training=False)
     if args.restore_model_path:
@@ -60,6 +60,14 @@ def main(argv: list[str] | None = None):
         raise FileNotFoundError(f"no checkpoint under {args.log_dir}/ckpt")
     pipeline.model.load_state_dict(ckpt["model"])
     print(f"restored step {step}")
+
+    if cfg.DATASET.TYPE.upper() == "NUSCENES":
+        save_path = os.path.join(args.log_dir, "nuscenes_result.json")
+        nusc.run_inference_on_split(
+            cfg, pipeline, loader, cls_thresh=args.cls_threshold, save_path=save_path,
+            limit=args.limit, batch_size=cfg.TEST.BATCH_SIZE)
+        print(f"predictions saved to {save_path}")
+        return
 
     # the KITTI test set lives under <root>/testing and has no labels
     # (reference tester.py --split/--no_gt)

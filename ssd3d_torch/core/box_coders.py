@@ -214,17 +214,31 @@ class BoxCoder:
         return out.reshape(bs, pts, cls_num, 7)
 
 
-# per-class mean sizes (l, h, w) of KITTI's classes
+# per-class mean sizes (l, h, w) of the datasets the port loads, keyed
+# "<dataset prefix>_<class>" (reference lib/utils/model_util.py:19-49)
 MEAN_SIZES = {
-    "Car": (3.88311640418, 1.62856739989, 1.52563191462),
-    "Van": (5.06763659, 1.9007158, 2.20532825),
-    "Truck": (10.13586957, 2.58549199, 3.2520595),
-    "Pedestrian": (0.84422524, 1.76255119, 0.66068622),
-    "Person_sitting": (0.80057803, 1.27450867, 0.5983815),
-    "Cyclist": (1.76282397, 1.73698127, 0.59706367),
-    "Tram": (16.17150617, 2.53246914, 3.53079012),
-    "Misc": (3.64300781, 1.54298177, 1.92320313),
+    "Kitti_Car": (3.88311640418, 1.62856739989, 1.52563191462),
+    "Kitti_Van": (5.06763659, 1.9007158, 2.20532825),
+    "Kitti_Truck": (10.13586957, 2.58549199, 3.2520595),
+    "Kitti_Pedestrian": (0.84422524, 1.76255119, 0.66068622),
+    "Kitti_Person_sitting": (0.80057803, 1.27450867, 0.5983815),
+    "Kitti_Cyclist": (1.76282397, 1.73698127, 0.59706367),
+    "Kitti_Tram": (16.17150617, 2.53246914, 3.53079012),
+    "Kitti_Misc": (3.64300781, 1.54298177, 1.92320313),
+    "NuScenes_child": (0.527759, 1.376287, 0.513003),
+    "NuScenes_barrier": (0.494674, 0.988850, 2.512046),
+    "NuScenes_bicycle": (1.698427, 1.293067, 0.604398),
+    "NuScenes_bus": (11.180965, 3.495353, 2.94905),
+    "NuScenes_car": (4.619270, 1.735112, 1.960518),
+    "NuScenes_construction_vehicle": (6.479316, 3.174820, 2.820066),
+    "NuScenes_motorcycle": (2.110251, 1.464422, 0.776560),
+    "NuScenes_pedestrian": (0.727708, 1.772415, 0.669095),
+    "NuScenes_traffic_cone": (0.414219, 1.076862, 0.408734),
+    "NuScenes_trailer": (12.283108, 3.865766, 2.922243),
+    "NuScenes_truck": (6.885711, 2.826359, 2.509883),
 }
+# DATASET.TYPE -> the prefix of its classes in MEAN_SIZES
+DATASET_PREFIX = {"KITTI": "Kitti", "NuScenes": "NuScenes"}
 
 
 class AnchorGenerator:
@@ -232,14 +246,11 @@ class AnchorGenerator:
     class's mean size, bottom face h/2 below the point, heading 0)."""
 
     def __init__(self, dataset_type: str, cls_list, method: str):
+        prefix = DATASET_PREFIX[dataset_type]
         self.cls_list = list(cls_list)
         self.anchor_free = method.endswith("free")
-        if not self.anchor_free and dataset_type != "KITTI":
-            raise NotImplementedError(
-                f"AnchorGenerator: {dataset_type} mean sizes are not ported yet "
-                f"(ROADMAP Queue 1 item 11)")
         self.sizes = None if self.anchor_free else torch.tensor(
-            [MEAN_SIZES[c] for c in self.cls_list], dtype=torch.float32)  # [cls, 3]
+            [MEAN_SIZES[f"{prefix}_{c}"] for c in self.cls_list], dtype=torch.float32)  # [cls, 3]
 
     def __call__(self, points: torch.Tensor) -> torch.Tensor:
         """points [bs, n, 3] -> anchors [bs, n, cls, 7] (anchor-free:

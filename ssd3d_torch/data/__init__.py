@@ -12,8 +12,9 @@ def build_loader(cfg, split: str, training: bool = True, seed: int = 0,
                  device_aug: bool = False, data_dir: str | None = None):
     dataset_type = cfg.DATASET.TYPE.upper()
     if dataset_type == "NUSCENES":
-        raise NotImplementedError(
-            "build_loader: nuScenes is not ported yet (ROADMAP Queue 1 item 11)")
+        from ssd3d_torch.data.nuscenes import NuScenesLoader
+
+        return NuScenesLoader(cfg, split, data_dir=data_dir, training=training, seed=seed)
     if dataset_type == "KITTI":
         from ssd3d_torch.data.loader import KittiLoader
 

@@ -4,7 +4,8 @@ also with the training options no shipped config turns on
 (`train_options_entry`), PointRCNN (KITTI Car,
 `configs/kitti/pointrcnn/pointrcnn_test.yaml`) and its two training stages
 (`pointrcnn_stage1.yaml`, `pointrcnn_stage2.yaml`), and STD
-(`configs/kitti/std/std.yaml`), on 16,384-point scans.
+(`configs/kitti/std/std.yaml`), on 16,384-point scans; and 3DSSD on
+nuScenes (`nuscenes`, `configs/nuscenes/3dssd/3dssd.yaml`).
 
 Counterpart of `__graft_entry__._flagship` / `entry` and the single-device
 train step of `__graft_entry__._dryrun_body`. Every entry point runs on the
@@ -49,6 +50,7 @@ CONFIGS = Path(__file__).resolve().parents[1] / "configs" / "kitti"
 FLAGSHIP_CFG = CONFIGS / "3dssd" / "3dssd.yaml"
 POINTRCNN_CFG = CONFIGS / "pointrcnn" / "pointrcnn_test.yaml"
 STD_CFG = CONFIGS / "std" / "std.yaml"
+NUSCENES_CFG = CONFIGS.parent / "nuscenes" / "3dssd" / "3dssd.yaml"
 # the KITTI training options no shipped config turns on, as config overrides
 # of the flagship: an IoU head beside its detection head, Dist-Anchor
 # regression (the IoU branch needs anchor boxes), AdaBound and the
@@ -99,6 +101,22 @@ def flagship(shrink: int = 1, compute_dtype: str | None = None,
     model, spec = build_detector(cfg, device=device)
     init_weights(model, seed)
     return cfg, model, spec, n
+
+
+def nuscenes(compute_dtype: str | None = None, device: torch.device | str = "cuda",
+             seed: int = 0):
+    """-> (cfg, model, spec): 3DSSD on nuScenes (`configs/nuscenes/3dssd/
+    3dssd.yaml`: 10 classes, anchor-free, the velocity and attribute heads,
+    200 outputs a class) at full widths and depth with seeded weights;
+    `compute_dtype` overrides TPU.COMPUTE_DTYPE (bf16 as shipped). Its
+    scans come from `data.nuscenes.NuScenesLoader` (10 aggregated sweeps,
+    voxel-budgeted to 16,384 points of x, y, z and time lag)."""
+    cfg = load_cfg(str(NUSCENES_CFG))
+    if compute_dtype is not None:
+        cfg.TPU.COMPUTE_DTYPE = compute_dtype
+    model, spec = build_detector(cfg, device=device)
+    init_weights(model, seed)
+    return cfg, model, spec
 
 
 def entry(device: torch.device | str = "cuda", seed: int = 0):

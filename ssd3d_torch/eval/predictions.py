@@ -14,6 +14,7 @@ image)."""
 
 from __future__ import annotations
 
+import itertools
 import os
 
 import numpy as np
@@ -108,6 +109,33 @@ def save_kitti_predictions(path: str, boxes_3d, scores, classes, cls_list,
         f.writelines(lines)
 
 
+def scan_blocks(loader, batch_size, pipeline, limit=None):
+    """Yield (block, dets) over one in-order epoch of `loader`'s batch-1
+    samples: `block` the next `batch_size` samples (fewer at the end of the
+    split or at `limit` scans), `dets` the numpy outputs of one
+    `pipeline.infer` of them under `torch.inference_mode()`, on the device
+    that holds the pipeline's weights, one row a sample of `block`. A short
+    block is padded to `batch_size` by repeating its last scan and the
+    pad's rows dropped, as the JAX package does (where the batch is sharded
+    over every visible device instead)."""
+    device = next(pipeline.model.parameters()).device
+    stream = loader.batches(1, epochs=1, num_threads=1, shuffle=False)
+    count = 0
+    while not limit or count < limit:
+        want = min(batch_size, limit - count) if limit else batch_size
+        block = list(itertools.islice(stream, want))
+        if not block:
+            return
+        pts = np.concatenate([b["points"] for b in block]
+                             + [block[-1]["points"]] * (batch_size - len(block)))
+        with torch.inference_mode():
+            dets = pipeline.infer(torch.from_numpy(pts).to(device))
+        yield block, {k: v[:len(block)].cpu().numpy() for k, v in dets.items()}
+        count += len(block)
+        if len(block) < want:
+            return
+
+
 def run_inference_on_split(cfg, pipeline, loader, scene, cls_thresh=0.3,
                            save_dir=None, log=print, limit=None,
                            use_true_image_size=False, with_gt=True,
@@ -118,11 +146,9 @@ def run_inference_on_split(cfg, pipeline, loader, scene, cls_thresh=0.3,
     optionally dumps KITTI txts. Returns (det_per_image, gt_per_image,
     names).
 
-    batch_size > 1 runs `batch_size` scans a forward on the one device; the
-    trailing partial batch is padded by repeating its last scan and the pad
-    results dropped, as the JAX package does (where the batch is sharded
-    over every visible device instead). The reference evaluator is strictly
-    batch-1 (evaluator.py feed loop).
+    batch_size > 1 runs `batch_size` scans a forward on the one device
+    (`scan_blocks`). The reference evaluator is strictly batch-1
+    (evaluator.py feed loop).
 
     2D-clip extent: the reference clips projected detection boxes to the
     hard-coded (375, 1242) default for EVERY scan (anchors_util.py:54
@@ -133,35 +159,10 @@ def run_inference_on_split(cfg, pipeline, loader, scene, cls_thresh=0.3,
     keeps that parity; `use_true_image_size=True` clips to each scan's
     real PNG size instead (threaded from the preprocessed samples)."""
     cls_list = list(pipeline.cls_list)
-    device = next(pipeline.model.parameters()).device
     det_per_image, gt_per_image, names = [], [], []
     count = 0
-    done = False
-    single_stream = loader.batches(1, epochs=1, num_threads=1, shuffle=False)
-
-    def pull_block():
-        block = []
-        for b in single_stream:
-            block.append(b)
-            if len(block) == batch_size:
-                break
-        return block
-
-    while not done:
-        block = pull_block()
-        if not block:
-            break
-        n_real = len(block)
-        done = n_real < batch_size
-        pts = np.concatenate(
-            [b["points"] for b in block]
-            + [block[-1]["points"]] * (batch_size - n_real)
-        )
-        with torch.inference_mode():
-            dets = pipeline.infer(torch.from_numpy(pts).to(device))
-        dets = {k: v.cpu().numpy() for k, v in dets.items()}
-        for i in range(n_real):
-            batch = block[i]
+    for block, dets in scan_blocks(loader, batch_size, pipeline, limit):
+        for i, batch in enumerate(block):
             det = {k: v[i] for k, v in dets.items()}
             if proposals_out is not None and "proposals" in det:
                 # stage-1 proposal boxes (two-stage models), for recall:
@@ -220,9 +221,6 @@ def run_inference_on_split(cfg, pipeline, loader, scene, cls_thresh=0.3,
             count += 1
             if count % 200 == 0:
                 log(f"inference {count} scans")
-            if limit and count >= limit:
-                done = True
-                break
     return det_per_image, gt_per_image, names
 
 

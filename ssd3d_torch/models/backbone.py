@@ -51,7 +51,7 @@ class PointBackbone(nn.Module):
             if layer_type == "SA_Layer":
                 if use_attention:
                     raise NotImplementedError(
-                        "attention grouping is not ported yet (ROADMAP Queue 1 item 11)"
+                        "attention grouping is not ported yet (ROADMAP Queue 1 item 11b)"
                     )
                 module = PointnetSAModuleMSG(
                     c_in, radius_list, nsample_list, mlp_list, bn,

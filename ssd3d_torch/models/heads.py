@@ -1,5 +1,5 @@
-"""Detection and IoU heads (counterpart of `ssd3d/models/heads.py`, without
-the nuScenes attribute / velocity branches)."""
+"""Detection and IoU heads (counterpart of `ssd3d/models/heads.py`), with
+the nuScenes attribute / velocity branches."""
 
 from __future__ import annotations
 
@@ -10,12 +10,14 @@ from ssd3d_torch.nn.layers import PointConv, SharedMLP
 
 
 class DetectionHead(nn.Module):
-    """Shared MLP trunk, then cls and reg branches (128 -> out). The two
-    output convs run in f32 whatever the compute dtype, as in flax."""
+    """Shared MLP trunk, then cls and reg branches (128 -> out), and with
+    `predict_attr_velo` the attribute (8 logits) and velocity (vx, vz)
+    branches, each for every regression slot. The output convs run in f32
+    whatever the compute dtype, as in flax."""
 
     def __init__(self, in_channels: int, mlp, cls_channels: int, reg_base: int,
                  reg_channels: int, num_angle_cls: int, bn: bool = True,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, predict_attr_velo: bool = False):
         super().__init__()
         self.reg_base = reg_base
         self.reg_channels = reg_channels
@@ -27,6 +29,12 @@ class DetectionHead(nn.Module):
         reg_out = reg_base * (reg_channels + num_angle_cls * 2)
         self.pred_reg_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
         self.pred_reg = PointConv(128, reg_out, bn=False, activation=False)
+        self.predict_attr_velo = predict_attr_velo
+        if predict_attr_velo:
+            self.pred_attr_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
+            self.pred_attr = PointConv(128, reg_base * 8, bn=False, activation=False)
+            self.pred_velo_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
+            self.pred_velo = PointConv(128, reg_base * 2, bn=False, activation=False)
 
     def forward(self, features: torch.Tensor, bn_momentum: float = 0.9) -> dict:
         """features: [bs, n, c] -> dict of per-point predictions."""
@@ -36,13 +44,19 @@ class DetectionHead(nn.Module):
         bs, n = reg.shape[:2]
         reg = reg.reshape(bs, n, self.reg_base, self.reg_channels + self.num_angle_cls * 2)
         rc, na = self.reg_channels, self.num_angle_cls
-        return {
+        out = {
             "feature": x,
             "cls": cls,
             "offset": reg[..., :rc],
             "angle_cls": reg[..., rc:rc + na],
             "angle_res": reg[..., rc + na:],
         }
+        if self.predict_attr_velo:
+            attr = self.pred_attr(self.pred_attr_base(x, bn_momentum))
+            velo = self.pred_velo(self.pred_velo_base(x, bn_momentum))
+            out["attribute"] = attr.reshape(bs, n, self.reg_base, 8)
+            out["velocity"] = velo.reshape(bs, n, self.reg_base, 2)
+        return out
 
 
 class IoUHead(nn.Module):

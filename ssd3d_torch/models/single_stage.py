@@ -34,7 +34,8 @@ class SingleStageDetector(nn.Module):
                  num_angle_cls: int, reg_base: int, reg_channels: int,
                  cls_activation: str = "Sigmoid",
                  aggregation_sa_feature: bool = False,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None,
+                 predict_attr_velo: bool = False):
         super().__init__()
         self.backbone = PointBackbone(architecture, in_channels, max_translate_range,
                                       aggregation_sa_feature, compute_dtype)
@@ -47,7 +48,7 @@ class SingleStageDetector(nn.Module):
             if head_type == "Det":
                 self.add_module(name, DetectionHead(
                     c_in, mlp, cls_channels, reg_base, reg_channels, num_angle_cls,
-                    bn=bn, compute_dtype=compute_dtype,
+                    bn=bn, compute_dtype=compute_dtype, predict_attr_velo=predict_attr_velo,
                 ))
                 self.heads.append((name, xyz_idx, feat_idx))
             elif head_type == "IoU":
@@ -75,8 +76,10 @@ class SingleStageDetector(nn.Module):
             det_preds.append(getattr(self, name)(feat_in, bn_momentum))
             det_xyz.append(xyz_in)
         out["base_xyz"] = torch.cat(det_xyz, dim=1)
-        for key in ("feature", "cls", "offset", "angle_cls", "angle_res"):
-            out[key] = torch.cat([p[key] for p in det_preds], dim=1)
+        for key in ("feature", "cls", "offset", "angle_cls", "angle_res", "attribute",
+                    "velocity"):
+            if key in det_preds[0]:
+                out[key] = torch.cat([p[key] for p in det_preds], dim=1)
         if self.iou_heads:
             out["iou"] = torch.cat(
                 [getattr(self, name)(torch.cat([net["features"][j] for j in feat_idx], dim=1),
@@ -113,10 +116,36 @@ class DetectorSpec:
 
     def decode_and_nms(self, outputs: dict) -> dict:
         """Raw head outputs -> final detections (boxes, scores, classes,
-        valid, index; each [b, cls * max_output, ...])."""
+        valid, index; each [b, cls * max_output, ...]). With the nuScenes
+        heads also each kept box's velocity [.., 2] and attribute logits
+        [.., 8]: its source point's, from its class's regression slot (slot
+        0 of an anchor-free head)."""
         boxes, score = self.decode(outputs)
         bev = boxes_to_bev_aabb(boxes)
-        return batched_class_nms(boxes, bev, score, self.max_output, self.nms_threshold)
+        det = batched_class_nms(boxes, bev, score, self.max_output, self.nms_threshold)
+        for key in ("velocity", "attribute"):
+            if key in outputs:
+                arr = outputs[key]  # [b, n, reg_base, c]
+                rows = torch.arange(arr.shape[0], device=arr.device)[:, None]
+                slot = det["classes"].long().clamp(max=arr.shape[2] - 1)
+                det[key] = arr[rows, det["index"].long(), slot]
+        return det
+
+
+def dataset_classes(cfg) -> tuple:
+    """The detected classes of the config's dataset (DATASET.TYPE KITTI or
+    NuScenes), in head order."""
+    if cfg.DATASET.TYPE.upper() == "NUSCENES":
+        return tuple(cfg.DATASET.NUSCENES.CLS_LIST)
+    return tuple(cfg.DATASET.KITTI.CLS_LIST)
+
+
+def point_feature_channels(cfg) -> int:
+    """Per-point feature channels after xyz: KITTI's reflectance, or the
+    nuScenes sweeps' (intensity and) time lag (INPUT_FEATURE_CHANNEL - 3)."""
+    if cfg.DATASET.TYPE.upper() == "NUSCENES":
+        return cfg.DATASET.NUSCENES.INPUT_FEATURE_CHANNEL - 3
+    return 1
 
 
 def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str = "cuda"):
@@ -127,16 +156,9 @@ def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str =
     device = _build.resolve_device(device)
     stage_cfg = cfg.MODEL[stage]
     net_cfg = cfg.MODEL.NETWORK[stage]
-    if cfg.DATASET.TYPE != "KITTI":
-        raise NotImplementedError(
-            f"{cfg.DATASET.TYPE} is not ported yet (ROADMAP Queue 1 item 11)"
-        )
-    if stage_cfg.PREDICT_ATTRIBUTE_AND_VELOCITY or cfg.MODEL.NETWORK.USE_GN:
-        raise NotImplementedError(
-            "attribute/velocity heads and GroupNorm are not ported yet "
-            "(ROADMAP Queue 1 item 11)"
-        )
-    cls_list = tuple(cfg.DATASET.KITTI.CLS_LIST)
+    if cfg.MODEL.NETWORK.USE_GN:
+        raise NotImplementedError("GroupNorm (USE_GN) is not ported yet (ROADMAP Queue 1 item 11c)")
+    cls_list = dataset_classes(cfg)
     reg_method = stage_cfg.REGRESSION_METHOD.TYPE
     coder = BoxCoder(reg_method, cfg.MODEL.ANGLE_CLS_NUM,
                      half_range=stage_cfg.REGRESSION_METHOD.HALF_BIN_SEARCH_RANGE,
@@ -146,7 +168,7 @@ def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str =
     module = SingleStageDetector(
         architecture=[list(layer) for layer in net_cfg.ARCHITECTURE],
         head_cfg=[list(h) for h in net_cfg.HEAD],
-        in_channels=1,  # KITTI points are (x, y, z, reflectance)
+        in_channels=point_feature_channels(cfg),
         max_translate_range=list(cfg.MODEL.MAX_TRANSLATE_RANGE),
         num_classes=len(cls_list),
         num_angle_cls=cfg.MODEL.ANGLE_CLS_NUM,
@@ -155,6 +177,7 @@ def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str =
         cls_activation=stage_cfg.CLS_ACTIVATION,
         aggregation_sa_feature=cfg.MODEL.NETWORK.AGGREGATION_SA_FEATURE,
         compute_dtype=compute_dtype,
+        predict_attr_velo=stage_cfg.PREDICT_ATTRIBUTE_AND_VELOCITY,
     ).to(device).eval()
     spec = DetectorSpec(
         cls_list=cls_list,

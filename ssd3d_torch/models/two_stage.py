@@ -30,6 +30,7 @@ from ssd3d_torch.core.box_coders import AnchorGenerator, BoxCoder
 from ssd3d_torch.core.geometry import boxes_bottom_to_center, boxes_to_bev_aabb, rotate_points_y
 from ssd3d_torch.models.backbone import PointBackbone
 from ssd3d_torch.models.heads import DetectionHead
+from ssd3d_torch.models.single_stage import dataset_classes, point_feature_channels
 from ssd3d_torch.nn.layers import SharedMLP
 from ssd3d_torch.nn.modules import max_pool
 from ssd3d_torch.ops import _build
@@ -188,9 +189,10 @@ class TwoStageDetector(nn.Module):
                  pooler_cfg, max_translate_range, num_angle_cls: int,
                  rpn_cls_channels: int, rpn_reg_base: int, rpn_reg_channels: int,
                  rcnn_cls_channels: int, rcnn_reg_base: int, rcnn_reg_channels: int,
-                 aggregation_sa_feature: bool = False, compute_dtype: torch.dtype | None = None):
+                 aggregation_sa_feature: bool = False, compute_dtype: torch.dtype | None = None,
+                 in_channels: int = 1):
         super().__init__()
-        self.rpn_backbone = PointBackbone(rpn_architecture, 1, max_translate_range,
+        self.rpn_backbone = PointBackbone(rpn_architecture, in_channels, max_translate_range,
                                           aggregation_sa_feature, compute_dtype)
         rpn_ch = self.rpn_backbone.feature_channels
         self.rpn_heads = self._heads(rpn_head_cfg, rpn_ch, "rpn_head", rpn_cls_channels,
@@ -342,10 +344,9 @@ def build_two_stage(cfg, nms_pre_topk: int = 2048, device: torch.device | str = 
     rcnn_spec). Weights are left as constructed (`entry.init_weights` or a
     converted state dict fills them). The default device is the card."""
     device = _build.resolve_device(device)
-    if cfg.DATASET.TYPE != "KITTI" or cfg.MODEL.NETWORK.USE_GN:
-        raise NotImplementedError("only KITTI without GroupNorm is ported "
-                                  "(ROADMAP Queue 1 item 11)")
-    cls_list = tuple(cfg.DATASET.KITTI.CLS_LIST)
+    if cfg.MODEL.NETWORK.USE_GN:
+        raise NotImplementedError("GroupNorm (USE_GN) is not ported yet (ROADMAP Queue 1 item 11c)")
+    cls_list = dataset_classes(cfg)
     rpn_spec = StageSpec(**_stage_fields(cfg, "FIRST_STAGE", cls_list, nms_pre_topk))
     rcnn_spec = ProposalSpec(**_stage_fields(cfg, "SECOND_STAGE", cls_list))
     s1, s2 = cfg.MODEL.FIRST_STAGE, cfg.MODEL.SECOND_STAGE
@@ -371,5 +372,6 @@ def build_two_stage(cfg, nms_pre_topk: int = 2048, device: torch.device | str = 
         rcnn_reg_channels=rcnn_spec.coder.reg_channels,
         aggregation_sa_feature=net.AGGREGATION_SA_FEATURE,
         compute_dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else None,
+        in_channels=point_feature_channels(cfg),
     ).to(device).eval()
     return model, rpn_spec, rcnn_spec

@@ -8,9 +8,9 @@ so a changed source is rebuilt; the build writes a temporary file and
 renames it, so concurrent first uses never load half a library. This is host
 code, not a device kernel. The AP core has a pure-numpy twin
 (`use_native=False` in `eval.kitti_ap`, also taken where g++ is missing),
-and tests cross-check the two; the voxel budget's twin comes with the
-nuScenes loader (ROADMAP Queue 1 item 11). `make -C ssd3d_torch/native`
-runs the same build by hand.
+and tests cross-check the two; the voxel budget's twin is the numpy branch
+of `data.nuscenes.voxel_budget_sample`. `make -C ssd3d_torch/native` runs
+the same build by hand.
 """
 
 from __future__ import annotations

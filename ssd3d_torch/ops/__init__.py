@@ -1,8 +1,8 @@
 """Point ops: sampling, grouping, interpolation, NMS (counterpart of
 `ssd3d/ops/__init__.py`, the names the port has). The CUDA kernels are built
 at their first launch by `ssd3d_torch.ops._build`, which also keeps their
-launch counts. Still to come with the nuScenes slice (ROADMAP Queue 1 item
-11): `ball_query_attention`, `ball_query_withidx`, `knn_points`,
+launch counts. Still to come with attention grouping (ROADMAP Queue 1 item
+11b): `ball_query_attention`, `ball_query_withidx`, `knn_points`,
 `soft_nms_bev`, `iou_guided_nms`, `points_mask_nms`."""
 
 from ssd3d_torch.ops.grouping import (

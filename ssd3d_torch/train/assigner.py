@@ -86,7 +86,9 @@ def random_subset_mask(uniform: torch.Tensor, candidate: torch.Tensor, k: torch.
 def assign_targets(cfg: AssignerConfig, points: torch.Tensor, anchors: torch.Tensor,
                    gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
                    valid_mask: torch.Tensor | None = None,
-                   uniforms: torch.Tensor | None = None) -> dict:
+                   uniforms: torch.Tensor | None = None,
+                   gt_velocity: torch.Tensor | None = None,
+                   gt_attribute: torch.Tensor | None = None) -> dict:
     """Per-point, per-class targets (TargetAssigner.assign semantics). Each
     point takes the first GT box it lies in (box 0 when none). Mask: a point
     inside a box is positive for its class within `effective_sample_range`
@@ -94,7 +96,9 @@ def assign_targets(cfg: AssignerConfig, points: torch.Tensor, anchors: torch.Ten
     positive where its IoU with that box reaches `pos_iou` (and within the
     range), negative where it lies in [0.05, neg_iou). Both are gated by
     `valid_mask` [bs, pts, cls]. With a minibatch, `uniforms` [bs, 2, pts]
-    holds each scan's draws for its positive and its negative subset."""
+    holds each scan's draws for its positive and its negative subset. With
+    the nuScenes labels `gt_velocity` [bs, gt, 2] and `gt_attribute` [bs,
+    gt], each point also takes its assigned box's, over every class."""
     bs, pts_num, cls_num = anchors.shape[:3]
     if anchors.shape[-1] == 3:  # anchor-free: the points as zero-size boxes
         anchors = torch.cat([anchors, anchors.new_zeros(anchors.shape[:-1] + (4,))], -1)
@@ -145,13 +149,20 @@ def assign_targets(cfg: AssignerConfig, points: torch.Tensor, anchors: torch.Ten
         nmask = nmask * sel_n[..., None].float()
     # positive points keep their class id, negatives get 0
     gt_cls = (labels[..., None] * pmask.to(labels.dtype)).sum(-1)
-    return {
+    out = {
         "assigned_idx": assigned_idx,
         "pmask": pmask,
         "nmask": nmask,
         "gt_cls": gt_cls.to(torch.int32),
         "gt_boxes": assigned_boxes[:, :, None, :].expand(bs, pts_num, cls_num, 7),
     }
+    if gt_velocity is not None:
+        out["gt_velocity"] = _take_rows(gt_velocity, assigned_idx)[:, :, None, :].expand(
+            bs, pts_num, cls_num, 2)
+    if gt_attribute is not None:
+        out["gt_attribute"] = _take_rows(gt_attribute, assigned_idx)[:, :, None].expand(
+            bs, pts_num, cls_num)
+    return out
 
 
 def vote_targets(vote_base: torch.Tensor, gt_boxes: torch.Tensor, expand: float = 0.1):

@@ -10,7 +10,9 @@ The reference's masking and normalisation are kept exactly:
   inside the huber as the reference does;
 - corner loss on the predicted box decoded under the GT angle bin;
 - vote loss against the vote targets;
-- the IoU branch: huber against the targets' 3D IoU, rescaled to [-1, 1].
+- the IoU branch: huber against the targets' 3D IoU, rescaled to [-1, 1];
+- nuScenes' attributes (sigmoid CE over 8, where the GT has one) and
+  velocities (huber, where the GT's is finite), over the positive points.
 """
 
 from __future__ import annotations
@@ -85,8 +87,8 @@ class LossConfig:
     @classmethod
     def from_cfg(cls, cfg, stage: str = "FIRST_STAGE", vote: bool = False, iou: bool = False):
         sc = cfg.MODEL[stage]
-        cls_list = (cfg.DATASET.KITTI.CLS_LIST if cfg.DATASET.TYPE == "KITTI"
-                    else cfg.DATASET.NUSCENES.CLS_LIST)
+        cls_list = (cfg.DATASET.NUSCENES.CLS_LIST if cfg.DATASET.TYPE.upper() == "NUSCENES"
+                    else cfg.DATASET.KITTI.CLS_LIST)
         return cls(
             cls_loss_type=sc.CLASSIFICATION_LOSS.TYPE,
             cls_activation=sc.CLS_ACTIVATION,
@@ -214,17 +216,34 @@ def iou_branch_loss(cfg: LossConfig, outputs: dict, targets: dict,
     return per.sum() / norm
 
 
+def attr_velo_loss(cfg: LossConfig, outputs: dict, targets: dict):
+    """nuScenes' auxiliary losses -> (attribute, velocity). Attribute: sigmoid
+    CE of the 8 logits [bs, pts, cls, 8] against the one-hot GT attribute,
+    over the positive entries whose GT has one (>= 0), normalised by their
+    count times 8. Velocity: huber of (vx, vz) [bs, pts, cls, 2] over the
+    positive entries whose GT velocity is finite (an isolated annotation's
+    is NaN), normalised by their count; the NaNs are replaced before the
+    difference, so none reaches the gradient."""
+    pmask = targets["pmask"]
+    gt_attr = targets["gt_attribute"]  # [bs, pts, cls]
+    attr_mask = (gt_attr >= 0).to(pmask.dtype) * pmask
+    a = sigmoid_ce(outputs["attribute"], one_hot(gt_attr, 8, outputs["attribute"].dtype))
+    attr_l = (a * attr_mask[..., None]).sum() / (attr_mask.sum().clamp(min=1.0) * 8.0)
+    gt_velo = targets["gt_velocity"]  # [bs, pts, cls, 2]
+    velo_mask = (~torch.isnan(gt_velo.sum(-1))).to(pmask.dtype) * pmask
+    gt_velo = torch.where(torch.isnan(gt_velo), 0.0, gt_velo)
+    v = huber(outputs["velocity"] - gt_velo).sum(-1) * velo_mask
+    return attr_l, v.sum() / velo_mask.sum().clamp(min=1.0)
+
+
 def compute_stage_losses(cfg: LossConfig, coder, outputs: dict, targets: dict,
                          anchors: torch.Tensor, base_xyz: torch.Tensor,
                          gt_boxes_scene: torch.Tensor | None = None) -> dict:
     """Every loss of one detection stage. `targets` holds the assigner's
     outputs; this adds the encoded regression targets. anchors: [bs, n, cls,
     7] (anchor-free: [bs, n, 1, 3]); base_xyz: [bs, n, 3]; gt_boxes_scene:
-    [bs, g, 7], the raw scene GTs (vote loss only)."""
-    if cfg.attr_velo_loss:
-        raise NotImplementedError(
-            "compute_stage_losses: the attribute/velocity losses are not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+    [bs, g, 7], the raw scene GTs (vote loss only). With `attr_velo_loss`
+    the targets hold the assigner's gt_velocity and gt_attribute."""
     gt_offset, gt_angle_cls, gt_angle_res = coder.encode(base_xyz, targets["gt_boxes"], anchors)
     targets = dict(targets, gt_offset=gt_offset, gt_angle_cls=gt_angle_cls,
                    gt_angle_res=gt_angle_res)
@@ -246,4 +265,6 @@ def compute_stage_losses(cfg: LossConfig, coder, outputs: dict, targets: dict,
         loss_dict["vote"] = vote_loss(outputs["vote_offset"][0], vmask, vtarget)
     if cfg.iou_loss:
         loss_dict["iou"] = iou_branch_loss(cfg, outputs, targets, anchors)
+    if cfg.attr_velo_loss:
+        loss_dict["attribute"], loss_dict["velocity"] = attr_velo_loss(cfg, outputs, targets)
     return loss_dict

@@ -204,8 +204,9 @@ class TrainGraph:
 
     def compute_losses(self, batch: dict, bn_m: float, draws: AugDraws | None = None):
         """batch: points [bs, n, 3 + c], gt_boxes [bs, g, 7], gt_labels
-        [bs, g] (with device augmentation also the loader's plane and
-        candidates, augmented first with `draws`) -> (total, loss dict).
+        [bs, g] (nuScenes: also gt_velocity [bs, g, 2] and gt_attribute [bs,
+        g]; with device augmentation also the loader's plane and candidates,
+        augmented first with `draws`) -> (total, loss dict).
         Moves the BatchNorm running statistics by `bn_m` (the JAX version
         returns them as mutated batch_stats)."""
         if self.aug_cfg is not None:
@@ -214,7 +215,9 @@ class TrainGraph:
         base_xyz = outputs["base_xyz"]
         anchors = self.spec.anchors(base_xyz)
         targets = assign_targets(self.assigner_cfg, base_xyz, anchors,
-                                 batch["gt_boxes"], batch["gt_labels"])
+                                 batch["gt_boxes"], batch["gt_labels"],
+                                 gt_velocity=batch.get("gt_velocity"),
+                                 gt_attribute=batch.get("gt_attribute"))
         loss_dict = L.compute_stage_losses(self.loss_cfg, self.spec.coder, outputs, targets,
                                            anchors, base_xyz, gt_boxes_scene=batch["gt_boxes"])
         return sum(loss_dict.values()), loss_dict

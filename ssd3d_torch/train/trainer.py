@@ -155,8 +155,8 @@ def merge_by_name(dst: dict, src: dict):
 
 
 class Trainer:
-    """End-to-end KITTI training on one device (the reference trainer.py
-    CLI body): single-stage models and PointRCNN's stages, the loader on
+    """End-to-end KITTI or nuScenes training on one device (the reference
+    trainer.py CLI body): single-stage models and PointRCNN's stages, the loader on
     host workers, a checkpoint every CHECKPOINT_INTERVAL and at the end,
     metrics every SUMMARY_INTERVAL. Resume is batch-exact: the loader's
     stream starts at the restored step, and PointRCNN's minibatch draws
@@ -197,6 +197,9 @@ class Trainer:
                                       cfg.TRAIN.CONFIG.MAX_CHECKPOINTS_TO_KEEP)
         self.restore_model_path = restore_model_path
         batch_keys = ["points", "gt_boxes", "gt_labels"]
+        if cfg.DATASET.TYPE.upper() == "NUSCENES":
+            # the velocity / attribute heads' labels (data/nuscenes.py)
+            batch_keys += ["gt_velocity", "gt_attribute"]
         if cfg.TPU.DEVICE_AUGMENT and cfg.TRAIN.AUGMENTATIONS.OPEN:
             # the device augmentation's inputs (train/device_aug.py)
             batch_keys += ["plane"]

@@ -116,3 +116,24 @@ def test_builders_default_to_the_card():
             build(cfg)
     with pytest.raises(RuntimeError, match="is_available"):
         build_detector(config.load_cfg(str(REPO / "configs/kitti/3dssd/3dssd.yaml")))
+
+
+@pytest.mark.parametrize("name", ["3dssd.yaml", "3dssd_tiny.yaml"])
+def test_nuscenes_yamls_and_defaults_match(name):
+    """Both nuScenes YAMLs give the JAX package's tree, with the nuScenes
+    defaults (version, sweeps, paths, the 10-class list) where the YAML sets
+    none."""
+    path = REPO / "configs/nuscenes/3dssd" / name
+    got, want = config.load_cfg(str(path)), jconfig.load_cfg(str(path))
+    assert got.DATASET.NUSCENES.to_dict() == want.DATASET.NUSCENES.to_dict()
+    assert got.to_dict() == want.to_dict()
+    defaults = config.get_default_cfg().DATASET.NUSCENES
+    assert defaults.to_dict() == jconfig.get_default_cfg().DATASET.NUSCENES.to_dict()
+    assert len(defaults.CLS_LIST) == 10 and defaults.NSWEEPS == 10
+    assert (defaults.VERSION, defaults.SAVE_NUMPY_PATH) == ("v1.0-trainval", "data/NuScenes")
+    assert got.DATASET.TYPE == "NuScenes" and got.MODEL.FIRST_STAGE.PREDICT_ATTRIBUTE_AND_VELOCITY
+    if name == "3dssd.yaml":
+        assert got.DATASET.NUSCENES.CLS_LIST == defaults.CLS_LIST
+        assert got.DATASET.NUSCENES.MAX_CUR_SAMPLE_POINTS_NUM == 16384
+    else:
+        assert got.DATASET.NUSCENES.VERSION == "v1.0-synth" and got.DATASET.NUSCENES.NSWEEPS == 4

@@ -26,6 +26,7 @@ from ssd3d.utils import viz as jviz
 from ssd3d_torch import config
 from ssd3d_torch.data import augment, build_loader, kitti_io, loader
 from ssd3d_torch.data.loader import KittiLoader, budget_points
+from ssd3d_torch.data.nuscenes import NuScenesLoader
 from ssd3d_torch.data.preprocess import run_preprocess
 from ssd3d_torch.utils import synth, viz
 
@@ -164,10 +165,12 @@ def test_flagship_scans_keep_more_points_than_the_flagship_samples(tmp_path):
     assert len(kept) == 3 and min(sizes) > cfg.MODEL.POINTS_NUM_FOR_TRAINING
 
 
-def test_build_loader_names_what_is_not_ported(tree):
-    """nuScenes is still to come (item 11). Device augmentation is ported:
-    the loader then augments nothing on the host and emits the road plane
-    and the GT-crop candidates as the reference's loader emits them."""
+def test_build_loader_names_what_is_not_ported(tree, tmp_path):
+    """Every dataset the JAX package loads is ported: KITTI, and nuScenes
+    (its loader, `tests/test_torch_nuscenes.py`); an unknown DATASET.TYPE
+    is named. Device augmentation is ported: the loader then augments
+    nothing on the host and emits the road plane and the GT-crop
+    candidates as the reference's loader emits them."""
     cfg = config.load_cfg(TINY, _opts(tree / "kitti", tree / "port"))
     assert isinstance(build_loader(cfg, "train"), KittiLoader)
     dev = build_loader(cfg, "train", device_aug=True)
@@ -179,8 +182,11 @@ def test_build_loader_names_what_is_not_ported(tree):
                                      "cand_valid"}
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    (tmp_path / "list.txt").write_text("")
     cfg.DATASET.TYPE = "NUSCENES"
-    with pytest.raises(NotImplementedError, match="item 11"):
+    assert isinstance(build_loader(cfg, "train", data_dir=str(tmp_path)), NuScenesLoader)
+    cfg.DATASET.TYPE = "Lyft"
+    with pytest.raises(ValueError, match="unknown DATASET.TYPE 'Lyft'"):
         build_loader(cfg, "train")
 
 

@@ -53,6 +53,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert len(names) >= 40  # every module of the package
     assert {f"ssd3d_torch.bin.{m}" for m in ("preprocess", "train", "evaluate", "test")} <= names
     assert {f"ssd3d_torch.data.{m}" for m in ("kitti_io", "augment", "preprocess", "loader")} <= names
+    assert {"ssd3d_torch.data.nuscenes", "ssd3d_torch.eval.nuscenes_eval",
+            "ssd3d_torch.eval.nuscenes_predictions", "ssd3d_torch.utils.synth_nuscenes"} <= names
     assert {"ssd3d_torch.eval.kitti_ap", "ssd3d_torch.eval.predictions", "ssd3d_torch.native",
             "ssd3d_torch.train.trainer", "ssd3d_torch.train.two_stage_step",
             "ssd3d_torch.utils.viz", "ssd3d_torch.train.adabound",
