@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen phases, each of which raises on failure (no error is caught):
+Eighteen phases, each of which raises on failure (no error is caught):
 
 1. Environment: the card's name and power limit, torch / CUDA / nvcc
    versions, and the build of the CUDA kernels from `ssd3d_torch/csrc/`
@@ -142,6 +142,30 @@ Sixteen phases, each of which raises on failure (no error is caught):
    attribute and a finite velocity, every loss above 0 on both legs;
    then `bin.train` (4 iterations), `bin.evaluate` (mAP, NDS) and
    `bin.test` (`nuscenes_result.json`, read back).
+17. The flagship with attention grouping on SA1 and SA2 (`entry.flagship(
+   attention=ATTENTION_LAYERS)`, bf16, full widths and depth): inference at
+   batch 8 (launches by kernel and route: K3 at SA3 and CG-SA only; scans/s,
+   batch-1 latency, device busy, peak memory), each SA1 attention query
+   ([8, 4096] x [8, 16384], one a radius) timed with its kernel launches;
+   card against CPU on one scan at f32 (every attention row equal, or a
+   near-tie of the CPU's keys then taken from the card, `AttentionReplay`;
+   picks equal, values within F32_TOL); the bf16 train step at batch 8
+   (finite losses, step ms, peak memory, K5 bit for bit at its calls); then
+   the flagship with GroupNorm (USE_GN) card against CPU at f32, forward and
+   one train step as phase 6 (the card's F-FPS picks, ReLU signs, max-pool
+   winners and balls replayed on the CPU leg where a near-tie went the
+   other way, `parallel.steps.Decisions`;
+   the card's GroupNorm moments, each first held to the CPU's,
+   `GroupNormReplay`: the one-pass variance cancels where a group's values
+   are nearly equal).
+18. Data-parallel and FSDP training over NCCL, one process a card on every
+   card (`entry.run_ranks`, `ssd3d_torch.parallel.steps`): the flagship's
+   bf16 train step at batch 8 under dp and fsdp, on one card held to the
+   plain step (dp bit for bit, fsdp at phase 6's tolerances), over more
+   cards the f32 step held to one process on the global batch with the
+   ranks' decisions replayed; step ms beside the plain step's, the NCCL
+   version; then `bin.train` under SSD3D_DIST_* in dp and in fsdp (4
+   iterations, a checkpoint each) and a single process resuming each.
 
 The second line from the end is a JSON object with one entry per kernel:
 `launches_by_path` counts its launches in one run of each path (flagship
@@ -152,7 +176,8 @@ stage and the stage-wise CLI chain, phase 11; the public op path, phase 12;
 STD inference, phase 13; one STD stage-2 step and STD's CLI chain, phase 14;
 one step with the training options, phase 15; nuScenes inference at batch 4
 and at 65,536 points, one nuScenes train step and nuScenes' CLI chain,
-phase 16), `launches` is their sum;
+phase 16; attention inference and its train step, phase 17; rank 0's dp
+and fsdp train steps, phase 18), `launches` is their sum;
 times and bounds are of the shape in `shape`
 (K1's, K2's and K3's on the route that shape takes; `routes` holds every
 route's times at each shape of theirs, and `launches_by_route` their
@@ -182,6 +207,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -197,16 +223,20 @@ from ssd3d_torch.core.iou import aabb_iou
 from ssd3d_torch.data.loader import KittiLoader
 from ssd3d_torch.data.nuscenes import NuScenesLoader
 import ssd3d_torch.ops as public_ops
+from ssd3d_torch.core import geometry
 from ssd3d_torch.entry import (
+    ATTENTION_LAYERS,
     FLAGSHIP_CFG,
     NUSCENES_CFG,
     POINTRCNN_CFG,
     STD_CFG,
     TRAIN_OPTIONS,
     flagship,
+    free_port,
     init_weights,
     nuscenes,
     pointrcnn,
+    run_ranks,
     std,
     synthetic_candidates,
     synthetic_scenes,
@@ -218,8 +248,8 @@ from ssd3d_torch.entry import (
 from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.models import two_stage
 from ssd3d_torch.nn import modules
+from ssd3d_torch.nn.layers import GroupNorm
 from ssd3d_torch.nn.modules import ffps_segments
-from ssd3d_torch.nn.modules import max_pool as _max_pool
 from ssd3d_torch.ops import _build, grouping, interpolate, sa_fused, sampling
 from ssd3d_torch.ops.grouping import (
     ball_query_multi,
@@ -249,12 +279,14 @@ from ssd3d_torch.train.schedules import bn_momentum
 from ssd3d_torch.train.train_step import TrainGraph, trained_parameters
 from ssd3d_torch.train.two_stage_step import TwoStageGraph
 from ssd3d_torch.train.trainer import CheckpointManager, merge_by_name
+from ssd3d_torch.parallel import steps as parallel_steps
+from ssd3d_torch.parallel.steps import Decisions
 from ssd3d_torch.utils import synth, synth_nuscenes
 from ssd3d_torch.utils.timing import cuda_ms
 
 BATCH = 8
 N_POINTS = 16384
-DEV = "cuda"  # the device of phases 12-16 (a rehearsal on the CPU sets "cpu")
+DEV = "cuda"  # the device of phases 12-18 (a rehearsal on the CPU sets "cpu")
 # An F-FPS pick may fall short of the step's farthest distance by this much
 # (relative): kernel and plain version sum d2 in the same order, so any gap
 # beyond float32 rounding is a wrong pick.
@@ -277,7 +309,12 @@ TRAIN_STEPS = 10
 # One f32 train step, card against CPU: each gradient leaf within this
 # fraction of its largest |entry|.
 TRAIN_GRAD_TOL = 1e-3
-_relu = torch.relu
+# the card's decisions a CPU leg takes (`parallel.steps.Decisions`): those of
+# a train step, and with GroupNorm the F-FPS picks too (its epsilon of 1e-6
+# carries f32 rounding further than BatchNorm's 1e-3, and an F-FPS step whose
+# two farthest points lie within it goes another way)
+TRAIN_DECISIONS = ("relu", "max_pool", "ball_query")
+GN_DECISIONS = TRAIN_DECISIONS + ("ffps",)
 TWO_STAGE_BATCH = 4
 # the ball queries of one PointRCNN or STD forward, in launch order
 TWO_STAGE_SA_NAMES = ("RPN SA1", "RPN SA2", "RPN SA3", "RPN SA4", "RCNN SA1", "RCNN SA2")
@@ -397,6 +434,11 @@ PATH_CALLS = {
     # 65,536 points (its train step at batch 8 takes the "3DSSD" calls)
     "nuScenes": dict(fps=[(4, 16384), (4, 4096), (4, 512)], ffps=[(4, 4096, 67), (4, 512, 131)],
                      ball_query=[16384, 4096, 1024, 512], sa_fused=[]),
+    # the flagship with attention grouping at SA1 and SA2 (phase 17): their
+    # ball queries are the attention queries, not K3
+    "3DSSD attention": dict(fps=[(8, 16384), (8, 4096), (8, 512)],
+                            ffps=[(8, 4096, 67), (8, 512, 131)], ball_query=[1024, 512],
+                            sa_fused=[]),
     "nuScenes 65,536": dict(fps=[(1, 65536), (1, 4096), (1, 512)],
                             ffps=[(1, 4096, 67), (1, 512, 131)],
                             ball_query=[65536, 4096, 1024, 512], sa_fused=[]),
@@ -1095,96 +1137,12 @@ def phase_training(report: list[dict]) -> dict:
 
 # ----------------------------------------------------------------- phase 6
 
-class DecisionReplay:
-    """The card leg's discrete decisions, recorded and handed to the CPU leg.
-
-    Three decisions of a train step compare computed values: a ReLU's sign,
-    a max-pool's winner, and a ball query's members around a vote-shifted
-    centre. Where such a value lies within rounding of the threshold, the
-    legs decide differently, and the gradient through that one decision
-    moves by O(1): at full width a few hundred of ~1.5e8 ReLU signs, about
-    ten max-pool winners and one CG-layer ball differ, and a single flipped
-    ReLU moves a head leaf's gradient by 8% of its largest entry. So the CPU
-    leg takes the card's decisions, and the comparison holds what is left,
-    the arithmetic, to rounding. Every decision the CPU would have taken
-    otherwise is counted, and must be a near-tie on the CPU's own values:
-    within F32_TOL of the tensor's largest |value| of the threshold (ReLU,
-    max-pool). A ball query the legs ran on bit-identical inputs (SA1 to
-    SA3: raw points and picks) must agree; the card's answer is also held
-    against the plain version on the card's own inputs."""
-
-    KINDS = ("relu", "max_pool", "ball_query")
-
-    def __init__(self):
-        self.recording = True  # the card leg; False for the CPU leg
-        self.log = {k: [] for k in self.KINDS}
-        self.pos = dict.fromkeys(self.KINDS, 0)
-        self.differ = dict.fromkeys(self.KINDS, 0)  # decisions the CPU took otherwise
-        self.total = dict.fromkeys(self.KINDS, 0)
-
-    def _count(self, kind: str, differ: torch.Tensor) -> None:
-        self.pos[kind] += 1
-        self.differ[kind] += int(differ.sum())
-        self.total[kind] += differ.numel()
-
-    def patches(self):
-        return (mock.patch.object(torch, "relu", self.relu),
-                mock.patch.object(modules, "max_pool", self.max_pool),
-                mock.patch.object(modules, "ball_query_multi", self.ball_query))
-
-    def relu(self, x):
-        if self.recording:
-            self.log["relu"].append((x > 0).cpu())
-            return _relu(x)
-        card = self.log["relu"][self.pos["relu"]]
-        flipped = card != (x > 0)
-        self._count("relu", flipped)
-        if flipped.any():
-            check(float(x.detach()[flipped].abs().max()) <= F32_TOL * float(x.detach().abs().max()),
-                  "a ReLU sign differs between card and CPU away from 0")
-        return torch.where(card, x, x.new_zeros(()))
-
-    def max_pool(self, grouped):
-        out = _max_pool(grouped)
-        if self.recording:
-            self.log["max_pool"].append((grouped == out[:, :, None]).cpu())
-            return out
-        card = self.log["max_pool"][self.pos["max_pool"]]
-        self._count("max_pool", (card != (grouped == out[:, :, None])).any(2))
-        at_card = grouped.masked_fill(~card, float("-inf")).amax(2)
-        check(float((out - at_card).detach().abs().max())
-              <= F32_TOL * float(grouped.detach().abs().max()),
-              "a max-pool winner differs between card and CPU away from a tie")
-        # the card's winners, the gradient split among them as amax splits it
-        w = card.to(grouped.dtype)
-        return (grouped * w).sum(2) / w.sum(2)
-
-    def ball_query(self, radius_list, nsample_list, xyz, new_xyz, dilated=False):
-        own = ball_query_multi(radius_list, nsample_list, xyz, new_xyz, dilated=dilated)
-        if self.recording:
-            specs = ring_specs(radius_list, nsample_list, dilated)
-            for (gi, gc), (pi, pc) in zip(own, ball_query_multi_plain(specs, xyz, new_xyz)):
-                check(torch.equal(gi, pi) and torch.equal(gc, pc),
-                      "ball query kernel differs from its plain version on the train step's inputs")
-            self.log["ball_query"].append(
-                (xyz.cpu(), new_xyz.cpu(), [(i.cpu(), c.cpu()) for i, c in own]))
-            return own
-        card_xyz, card_new_xyz, card = self.log["ball_query"][self.pos["ball_query"]]
-        differ = torch.zeros(new_xyz.shape[:2], dtype=torch.bool)
-        for (ci, cc), (oi, oc) in zip(card, own):
-            differ |= (ci != oi).any(-1) | (cc != oc)
-        self._count("ball_query", differ)
-        if torch.equal(card_xyz, xyz) and torch.equal(card_new_xyz, new_xyz):
-            check(not differ.any(), "ball query differs between card and CPU on equal inputs")
-        return card
-
-
-def _train_grads(model, spec, cfg, batch, replay: DecisionReplay):
-    """One f32 loss + backward; -> (loss dict, outputs, grads, BN stats)."""
+def _train_grads(model, spec, cfg, batch, replay: Decisions | None):
+    """One f32 loss + backward, under `replay` where given; -> (loss dict,
+    outputs, grads, BN stats)."""
     outputs = {}
     hook = model.register_forward_hook(lambda mod, args, out: outputs.update(out))
-    relu, pool, query = replay.patches()
-    with relu, pool, query:
+    with replay.patched() if replay else contextlib.nullcontext():
         # a batch of the device augmentation comes augmented (phase 15)
         graph = dataclasses.replace(TrainGraph.build(cfg, model, spec), aug_cfg=None)
         total, losses = graph.compute_losses(batch, bn_momentum(cfg.SOLVER, 0))
@@ -1210,17 +1168,18 @@ def phase_train_card_vs_cpu(opts=()) -> None:
     hold_train_step_to_cpu(cfg, gmodel, spec, data)
 
 
-def hold_train_step_to_cpu(cfg, gmodel, spec, data: dict) -> None:
+def hold_train_step_to_cpu(cfg, gmodel, spec, data: dict, kinds=TRAIN_DECISIONS) -> None:
     """One f32 loss and backward of `gmodel` (on the card, f32) on the CPU
     batch `data`, card against a CPU copy of the same state, the card's
-    discrete decisions replayed on the CPU leg (`DecisionReplay`): picks,
-    losses, every gradient leaf and the new BatchNorm statistics."""
+    discrete decisions of `kinds` replayed on the CPU leg (`Decisions`, the
+    card's balls also held to the plain version): picks, losses, every
+    gradient leaf and the new BatchNorm statistics."""
     cmodel = copy.deepcopy(gmodel).cpu()
     gmodel2 = copy.deepcopy(gmodel)  # the same state, for a second card step
     gmodel.train()
     gmodel2.train()
     cmodel.train()
-    replay = DecisionReplay()
+    replay = Decisions(kinds=kinds, plain=True)
     t0 = time.perf_counter()
     g_losses, g_out, g_grads, g_stats = _train_grads(
         gmodel, spec, cfg, {k: v.cuda() for k, v in data.items()}, replay)
@@ -1229,12 +1188,10 @@ def hold_train_step_to_cpu(cfg, gmodel, spec, data: dict) -> None:
     replay.recording = False
     c_losses, c_out, c_grads, c_stats = _train_grads(cmodel, spec, cfg, data, replay)
     log(f"  card {t1 - t0:.2f} s, CPU {time.perf_counter() - t1:.2f} s")
-    check(all(replay.pos[k] == len(replay.log[k]) for k in replay.KINDS),
-          f"the legs took different numbers of decisions: {replay.pos}")
+    check(replay.consumed(), f"the legs took different numbers of decisions: {replay.pos}")
     # reported, not held: K5 no longer varies from run to run, but cuBLAS and
     # the BatchNorm reductions are not bound to one order
-    grads2 = _train_grads(gmodel2, spec, cfg, {k: v.cuda() for k, v in data.items()},
-                          DecisionReplay())[2]
+    grads2 = _train_grads(gmodel2, spec, cfg, {k: v.cuda() for k, v in data.items()}, None)[2]
     same = [k for k, v in g_grads.items() if torch.equal(v, grads2[k])]
     log(f"  two card steps from the same state: {len(same)} of {len(g_grads)} gradient leaves "
         f"bit for bit equal" + ("" if len(same) == len(g_grads) else "; differ: " + ", ".join(
@@ -1245,7 +1202,8 @@ def hold_train_step_to_cpu(cfg, gmodel, spec, data: dict) -> None:
                   "card and CPU, so the comparison is void")
     log("  sampling picks equal on card and CPU at every layer; decisions the CPU would have "
         "taken otherwise, each a near-tie (the CPU leg takes the card's): "
-        + ", ".join(f"{k} {replay.differ[k]} of {replay.total[k]}" for k in replay.KINDS))
+        + ", ".join(f"{k} {replay.differ[k]} of {replay.total[k]}" for k in replay.kinds)
+        + f"; a differing ball's nearest moved point within {replay.ball_gap:.3g} of r^2 of a bound")
     vote_err = float((g_out["vote_offset"][0].cpu() - c_out["vote_offset"][0]).detach().abs().max())
     log(f"  vote offsets (the CG layer's centres): max |card - CPU| {vote_err:.3g}")
     # a loss of 0 (no entries to average) has no gradient to compare
@@ -1261,10 +1219,12 @@ def hold_train_step_to_cpu(cfg, gmodel, spec, data: dict) -> None:
     for name, cg in c_grads.items():
         err = float((g_grads[name] - cg).abs().max())
         scale = cg
-        if name.endswith("conv.bias") and name[:-9] + "bn.scale" in c_grads:
-            # a Dense bias ahead of BatchNorm has a true gradient of 0 (the
-            # batch mean takes it out): rounding on both sides, held against
-            # the same layer's kernel gradient
+        if name.endswith("conv.bias") and (name[:-9] + "bn.scale" in c_grads or (
+                name[:-9] + "gn.scale" in c_grads and cg.numel() <= 32)):
+            # a Dense bias ahead of BatchNorm (or of a GroupNorm of one
+            # channel a group) has a true gradient of 0 (the mean takes it
+            # out): rounding on both sides, held against the same layer's
+            # kernel gradient
             scale = c_grads[name[:-4] + "kernel"]
         grad_err.append((err / max(float(scale.abs().max()), 1e-30), name))
     grad_err.sort(reverse=True)
@@ -2527,12 +2487,13 @@ def two_stage_card_vs_cpu(stage: int, weights: dict, data: dict) -> None:
     uniforms = (torch.rand(n_scans, 2, graph.rpn_spec.max_output,
                            generator=torch.Generator().manual_seed(3))
                 if stage == 2 else None)
-    decisions = DecisionReplay()
+    decisions = Decisions(kinds=TRAIN_DECISIONS if stage == 1 else ("relu", "max_pool"),
+                          plain=True)
     rois, two = RoIReplay(), StageTwoReplay(graph)
-    relu, pool, query = decisions.patches()
     minibatch = []
-    patches = ([relu, pool, query] if stage == 1 else
-               [relu, pool, *rois.patches(), *two.patches(), counting_minibatch(minibatch)])
+    patches = (decisions.patches() if stage == 1 else
+               [*decisions.patches(), *rois.patches(), *two.patches(),
+                counting_minibatch(minibatch)])
     t0 = time.perf_counter()
     g_losses, g_grads, g_stats = _stage_grads(
         graph, gmodel, {k: v.cuda() for k, v in data.items()},
@@ -2542,7 +2503,7 @@ def two_stage_card_vs_cpu(stage: int, weights: dict, data: dict) -> None:
     decisions.recording = rois.recording = two.recording = False
     c_losses, c_grads, c_stats = _stage_grads(graph, cmodel, data, uniforms, patches)
     log(f"  stage {stage}: card {t1 - t0:.2f} s, CPU {time.perf_counter() - t1:.2f} s")
-    kinds = [(decisions, ("relu", "max_pool") + (("ball_query",) if stage == 1 else ()))]
+    kinds = [(decisions, decisions.kinds)]
     if stage == 2:
         kinds += [(rois, rois.KINDS), (two, tuple(two.log))]
     for rep, names in kinds:
@@ -3348,6 +3309,406 @@ def phase_nuscenes(report: list[dict]) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- phase 17
+
+ATTN_STEPS = 3  # timed bf16 train steps with attention grouping
+# an attention query's row may differ card against CPU only where a member
+# taken on one leg and not the other lies this close (relative) to the CPU's
+# selection threshold of feature distance: the keys are one f32 matrix
+# product summed in another order on each device
+ATTN_TIE_RTOL = 1e-5
+GN_OPTS = ["MODEL.NETWORK.USE_GN", "True"]
+
+
+class AttentionReplay:
+    """Every attention query (`modules.ball_query_attention`) of a card leg
+    recorded, then held to and handed to a CPU leg: a CPU row (idx and cnt
+    of one centre) that differs from the card's must be a near-tie
+    (ATTN_TIE_RTOL) of the CPU's own keys, and the CPU leg then takes the
+    card's answer, so that the rest of the two legs compares arithmetic."""
+
+    def __init__(self, per_leg: int):
+        self.per_leg = per_leg  # the attention queries of one forward
+        self.calls, self.pos, self.rows, self.differ = [], 0, 0, 0
+
+    def __call__(self, radius, ns, xyz, new_xyz, feats, new_feats):
+        idx, cnt = grouping.ball_query_attention(radius, ns, xyz, new_xyz, feats, new_feats)
+        if len(self.calls) < self.per_leg:  # the card leg runs first
+            self.calls.append((idx.cpu(), cnt.cpu()))
+            return idx, cnt
+        card_idx, card_cnt = self.calls[self.pos]
+        self.pos += 1
+        rows = (card_idx != idx).any(-1) | (card_cnt != cnt)
+        self.rows += rows.numel()
+        self.differ += int(rows.sum())
+        r2 = float(np.float32(radius * radius))
+        for b, q in rows.nonzero().tolist():
+            key = geometry.square_distance(new_feats[b, q:q + 1], feats[b])[0]
+            inside = grouping._pairwise_dist2(new_xyz[b:b + 1, q:q + 1], xyz[b:b + 1])[0, 0] < r2
+            t = key[inside].sort(descending=True).values[min(ns, int(inside.sum())) - 1]
+            moved = set(card_idx[b, q].tolist()) ^ set(idx[b, q].tolist())
+            gap = max(float((key[p] - t).abs()) for p in moved) if moved else 0.0
+            check(gap <= ATTN_TIE_RTOL * max(float(t.abs()), 1e-30),
+                  f"attention query r={radius} scan {b} centre {q} differs card against CPU "
+                  f"{gap:.3g} from the threshold {float(t):.6g}: not a near-tie")
+        return card_idx, card_cnt
+
+
+GN_MOMENT_RTOL = 1e-5
+
+
+class GroupNormReplay:
+    """The card leg's GroupNorm moments (E[x], E[x^2] of each scan and
+    group, `GroupNorm.moments`) handed to a CPU leg, each first held to the
+    CPU's own within GN_MOMENT_RTOL of the largest E[x^2] of the call. The
+    variance E[x^2] - E[x]^2 (flax's fast variance, which the port keeps)
+    cancels where a group's values are nearly equal, and multiplies the two
+    devices' rounding of the moments by up to 170 (measured, the flagship's
+    SA1 r=0.8 scale, conv2); past that the two legs compare the rest of the
+    arithmetic. The CPU leg takes the card's values with its own gradient
+    (card + own - own.detach()), so a train step's backward is its own."""
+
+    def __init__(self):
+        self.calls, self.pos, self.worst = [], 0, 0.0
+        self._moments = GroupNorm.moments  # the layer's own, before the patch
+
+    def bound(self):
+        """The replay as a method of GroupNorm, for patching `moments`."""
+        return lambda gn, x: self(gn, x)
+
+    def __call__(self, gn, x):
+        mean, mean2 = self._moments(gn, x)
+        if x.is_cuda:
+            self.calls.append((mean.detach().cpu(), mean2.detach().cpu()))
+            return mean, mean2
+        card = self.calls[self.pos]
+        self.pos += 1
+        scale = float(mean2.detach().abs().max().clamp(min=1e-30))
+        err = max(float((c - o.detach()).abs().max()) for c, o in zip(card, (mean, mean2))) / scale
+        self.worst = max(self.worst, err)
+        check(err <= GN_MOMENT_RTOL, f"GroupNorm moments differ card against CPU by {err:.3g} of "
+              "the largest E[x^2]")
+        return tuple(c + o - o.detach() for c, o in zip(card, (mean, mean2)))
+
+
+def attention_flagship_on(device, dtype=None, opts=()):
+    return flagship(device=device, seed=0, compute_dtype=dtype, opts=opts,
+                    attention=ATTENTION_LAYERS)
+
+
+def attention_query_times(model, scans: torch.Tensor) -> list[dict]:
+    """SA1's attention queries at their inputs in one forward: each radius's
+    query timed (`cuda_ms`) and profiled for its kernel launches."""
+    seen = []
+    real = modules.ball_query_attention
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    with mock.patch.object(modules, "ball_query_attention", record), torch.inference_mode():
+        model(scans)
+    sa1 = seen[:len(model.backbone.layer1.radius_list)]
+    out = []
+    for radius, ns, xyz, new_xyz, feats, new_feats in sa1:
+        fn = lambda: grouping.ball_query_attention(radius, ns, xyz, new_xyz, feats, new_feats)  # noqa: E731
+        ms = cuda_ms(fn, 5)
+        # two calls under the profiler, halved: a call first under a
+        # profiler can lose its first launches (`profile_once`)
+        activities = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+        n_launch = sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA) // 2
+        chunk = grouping.attention_chunk(xyz.shape[0], new_xyz.shape[1], xyz.shape[1])
+        out.append(dict(radius=radius, nsample=ns, ms=ms, launches=n_launch,
+                        shape=f"{tuple(new_xyz.shape[:2])} x {tuple(xyz.shape[:2])}, "
+                              f"{feats.shape[-1]} feature channels", chunk=chunk))
+        log(f"SA1 attention query r={radius} ns={ns} at {out[-1]['shape']}: {ms:.3f} ms, "
+            f"{n_launch} kernel launches ({-(-new_xyz.shape[1] // chunk)} chunks of {chunk} "
+            f"queries a cloud)")
+    return out
+
+
+def phase_attention_and_groupnorm(report: list[dict]) -> dict:
+    """Phase 17: the flagship with attention grouping on SA1 and SA2 and with
+    GroupNorm -> the launches of attention inference and of its train step."""
+    log(f"== phase 17: the flagship with attention grouping on SA1 and SA2 (bf16, batch {BATCH}, "
+        f"{N_POINTS} points), and with GroupNorm (USE_GN)")
+    paths = {}
+    scans = torch.from_numpy(synthetic_scenes(BATCH, N_POINTS)["points"]).to(DEV)
+    cfg, model, spec, _ = attention_flagship_on(DEV)
+
+    def infer(points):
+        with torch.inference_mode():
+            return spec.decode_and_nms(model(points))
+
+    _build.reset_launches()
+    det = infer(scans)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    log(f"kernel launches in one attention forward, decode and NMS: {launches}")
+    check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather"))
+          and launches["scatter_add"] == launches["three_nn"] == launches["sa_fused"] == 0,
+          f"attention inference: launches {launches}")
+    launches["routes"] = check_routes("attention inference", "3DSSD attention")
+    paths["attention"] = launches
+    valid = det["valid"]
+    check(bool(torch.isfinite(det["boxes"]).all() and torch.isfinite(det["scores"]).all()
+               and valid.any() and (valid.sum(-1) <= 100).all()),
+          "attention inference: non-finite or no detections")
+    iters = 10
+    infer(scans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        infer(scans)
+    torch.cuda.synchronize()
+    rate = BATCH * iters / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    one = scans[:1].contiguous()
+    lat = []
+    for _ in range(iters + 1):
+        t0 = time.perf_counter()
+        infer(one)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    wall, busy = profile_once(lambda: infer(scans), f"attention batch of {BATCH}", top=8)
+    log(f"attention inference: {rate:.2f} scans/s at batch {BATCH}; batch-1 latency median "
+        f"{statistics.median(lat[1:]):.2f} ms; device busy {busy:.2f} ms of a profiled "
+        f"{wall:.2f} ms; peak memory {peak:.2f} GiB")
+    MEASURED["attention_queries"] = attention_query_times(model, scans)
+    del model
+
+    log("attention flagship card against CPU, one scan, same weights, f32 (the CPU leg takes "
+        "the card's attention rows where a near-tie went the other way):")
+    arch = cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE
+    replay = AttentionReplay(sum(len(arch[row][2]) for row in ATTENTION_LAYERS))
+    with mock.patch.object(modules, "ball_query_attention", replay):
+        check(compare_with_cpu(scans[:1].contiguous(), "float32",
+                               build=lambda dtype: attention_flagship_on(DEV, dtype)[:3]),
+              "attention float32: picks, bins or kept detections differ between card and CPU")
+    check(replay.pos == len(replay.calls) == replay.per_leg,
+          f"the legs made {len(replay.calls)} / {replay.pos} attention queries, "
+          f"not {replay.per_leg} each")
+    log(f"  attention queries: {len(replay.calls)} on each leg, {replay.differ} of {replay.rows} "
+        "rows differ (each a near-tie of the CPU's keys)")
+
+    cfg, model, spec, _ = attention_flagship_on(DEV)
+    graph = TrainGraph.build(cfg, model, spec)
+    state = graph.init_state()
+    data = {k: torch.from_numpy(v).to(DEV) for k, v in synthetic_scenes(BATCH, N_POINTS).items()}
+    _build.reset_launches()
+    first = graph.train_step(state, data)
+    torch.cuda.synchronize()
+    tl = _build.launches()
+    log(f"kernel launches in one attention train step: {tl}")
+    check(all(tl[k] > 0 for k in ("fps", "ffps", "ball_query", "gather", "scatter_add"))
+          and tl["three_nn"] == tl["sa_fused"] == 0, f"attention train step: launches {tl}")
+    tl["routes"] = check_routes("the attention train step", "3DSSD attention")
+    paths["attention_train"] = tl
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [first], []
+    for _ in range(ATTN_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(graph.train_step(state, data))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(float(m[k])) for m in metrics for k in LOSS_KEYS + ("total",)),
+          f"attention train step: a loss is not finite: {metrics}")
+    wall, busy = profile_once(lambda: graph.train_step(state, data),
+                              f"attention train step at batch {BATCH}", top=8)
+    log(f"attention bf16 train step at batch {BATCH}: median {statistics.median(times):.2f} ms "
+        f"(min {min(times):.2f}, max {max(times):.2f}) over {ATTN_STEPS} steps; device busy "
+        f"{busy:.2f} ms of a profiled {wall:.2f} ms; peak memory {peak:.2f} GiB; total loss by "
+        "step " + ", ".join(f"{float(m['total']):.4f}" for m in metrics))
+    calls = []
+
+    def recorded(idx, g, n):
+        calls.append((idx.detach().clone(), g.detach().clone(), n))
+        return scatter_add_rows(idx, g, n)
+
+    with mock.patch.object(grouping, "scatter_add_rows", recorded):
+        graph.train_step(state, data)
+    check(len(calls) == tl["scatter_add"], f"recorded {len(calls)} scatter-add calls in an "
+          f"attention train step, launched {tl['scatter_add']}")
+    entry = next(e for e in report if e["name"] == "scatter_add")
+    entry["attention_train_step_shapes"] = [
+        k5_check(f"attention train call {i}: {g.shape[0] * g.shape[1]} x {g.shape[2]} into {n}",
+                 idx, g, n, timed=False) for i, (idx, g, n) in enumerate(calls)]
+    del graph, state, model
+
+    log("GroupNorm flagship (USE_GN) card against CPU, one scan, same weights, f32 (the CPU "
+        "leg takes the card's F-FPS picks, ReLU signs, max-pool winners and balls where a "
+        "near-tie went the other way):")
+    replay, gn = Decisions(kinds=GN_DECISIONS, by_device=True, plain=True), GroupNormReplay()
+    with replay.patched(), mock.patch.object(GroupNorm, "moments", gn.bound()):
+        check(compare_with_cpu(scans[:1].contiguous(), "float32", build=lambda dtype: flagship(
+            device=DEV, seed=0, compute_dtype=dtype, opts=GN_OPTS)[:3]),
+            "GroupNorm float32: picks, bins or kept detections differ between card and CPU")
+    log(f"  GroupNorm moments of {gn.pos} layers within {gn.worst:.3g} of the largest E[x^2] "
+        "(the CPU leg takes the card's); decisions the CPU would have taken otherwise, each a "
+        "near-tie: " + ", ".join(f"{k} {replay.differ[k]} of {replay.total[k]}"
+                                 for k in replay.kinds))
+    check(replay.consumed(), f"the legs took different numbers of decisions: {replay.pos}")
+    log("one f32 GroupNorm train step, card against CPU, 2 scans, same weights (the card's "
+        "F-FPS picks too):")
+    cfg32, gmodel, spec32, _ = flagship(device=DEV, seed=0, compute_dtype="float32",
+                                        opts=GN_OPTS)
+    check(not any(".bn." in k for k in gmodel.state_dict()), "USE_GN left a BatchNorm")
+    gn = GroupNormReplay()
+    with mock.patch.object(GroupNorm, "moments", gn.bound()):
+        hold_train_step_to_cpu(cfg32, gmodel, spec32, {
+            k: torch.from_numpy(v) for k, v in synthetic_scenes(2, N_POINTS).items()},
+            kinds=GN_DECISIONS)
+    log(f"  GroupNorm moments within {gn.worst:.3g} of the largest E[x^2]")
+    return paths
+
+
+# ---------------------------------------------------------------- phase 18
+
+DIST_CLI_ITERS = 4
+DIST_CLI_SCANS = 16
+# the flagship's step at batch 8 over the cards (bf16 as shipped), and at f32
+# where more than one card is held to one process (`parallel.steps.CASES`)
+DIST_CASE, DIST_CASE_F32 = "3dssd", "3dssd_f32"
+DIST_TIMED = 5  # steps timed after the compared one, each mode
+
+
+def _same_step(got, want, what: str) -> None:
+    """World size 1: the dp step is the plain step, bit for bit."""
+    check(got.losses == want.losses, f"{what}: losses {got.losses} != {want.losses}")
+    differ = [k for k, v in want.grads.items() if not torch.equal(got.grads[k], v)]
+    check(not differ, f"{what}: {len(differ)} gradient leaves differ, e.g. {differ[:3]}")
+    differ = [k for k, v in want.stats.items() if not torch.equal(got.stats[k], v)]
+    check(not differ, f"{what}: {len(differ)} BatchNorm statistics differ, e.g. {differ[:3]}")
+
+
+def _step_within(got, want, what: str) -> None:
+    """World size 1 under FSDP: phase 6's tolerances (losses F32_TOL relative,
+    each gradient leaf TRAIN_GRAD_TOL of its largest |value|, statistics
+    F32_TOL of theirs)."""
+    loss = max(abs(got.losses[k] - v) / max(abs(v), 1e-30) for k, v in want.losses.items())
+    grad = max(float((got.grads[k] - v).abs().max()) / parallel_steps._grad_scale(k, want.grads)
+               for k, v in want.grads.items())
+    stats = max(float((got.stats[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                for k, v in want.stats.items())
+    exact = got.losses == want.losses and all(torch.equal(got.grads[k], v)
+                                              for k, v in want.grads.items())
+    log(f"  {what}: {'bit for bit the plain step' if exact else 'not bit for bit'}; worst "
+        f"relative loss {loss:.3g}, gradient {grad:.3g}, statistics {stats:.3g}")
+    check(loss <= F32_TOL and grad <= TRAIN_GRAD_TOL and stats <= F32_TOL,
+          f"{what}: past phase 6's tolerances")
+
+
+def dist_cli(n: int, root: str) -> None:
+    """`bin.train` of the flagship in n processes under SSD3D_DIST_* (one
+    rank a card), in dp and in fsdp, DIST_CLI_ITERS iterations each; then a
+    single-process `bin.train` resumes each run's checkpoint."""
+    data, npz = os.path.join(root, "kitti"), os.path.join(root, "npz")
+    synth.write_tree(data, n_train=DIST_CLI_SCANS, n_val=1, n_points=CLI_SCAN_POINTS, seed=1)
+    opts = ["--device", DEV, "DATASET.KITTI.BASE_DIR_PATH", data,
+            "DATASET.KITTI.TRAIN_LIST", os.path.join(data, "train.txt"),
+            "DATASET.KITTI.VAL_LIST", os.path.join(data, "val.txt"),
+            "DATASET.KITTI.SAVE_NUMPY_PATH", npz,
+            "TRAIN.CONFIG.CHECKPOINT_INTERVAL", str(DIST_CLI_ITERS),
+            "TRAIN.CONFIG.SUMMARY_INTERVAL", "1"]
+    preprocess_cli.main(["--cfg", str(FLAGSHIP_CFG), "--img_list", "train"] + opts)
+    for mode in ("dp", "fsdp"):
+        run = os.path.join(root, f"run_{mode}")
+        argv = ["-m", "ssd3d_torch.bin.train", "--cfg", str(FLAGSHIP_CFG), "--log_dir", run,
+                "--max_iterations", str(DIST_CLI_ITERS)] + opts + ["TPU.PARALLEL_MODE", mode]
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
+                   SSD3D_DIST_COORDINATOR=f"localhost:{port}", SSD3D_DIST_NUM_PROCESSES=str(n))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, *argv], env=dict(env, SSD3D_DIST_PROCESS_ID=str(r)),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(n)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              f"bin.train under {mode}: exit codes {[p.returncode for p in procs]}:\n"
+              + outs[0][-3000:])
+        metrics = _metrics(run)
+        check([m["iter"] for m in metrics] == list(range(1, DIST_CLI_ITERS + 1))
+              and all(np.isfinite(m[k]) for m in metrics for k in LOSS_KEYS + ("total",)),
+              f"bin.train under {mode}: metrics {metrics}")
+        steps_saved = CheckpointManager(os.path.join(run, "ckpt")).all_steps()
+        check(steps_saved == [DIST_CLI_ITERS], f"bin.train under {mode} saved steps {steps_saved}")
+        sec = [m["sec_per_it"] for m in metrics[1:]]
+        log(f"bin.train under SSD3D_DIST_* in {mode} over {n} rank(s): {DIST_CLI_ITERS} iterations "
+            f"in {time.perf_counter() - t0:.1f} s, median {statistics.median(sec):.4f} s/it, "
+            f"total loss " + ", ".join(f"{m['total']:.4f}" for m in metrics))
+        train_cli.main(["--cfg", str(FLAGSHIP_CFG), "--log_dir", run,
+                        "--max_iterations", str(DIST_CLI_ITERS + 1)] + opts)
+        with open(os.path.join(run, "log_train.txt")) as f:
+            check(f"restored checkpoint at step {DIST_CLI_ITERS}" in f.read(),
+                  f"the single process did not resume the {mode} run's checkpoint")
+        last = _metrics(run)[-1]
+        check(last["iter"] == DIST_CLI_ITERS + 1 and np.isfinite(last["total"]),
+              f"the resumed {mode} run logged {last}")
+        log(f"  one process resumed the {mode} run's step-{DIST_CLI_ITERS} checkpoint: iteration "
+            f"{last['iter']} total loss {last['total']:.4f}")
+
+
+def phase_data_parallel() -> dict:
+    """Phase 18: the flagship's train step under dp and fsdp over NCCL, one
+    process a card on every card of the machine -> the launches of each
+    mode's step (rank 0's)."""
+    n = torch.cuda.device_count()
+    log(f"== phase 18: data-parallel and FSDP training over NCCL, {n} process(es), one a card; "
+        f"the flagship's train step at batch {BATCH} (bf16), then bin.train under SSD3D_DIST_*")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = run_ranks(n, DEV, [DIST_CASE], ["dp", "fsdp"], timed=DIST_TIMED)
+    log(f"ranks ran in {time.perf_counter() - t0:.1f} s on {recs['device']} (rank 0), NCCL "
+        f"{recs.get('nccl')}")
+    plain = parallel_steps.single_step(DIST_CASE, DEV, timed=DIST_TIMED)
+    paths = {}
+    for mode in ("dp", "fsdp"):
+        rec = recs[(DIST_CASE, mode)]
+        check(all(rec.launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather",
+                                                "scatter_add")),
+              f"the {mode} step on rank 0: launches {rec.launches}")
+        if n == 1:  # rank 0's batch is the whole batch of 8
+            check(rec.routes == path_routes("3DSSD"), f"the {mode} step: routes {rec.routes}")
+        paths[f"{mode}_train"] = dict(rec.launches, routes=rec.routes)
+        log(f"the flagship's {mode} step over {n} card(s): {rec.ms:.2f} ms (rank 0, median of "
+            f"{DIST_TIMED} steps after the compared one), the plain step {plain.ms:.2f} ms; rank "
+            f"0's launches {rec.launches}")
+        if n == 1:
+            if mode == "dp":
+                _same_step(rec, plain, "dp over one card against the plain step")
+                log("  dp over one card: losses, every gradient leaf and the BatchNorm statistics "
+                    "bit for bit the plain step's")
+            else:
+                _step_within(rec, plain, "fsdp over one card against the plain step")
+    if n > 1:
+        log(f"the f32 flagship over {n} cards against one process on the global batch, the "
+            "ranks' decisions taken by the single process:")
+        recs32 = run_ranks(n, DEV, [DIST_CASE_F32], ["dp", "fsdp"], record=True)
+        for mode in ("dp", "fsdp"):
+            rec = recs32[(DIST_CASE_F32, mode)]
+            taken = parallel_steps.Decisions(rec.decisions)
+            want = parallel_steps.single_step(DIST_CASE_F32, DEV, decisions=taken)
+            worst = parallel_steps.compare(rec, want, f"{mode} over {n} cards")
+            log(f"  {mode}: worst relative errors {worst}; decisions taken otherwise "
+                f"{taken.differ}")
+    with tempfile.TemporaryDirectory(prefix="ssd3d_dist_") as root:
+        dist_cli(n, root)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -3382,6 +3743,8 @@ def main() -> int:
     paths.update(timed(phase_std_training))
     paths.update(timed(phase_train_options))
     paths.update(timed(phase_nuscenes, report))
+    paths.update(timed(phase_attention_and_groupnorm, report))
+    paths.update(timed(phase_data_parallel))
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

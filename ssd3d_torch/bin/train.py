@@ -1,5 +1,8 @@
 """Training CLI (counterpart of `ssd3d/bin/train.py`, the reference's
-lib/core/trainer.py), on one device: the card unless `--device cpu`.
+lib/core/trainer.py), on the card unless `--device cpu`; on several cards
+one process a card, under the SSD3D_DIST_* environment contract
+(`ssd3d_torch/parallel/distributed.py`, README), with TPU.PARALLEL_MODE dp
+or fsdp.
 
     python -m ssd3d_torch.bin.train --cfg configs/kitti/3dssd/3dssd.yaml \
         --log_dir runs/3dssd [--device cpu] [KEY VALUE ...]

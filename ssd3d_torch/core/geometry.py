@@ -96,3 +96,21 @@ def centerness(base_xyz: torch.Tensor, boxes: torch.Tensor, eps: float = 1e-6) -
            * ratio(-canon[..., 1], canon[..., 1] + h)
            * ratio(w / 2.0 - canon[..., 2], canon[..., 2] + w / 2.0))
     return ctr.clamp(min=eps).pow(1.0 / 3.0)
+
+
+def square_distance(a: torch.Tensor, b: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    """Pairwise squared distances in the a^2 + b^2 - 2ab form, as the JAX
+    package computes them: a [..., n, c], b [..., m, c] -> f32 [..., n, m].
+
+    The squared norms are summed in the inputs' dtype and the cross term is
+    one matrix product in f32 (JAX's einsum at HIGHEST precision with an f32
+    result), so that both packages order near-equal distances alike: the
+    attention ball query keys on them. With normalize=True returns
+    sqrt(max(d, 0)) / c (the reference's normalized variant)."""
+    a_sq = (a * a).sum(-1, keepdim=True).float()  # [..., n, 1]
+    b_sq = (b * b).sum(-1).float()[..., None, :]  # [..., 1, m]
+    cross = torch.matmul(a.float(), b.float().transpose(-1, -2))
+    d = a_sq + b_sq - 2.0 * cross
+    if normalize:
+        return torch.sqrt(d.clamp(min=0.0)) / a.shape[-1]
+    return d

@@ -4,8 +4,10 @@ The port's copy of `ssd3d/data/loader.py` (`KittiLoader`, `MixupDatabase`,
 `budget_points`, `batches`), numpy only, with one repair: `batches` passes
 `mp_method` through to its worker processes, where the reference drops it
 and always forks. A process that has initialised CUDA must not fork, so the
-port's trainer asks for "forkserver" on every device. The single-host loader
-keeps no per-host row range (that waits for ROADMAP Queue 1 item 12).
+port's trainer asks for "forkserver" on every device. Under data
+parallelism the trainer sets `row_range = (lo, hi)`: each batch of the
+deterministic global stream then holds only its rows [lo, hi), the rows
+this rank trains on, and only those are loaded.
 
 Each sample is a pure function of (epoch seed, sample index), so any batch
 is reproducible regardless of worker scheduling, and delivery is in
@@ -37,7 +39,10 @@ def _collate(samples):
 
 
 def _collate_block(loader, block):
-    """Load + collate one batch's (epoch, index) block."""
+    """Load + collate one batch's (epoch, index) block, or with the
+    loader's `row_range = (lo, hi)` set only its rows [lo, hi)."""
+    if loader.row_range is not None:
+        block = block[loader.row_range[0]:loader.row_range[1]]
     return _collate([loader.load_sample(i, epoch_seed=e) for e, i in block])
 
 
@@ -140,6 +145,7 @@ class KittiLoader:
         self.cfg = cfg
         self.training = training
         self.seed = seed
+        self.row_range: tuple[int, int] | None = None  # this rank's rows of each batch
         self.points_num = cfg.MODEL.POINTS_NUM_FOR_TRAINING
         self.data_dir = data_dir or os.path.join(kcfg.SAVE_NUMPY_PATH, split)
         with open(os.path.join(self.data_dir, "list.txt")) as f:

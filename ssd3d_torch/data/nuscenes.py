@@ -157,6 +157,7 @@ class NuScenesLoader:
         self.cfg = cfg
         self.training = training
         self.seed = seed
+        self.row_range: tuple[int, int] | None = None  # this rank's rows of each batch
         self.budget = ncfg.MAX_CUR_SAMPLE_POINTS_NUM
         self.feature_channels = ncfg.INPUT_FEATURE_CHANNEL
         self.data_dir = data_dir or os.path.join(ncfg.SAVE_NUMPY_PATH, split)
@@ -269,7 +270,9 @@ class NuScenesLoader:
             for _ in range(start_iter):
                 if next(it, None) is None:
                     return
-            yield from it
+            rr = self.row_range
+            for idxs in it:  # with a row range, only this rank's rows
+                yield idxs if rr is None else idxs[rr[0]:rr[1]]
 
         def assemble(samples):
             batch = {k: np.stack([s[k] for s in samples])

@@ -27,12 +27,20 @@ default raises. Usage:
     step, batch = two_stage_train_entry(stage=1)   # PointRCNN's RPN, batch 4
     metrics = step(batch)     # loss_stage0/* (stage 2: loss_stage1/* too)
     state = step.args[0]
+
+    dryrun_multichip()        # dp and fsdp steps, one NCCL process a card
+    dryrun_multichip(2, device="cpu")   # the same in 2 gloo processes
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import os
+import socket
+import subprocess
+import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -42,7 +50,7 @@ from ssd3d_torch.config import load_cfg
 from ssd3d_torch.data.loader import KittiLoader
 from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.models.single_stage import build_detector
-from ssd3d_torch.nn.layers import BatchNorm, Dense
+from ssd3d_torch.nn.layers import BatchNorm, Dense, GroupNorm
 from ssd3d_torch.train.train_step import TrainGraph
 from ssd3d_torch.utils.synth import GROUND_Y, make_scene, sample_cars
 
@@ -51,6 +59,8 @@ FLAGSHIP_CFG = CONFIGS / "3dssd" / "3dssd.yaml"
 POINTRCNN_CFG = CONFIGS / "pointrcnn" / "pointrcnn_test.yaml"
 STD_CFG = CONFIGS / "std" / "std.yaml"
 NUSCENES_CFG = CONFIGS.parent / "nuscenes" / "3dssd" / "3dssd.yaml"
+# the flagship's rows grouped by attention where asked (SA1 and SA2)
+ATTENTION_LAYERS = (0, 1)
 # the KITTI training options no shipped config turns on, as config overrides
 # of the flagship: an IoU head beside its detection head, Dist-Anchor
 # regression (the IoU branch needs anchor boxes), AdaBound and the
@@ -66,7 +76,7 @@ TRAIN_OPTIONS = ["MODEL.NETWORK.FIRST_STAGE.HEAD",
 def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
     """The JAX package's init rules from a seeded CPU generator (so every
     device gets the same numbers): xavier-uniform Dense kernels, zero biases,
-    BatchNorm scale 1, bias 0, mean 0, var 1."""
+    BatchNorm scale 1, bias 0, mean 0, var 1; GroupNorm scale 1, bias 0."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -81,15 +91,22 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
                 mod.bias.zero_()
                 mod.mean.zero_()
                 mod.var.fill_(1.0)
+            elif isinstance(mod, GroupNorm):
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
 
 
 def flagship(shrink: int = 1, compute_dtype: str | None = None,
-             device: torch.device | str = "cuda", seed: int = 0, opts=()):
+             device: torch.device | str = "cuda", seed: int = 0, opts=(), attention=()):
     """-> (cfg, model, spec, n). `shrink` divides the FPS ranges, sample
     counts and scan size as `__graft_entry__._flagship` does (widths stay);
     `compute_dtype` ("float32" | "bfloat16") overrides TPU.COMPUTE_DTYPE;
-    `opts` are config overrides (key, value, ...)."""
+    `opts` are config overrides (key, value, ...); `attention` lists the
+    architecture rows whose ball queries take attention order (ATTENTION_LAYERS:
+    SA1 and SA2, as the JAX package's attention train test sets them)."""
     cfg = load_cfg(str(FLAGSHIP_CFG), list(opts))
+    for row in attention:
+        cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE[row][10] = True
     if shrink > 1:
         for layer in cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE:
             layer[6] = [r if r == -1 else r // shrink for r in layer[6]]
@@ -280,3 +297,70 @@ def two_stage_entry(device: torch.device | str = "cuda", seed: int = 0, batch: i
     n = cfg.MODEL.POINTS_NUM_FOR_TRAINING
     points = torch.from_numpy(synthetic_scenes(batch, n, seed)["points"]).to(device)
     return pipe.infer, (points,)
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(n: int, device: str, cases, modes, timed: int = 0, record: bool = False,
+              timeout: float = 600) -> dict:
+    """Run `parallel.steps` as n processes (one rank each; on the card, rank
+    r on card r) -> rank 0's records, with `record` the ranks' decisions.
+    Each process has `timeout` seconds; any failure raises with its
+    output."""
+    with tempfile.TemporaryDirectory(prefix="ssd3d_ranks_") as tmp:
+        out = os.path.join(tmp, "records.pt")
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+        args = [f"--{k}={v}" for k, vs in (("case", cases), ("mode", modes)) for v in vs]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "ssd3d_torch.parallel.steps", f"--rank={r}", f"--world={n}",
+             f"--port={port}", f"--device={device}", f"--timed={timed}", f"--out={out}",
+             *(["--record"] if record else []), *args],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+        try:
+            logs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise RuntimeError("ranks failed (exit codes "
+                               f"{[p.returncode for p in procs]}):\n" + "\n".join(logs))
+        from ssd3d_torch.parallel.steps import load_records
+
+        return load_records(out)
+
+
+def dryrun_multichip(n: int | None = None, device: str = "cuda") -> dict:
+    """The port's counterpart of `__graft_entry__.dryrun_multichip`: one
+    train step of the shrunk flagship and of the tiny PointRCNN's stage 2
+    in n processes (NCCL on n cards, every card by default; gloo on the CPU
+    with device="cpu", 2 by default), in `dp` and in `fsdp`, each held to
+    the single-process step on the same global batch, the ranks' decisions
+    taken there (`parallel.steps.Decisions`, each difference a near-tie;
+    `parallel.steps.compare`: losses, gradient leaves, BatchNorm
+    statistics) -> {(case, mode): worst relative errors}."""
+    from ssd3d_torch.parallel import steps
+
+    if n is None:
+        n = torch.cuda.device_count() if device == "cuda" else 2
+    cases, modes = ("3dssd_shrunk", "pointrcnn2_tiny"), ("dp", "fsdp")
+    got = run_ranks(n, device, cases, modes, record=n > 1)
+    worst = {}
+    for case in cases:
+        for mode in modes:
+            rec = got[(case, mode)]
+            taken = steps.Decisions(rec.decisions) if rec.decisions else None
+            want = steps.single_step(case, device, decisions=taken)
+            worst[(case, mode)] = steps.compare(rec, want, f"{case} {mode} over {n} ranks")
+            worst[(case, mode)]["decisions taken otherwise"] = dict(taken.differ) if taken else {}
+            print(f"dryrun_multichip: {case} {mode} over {n} {device} ranks matches the "
+                  f"single-process step: worst relative errors {worst[(case, mode)]}")
+    return worst

@@ -7,6 +7,9 @@ refer into these lists. Layer modules are registered under the flax scope
 names, repeated scopes deduplicated the same way (the flagship's second
 `vote` becomes `vote_4`).
 
+`use_gn` puts GroupNorm in place of BatchNorm in every layer
+(MODEL.NETWORK.USE_GN), as the JAX backbone threads it.
+
 The two-stage detector seeds the RCNN's lists with the proposal centres:
 `prefix_xyz` / `prefix_features` entries stand before the raw input, and
 `prefix_channels` gives the width of each prefix feature (0 for None).
@@ -34,7 +37,8 @@ class PointBackbone(nn.Module):
     def __init__(self, architecture: Sequence[Sequence[Any]], in_channels: int,
                  max_translate_range: Sequence[float],
                  aggregation_sa_feature: bool = False,
-                 compute_dtype: torch.dtype | None = None, prefix_channels: Sequence[int] = ()):
+                 compute_dtype: torch.dtype | None = None, prefix_channels: Sequence[int] = (),
+                 use_gn: bool = False):
         super().__init__()
         self.n_prefix = len(prefix_channels)
         feat_ch = list(prefix_channels) + [in_channels]
@@ -49,10 +53,6 @@ class PointBackbone(nn.Module):
             used_names.add(scope)
             c_in = feat_ch[feat_idx[0]]
             if layer_type == "SA_Layer":
-                if use_attention:
-                    raise NotImplementedError(
-                        "attention grouping is not ported yet (ROADMAP Queue 1 item 11b)"
-                    )
                 module = PointnetSAModuleMSG(
                     c_in, radius_list, nsample_list, mlp_list, bn,
                     fps_range_list, fps_method_list, npoint_list,
@@ -60,17 +60,19 @@ class PointBackbone(nn.Module):
                     aggregation_channel=agg_channel if agg_channel != -1 else None,
                     aggregate=aggregation_sa_feature,
                     compute_dtype=compute_dtype,
+                    use_attention=bool(use_attention),
+                    use_gn=use_gn,
                 )
             elif layer_type == "Vote_Layer":
                 module = VoteLayer(c_in, mlp_list, max_translate_range, bn=bn,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype, use_gn=use_gn)
             elif layer_type == "FP_Layer":
                 # interpolated sparse features, then the dense points' own
                 module = PointnetFPModule(feat_ch[feat_idx[1]] + feat_ch[feat_idx[0]], mlp_list,
-                                          bn=bn, compute_dtype=compute_dtype)
+                                          bn=bn, compute_dtype=compute_dtype, use_gn=use_gn)
             elif layer_type == "SA_Layer_SSG_Last":
                 module = PointnetSAModuleGlobal(c_in, mlp_list, bn=bn,
-                                                compute_dtype=compute_dtype)
+                                                compute_dtype=compute_dtype, use_gn=use_gn)
             else:
                 raise ValueError(f"unknown layer type {layer_type}")
             self.add_module(scope, module)

@@ -1,5 +1,6 @@
 """Detection and IoU heads (counterpart of `ssd3d/models/heads.py`), with
-the nuScenes attribute / velocity branches."""
+the nuScenes attribute / velocity branches; `use_gn` puts GroupNorm in
+place of BatchNorm in the trunk and the 128-wide base convs."""
 
 from __future__ import annotations
 
@@ -17,23 +18,25 @@ class DetectionHead(nn.Module):
 
     def __init__(self, in_channels: int, mlp, cls_channels: int, reg_base: int,
                  reg_channels: int, num_angle_cls: int, bn: bool = True,
-                 compute_dtype: torch.dtype | None = None, predict_attr_velo: bool = False):
+                 compute_dtype: torch.dtype | None = None, predict_attr_velo: bool = False,
+                 use_gn: bool = False):
         super().__init__()
         self.reg_base = reg_base
         self.reg_channels = reg_channels
         self.num_angle_cls = num_angle_cls
-        self.trunk = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype)
+        norm = dict(bn=bn, compute_dtype=compute_dtype, use_gn=use_gn)
+        self.trunk = SharedMLP(in_channels, mlp, **norm)
         c = self.trunk.out_channels
-        self.pred_cls_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
+        self.pred_cls_base = PointConv(c, 128, **norm)
         self.pred_cls = PointConv(128, cls_channels, bn=False, activation=False)
         reg_out = reg_base * (reg_channels + num_angle_cls * 2)
-        self.pred_reg_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
+        self.pred_reg_base = PointConv(c, 128, **norm)
         self.pred_reg = PointConv(128, reg_out, bn=False, activation=False)
         self.predict_attr_velo = predict_attr_velo
         if predict_attr_velo:
-            self.pred_attr_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
+            self.pred_attr_base = PointConv(c, 128, **norm)
             self.pred_attr = PointConv(128, reg_base * 8, bn=False, activation=False)
-            self.pred_velo_base = PointConv(c, 128, bn=bn, compute_dtype=compute_dtype)
+            self.pred_velo_base = PointConv(c, 128, **norm)
             self.pred_velo = PointConv(128, reg_base * 2, bn=False, activation=False)
 
     def forward(self, features: torch.Tensor, bn_momentum: float = 0.9) -> dict:
@@ -66,11 +69,11 @@ class IoUHead(nn.Module):
     decode time and is trained by `train.losses.iou_branch_loss`."""
 
     def __init__(self, in_channels: int, mlp, cls_channels: int, bn: bool = True,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, use_gn: bool = False):
         super().__init__()
-        self.trunk = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype)
+        self.trunk = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype, use_gn=use_gn)
         self.pred_iou_base = PointConv(self.trunk.out_channels, 128, bn=bn,
-                                       compute_dtype=compute_dtype)
+                                       compute_dtype=compute_dtype, use_gn=use_gn)
         self.pred_iou = PointConv(128, cls_channels, bn=False, activation=False)
 
     def forward(self, features: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:

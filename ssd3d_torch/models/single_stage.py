@@ -35,10 +35,10 @@ class SingleStageDetector(nn.Module):
                  cls_activation: str = "Sigmoid",
                  aggregation_sa_feature: bool = False,
                  compute_dtype: torch.dtype | None = None,
-                 predict_attr_velo: bool = False):
+                 predict_attr_velo: bool = False, use_gn: bool = False):
         super().__init__()
         self.backbone = PointBackbone(architecture, in_channels, max_translate_range,
-                                      aggregation_sa_feature, compute_dtype)
+                                      aggregation_sa_feature, compute_dtype, use_gn=use_gn)
         cls_channels = num_classes if cls_activation == "Sigmoid" else num_classes + 1
         self.heads: list[tuple] = []  # (name, xyz sources, feature sources)
         self.iou_heads: list[tuple] = []  # (name, feature sources)
@@ -49,11 +49,12 @@ class SingleStageDetector(nn.Module):
                 self.add_module(name, DetectionHead(
                     c_in, mlp, cls_channels, reg_base, reg_channels, num_angle_cls,
                     bn=bn, compute_dtype=compute_dtype, predict_attr_velo=predict_attr_velo,
+                    use_gn=use_gn,
                 ))
                 self.heads.append((name, xyz_idx, feat_idx))
             elif head_type == "IoU":
                 self.add_module(name, IoUHead(c_in, mlp, num_classes, bn=bn,
-                                              compute_dtype=compute_dtype))
+                                              compute_dtype=compute_dtype, use_gn=use_gn))
                 self.iou_heads.append((name, feat_idx))
             else:
                 raise ValueError(f"unknown head type {head_type!r}")
@@ -156,8 +157,6 @@ def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str =
     device = _build.resolve_device(device)
     stage_cfg = cfg.MODEL[stage]
     net_cfg = cfg.MODEL.NETWORK[stage]
-    if cfg.MODEL.NETWORK.USE_GN:
-        raise NotImplementedError("GroupNorm (USE_GN) is not ported yet (ROADMAP Queue 1 item 11c)")
     cls_list = dataset_classes(cfg)
     reg_method = stage_cfg.REGRESSION_METHOD.TYPE
     coder = BoxCoder(reg_method, cfg.MODEL.ANGLE_CLS_NUM,
@@ -178,6 +177,7 @@ def build_detector(cfg, stage: str = "FIRST_STAGE", device: torch.device | str =
         aggregation_sa_feature=cfg.MODEL.NETWORK.AGGREGATION_SA_FEATURE,
         compute_dtype=compute_dtype,
         predict_attr_velo=stage_cfg.PREDICT_ATTRIBUTE_AND_VELOCITY,
+        use_gn=bool(cfg.MODEL.NETWORK.USE_GN),
     ).to(device).eval()
     spec = DetectorSpec(
         cls_list=cls_list,

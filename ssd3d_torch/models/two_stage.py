@@ -55,13 +55,13 @@ class RegionPool(nn.Module):
 
     def __init__(self, feature_channels: int, sample_pts_num: int, context_range: float,
                  info_keys: Sequence[str], align_channels: Sequence[int], bn: bool = True,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, use_gn: bool = False):
         super().__init__()
         self.sample_pts_num = sample_pts_num
         self.context_range = context_range
         self.info_keys = [k for k in info_keys if k in ("mask", "dist")]
         self.align = SharedMLP(3 + len(self.info_keys), align_channels, bn=bn,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, use_gn=use_gn)
         self.out_channels = 3 + self.align.out_channels + feature_channels
 
     def forward(self, base_xyz, base_feature, base_mask, proposals, bn_momentum: float = 0.9):
@@ -98,7 +98,7 @@ class PointsPool(nn.Module):
     def __init__(self, feature_channels: int, sample_pts_num: int, context_range: float,
                  info_keys: Sequence[str], align_channels: Sequence[int], grid: Sequence[int],
                  vfe_channels: Sequence[int], bn: bool = True,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, use_gn: bool = False):
         super().__init__()
         self.sample_pts_num = sample_pts_num
         self.context_range = context_range
@@ -107,9 +107,10 @@ class PointsPool(nn.Module):
         # each gathered point: canonical xyz, the info keys, the RPN
         # features, then its offset from its voxel's centre
         point_channels = 3 + len(self.info_keys) + feature_channels + 3
-        self.align = SharedMLP(point_channels, align_channels, bn=bn, compute_dtype=compute_dtype)
+        self.align = SharedMLP(point_channels, align_channels, bn=bn, compute_dtype=compute_dtype,
+                               use_gn=use_gn)
         self.vfe = SharedMLP(self.align.out_channels, vfe_channels, bn=bn,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, use_gn=use_gn)
         self.out_channels = 3 + self.vfe.out_channels
 
     def voxel_ids(self, canonical: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
@@ -190,10 +191,11 @@ class TwoStageDetector(nn.Module):
                  rpn_cls_channels: int, rpn_reg_base: int, rpn_reg_channels: int,
                  rcnn_cls_channels: int, rcnn_reg_base: int, rcnn_reg_channels: int,
                  aggregation_sa_feature: bool = False, compute_dtype: torch.dtype | None = None,
-                 in_channels: int = 1):
+                 in_channels: int = 1, use_gn: bool = False):
         super().__init__()
+        self.use_gn = use_gn
         self.rpn_backbone = PointBackbone(rpn_architecture, in_channels, max_translate_range,
-                                          aggregation_sa_feature, compute_dtype)
+                                          aggregation_sa_feature, compute_dtype, use_gn=use_gn)
         rpn_ch = self.rpn_backbone.feature_channels
         self.rpn_heads = self._heads(rpn_head_cfg, rpn_ch, "rpn_head", rpn_cls_channels,
                                      rpn_reg_base, rpn_reg_channels, num_angle_cls, compute_dtype)
@@ -201,17 +203,18 @@ class TwoStageDetector(nn.Module):
         self.pool_name = pooler_cfg[8] or "roi_pool"
         pool_args = (head_feat, pooler_cfg[3], pooler_cfg[4], pooler_cfg[1], pooler_cfg[2])
         if pooler_cfg[0] == "RegionPool":
-            pooler = RegionPool(*pool_args, bn=pooler_cfg[7], compute_dtype=compute_dtype)
+            pooler = RegionPool(*pool_args, bn=pooler_cfg[7], compute_dtype=compute_dtype,
+                                use_gn=use_gn)
         elif pooler_cfg[0] == "PointsPool":
             pooler = PointsPool(*pool_args, grid=pooler_cfg[5], vfe_channels=pooler_cfg[6],
-                                bn=pooler_cfg[7], compute_dtype=compute_dtype)
+                                bn=pooler_cfg[7], compute_dtype=compute_dtype, use_gn=use_gn)
         else:
             raise ValueError(f"unknown RoI pooler {pooler_cfg[0]!r}")
         self.add_module(self.pool_name, pooler)
         # the RCNN's lists start with the proposal centres (no features)
         self.rcnn_backbone = PointBackbone(rcnn_architecture, pooler.out_channels - 3,
                                            max_translate_range, aggregation_sa_feature,
-                                           compute_dtype, prefix_channels=(0,))
+                                           compute_dtype, prefix_channels=(0,), use_gn=use_gn)
         self.rcnn_heads = self._heads(rcnn_head_cfg, self.rcnn_backbone.feature_channels,
                                       "rcnn_head", rcnn_cls_channels, rcnn_reg_base,
                                       rcnn_reg_channels, num_angle_cls, compute_dtype)
@@ -225,7 +228,7 @@ class TwoStageDetector(nn.Module):
             name = scope or f"{prefix}{i}"
             self.add_module(name, DetectionHead(sum(feat_ch[j] for j in feat_idx), mlp, cls_ch,
                                                 reg_base, reg_ch, num_angle_cls, bn=bn,
-                                                compute_dtype=compute_dtype))
+                                                compute_dtype=compute_dtype, use_gn=self.use_gn))
             heads.append((name, xyz_idx, feat_idx))
         return heads
 
@@ -344,8 +347,6 @@ def build_two_stage(cfg, nms_pre_topk: int = 2048, device: torch.device | str = 
     rcnn_spec). Weights are left as constructed (`entry.init_weights` or a
     converted state dict fills them). The default device is the card."""
     device = _build.resolve_device(device)
-    if cfg.MODEL.NETWORK.USE_GN:
-        raise NotImplementedError("GroupNorm (USE_GN) is not ported yet (ROADMAP Queue 1 item 11c)")
     cls_list = dataset_classes(cfg)
     rpn_spec = StageSpec(**_stage_fields(cfg, "FIRST_STAGE", cls_list, nms_pre_topk))
     rcnn_spec = ProposalSpec(**_stage_fields(cfg, "SECOND_STAGE", cls_list))
@@ -373,5 +374,6 @@ def build_two_stage(cfg, nms_pre_topk: int = 2048, device: torch.device | str = 
         aggregation_sa_feature=net.AGGREGATION_SA_FEATURE,
         compute_dtype=torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else None,
         in_channels=point_feature_channels(cfg),
+        use_gn=bool(cfg.MODEL.NETWORK.USE_GN),
     ).to(device).eval()
     return model, rpn_spec, rcnn_spec

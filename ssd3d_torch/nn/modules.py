@@ -1,14 +1,16 @@
 """PointNet++-family modules (counterpart of `ssd3d/nn/modules.py`): the
-non-attention set abstraction with fusion sampling, the candidate-generation
-vote layer, feature propagation (PointRCNN's decoder) and global SSG
-pooling, in train and eval mode.
+set abstraction with fusion sampling and dilated or attention-ordered
+grouping, the candidate-generation vote layer, feature propagation
+(PointRCNN's decoder) and global SSG pooling, in train and eval mode, with
+BatchNorm or GroupNorm (`use_gn`).
 
 An SA layer takes the fused kernel (`ops/sa_fused.py`, K7 on the card) in
 the RoI regime the JAX package fuses it in: eval mode, BatchNorm, f32,
 many small clouds (n <= 512, b >= 64, as in the RCNN stage: batch x
 proposals clouds of 512 pooled points), and every scale inside K7's
-envelope. The gate looks at shapes and mode only, so a CPU run takes the
-same route with the fused op's plain version.
+envelope; never under GroupNorm, which does not fold into K7's affine. The
+gate looks at shapes and mode only, so a CPU run takes the same route with
+the fused op's plain version.
 
 Sampling and ball-query inputs go through `.detach()`: those ops return
 integers and have no gradient, and without the detach the CPU plain F-FPS
@@ -25,7 +27,12 @@ from torch import nn
 
 from ssd3d_torch.nn.layers import PointConv, SharedMLP
 from ssd3d_torch.ops import sa_fused
-from ssd3d_torch.ops.grouping import ball_query_multi, group_points
+from ssd3d_torch.ops.grouping import (
+    ball_query_attention,
+    ball_query_multi,
+    gather_rows,
+    group_points,
+)
 from ssd3d_torch.ops.interpolate import inverse_distance_weights, three_interpolate, three_nn
 from ssd3d_torch.ops.sampling import (
     farthest_point_sample,
@@ -98,13 +105,19 @@ class PointnetSAModuleMSG(nn.Module):
     """Set abstraction with multi-scale grouping and fusion sampling.
 
     Submodules `mlp{i}` (one per radius) and `aggregation` carry the flax
-    scope names. `in_channels` is the width of the input features."""
+    scope names. `in_channels` is the width of the input features. With
+    `use_attention` each ball fills with its most feature-distant points
+    first (`ops.grouping.ball_query_attention`, one query a radius, the
+    rings not dilated), as the JAX package's layer does."""
 
     def __init__(self, in_channels: int, radius_list, nsample_list, mlp_list,
                  bn: bool, fps_sample_range_list, fps_method_list, npoint_list,
                  dilated_group: bool, aggregation_channel: int | None,
-                 aggregate: bool = True, compute_dtype: torch.dtype | None = None):
+                 aggregate: bool = True, compute_dtype: torch.dtype | None = None,
+                 use_attention: bool = False, use_gn: bool = False):
         super().__init__()
+        self.use_attention = use_attention
+        self.use_gn = use_gn
         self.radius_list = list(radius_list)
         self.nsample_list = list(nsample_list)
         self.fps_sample_range_list = list(fps_sample_range_list)
@@ -118,23 +131,23 @@ class PointnetSAModuleMSG(nn.Module):
         out = in_channels
         for i in range(self.n_scales):
             self.add_module(f"mlp{i}", SharedMLP(in_channels + 3, mlp_list[i], bn=bn,
-                                                 compute_dtype=compute_dtype))
+                                                 compute_dtype=compute_dtype, use_gn=use_gn))
         if self.n_scales:
             out = sum(m[-1] for m in mlp_list[:self.n_scales])
         self.aggregation = None
         if aggregate and aggregation_channel is not None and self.n_scales:
             self.aggregation = PointConv(out, aggregation_channel, bn=bn,
-                                         compute_dtype=compute_dtype)
+                                         compute_dtype=compute_dtype, use_gn=use_gn)
             out = aggregation_channel
         self.out_channels = out
 
     def _use_fused(self, packed_src: torch.Tensor, queries) -> bool:
-        """The fused route: inference, BatchNorm, f32 (K7 computes in f32), the
-        RoI regime (n <= 512 clouds, b >= 64 of them) and K7's envelope. The
-        RoI gate is the JAX package's, chosen from TPU measurements; both
-        routes are timed on the H100 in `chip_smoke.py`."""
+        """The fused route: inference, BatchNorm (not GroupNorm), f32 (K7
+        computes in f32), the RoI regime (n <= 512 clouds, b >= 64 of them)
+        and K7's envelope. The RoI gate is the JAX package's, chosen from TPU
+        measurements; both routes are timed on the H100 in `chip_smoke.py`."""
         b, n, cp = packed_src.shape
-        return (not self.training and self.bn and self.compute_dtype is None
+        return (not self.training and self.bn and not self.use_gn and self.compute_dtype is None
                 and packed_src.dtype == torch.float32 and n <= 512 and b >= 64
                 and sa_fused.supports(cp, [idx.shape[2] for idx, _ in queries], self.mlp_list))
 
@@ -158,8 +171,15 @@ class PointnetSAModuleMSG(nn.Module):
             # radius-less layer: a pure gather (3DSSD's pre-vote selection)
             return new_xyz, gather_points(features, fps_idx), fps_idx
 
-        queries = ball_query_multi(self.radius_list, self.nsample_list, xyz.detach(),
-                                   new_xyz.detach(), dilated=self.dilated_group)
+        if self.use_attention:
+            # the centres' features through the row gather (K4 on the card)
+            feats = features.detach()
+            new_feat = gather_rows(feats, fps_idx)
+            queries = [ball_query_attention(r, ns, xyz.detach(), new_xyz.detach(), feats, new_feat)
+                       for r, ns in zip(self.radius_list, self.nsample_list)]
+        else:
+            queries = ball_query_multi(self.radius_list, self.nsample_list, xyz.detach(),
+                                       new_xyz.detach(), dilated=self.dilated_group)
         # one packed gather per scale instead of separate xyz / feature gathers
         packed_src = torch.cat([features, xyz], dim=-1)
         if self._use_fused(packed_src, queries):
@@ -192,9 +212,9 @@ class VoteLayer(nn.Module):
     feed the vote loss."""
 
     def __init__(self, in_channels: int, mlp, max_translate_range, bn: bool = True,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, use_gn: bool = False):
         super().__init__()
-        self.mlp = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype)
+        self.mlp = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype, use_gn=use_gn)
         # the offset conv runs in f32 whatever the compute dtype, as in flax
         self.vote_offsets = PointConv(self.mlp.out_channels, 3, bn=False, activation=False)
         self.register_buffer("limit", torch.tensor(max_translate_range, dtype=torch.float32),
@@ -214,9 +234,9 @@ class PointnetFPModule(nn.Module):
     points' own features, then a shared MLP (`mlp`)."""
 
     def __init__(self, in_channels: int, mlp, bn: bool = True,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, use_gn: bool = False):
         super().__init__()
-        self.mlp = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype)
+        self.mlp = SharedMLP(in_channels, mlp, bn=bn, compute_dtype=compute_dtype, use_gn=use_gn)
         self.out_channels = self.mlp.out_channels
 
     def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor, feat1: torch.Tensor | None,
@@ -235,9 +255,10 @@ class PointnetSAModuleGlobal(nn.Module):
     then the max over all points: [b, n, *] -> [b, mlp[-1]]."""
 
     def __init__(self, in_channels: int, mlp, bn: bool = True,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, use_gn: bool = False):
         super().__init__()
-        self.mlp = SharedMLP(in_channels + 3, mlp, bn=bn, compute_dtype=compute_dtype)
+        self.mlp = SharedMLP(in_channels + 3, mlp, bn=bn, compute_dtype=compute_dtype,
+                             use_gn=use_gn)
         self.out_channels = self.mlp.out_channels
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,

@@ -10,12 +10,15 @@ is rebuilt and an unchanged one is loaded as is.
 
 Every C entry point returns `cudaGetLastError()` after its launch; `Kernel`
 raises if that is not 0, because a refused launch never runs and a later
-synchronize does not report it.
+synchronize does not report it. Each wrapper runs on its input's card
+(`on_input_device`): its occupancy queries read that card and its launches
+go to that card's current stream, whichever card the process made current.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -135,6 +138,22 @@ class Kernel:
             self.by_route[route] = self.by_route.get(route, 0) + 1
 
 
+def on_input_device(fn):
+    """Decorator of a kernel wrapper: runs it with the card of its first
+    tensor argument as the current device, so that the route's occupancy
+    queries read that card and `Kernel` launches on its current stream (a
+    rank on cuda:k that never made k current would otherwise launch on
+    card 0's stream). CPU tensors pass through (the wrapper raises)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        if dev.type != "cuda":
+            return fn(*args, **kwargs)
+        with torch.cuda.device(dev):
+            return fn(*args, **kwargs)
+    return run
+
+
 P, I = ctypes.c_void_p, ctypes.c_int
 # the three D-FPS routes, counted apart in FPS.by_route (the two last ints:
 # the route, 0 one block a cloud, 1 a cluster a cloud, 2 a cluster of slices;
@@ -178,21 +197,21 @@ def route_launches() -> dict[str, dict[str, int]]:
 
 def dfps_cluster_size(b: int, n: int) -> int:
     """The cluster size K1's cluster route takes for b clouds of n points on
-    this card (an occupancy query; nothing is launched)."""
+    the current card (an occupancy query; nothing is launched)."""
     size = library().ssd3d_dfps_cluster_size(b, n)
     if size <= 0:
         raise RuntimeError(f"ssd3d_torch: cluster occupancy query failed: cudaError {-size}")
     return size
 
 
-_dfps_slice_clusters: dict[tuple[int, int], int] = {}
+_dfps_slice_clusters: dict[tuple[int, int, int], int] = {}
 
 
 def dfps_slice_clusters(n: int, size: int) -> int:
     """How many of K1's slice-route clusters of `size` CTAs for clouds of n
-    points are resident at once on this card (an occupancy query, cached;
-    nothing is launched)."""
-    key = (n, size)
+    points are resident at once on the current card (an occupancy query,
+    cached by card; nothing is launched)."""
+    key = (torch.cuda.current_device(), n, size)
     if key not in _dfps_slice_clusters:
         active = library().ssd3d_dfps_slice_clusters(n, size)
         if active < 0:
@@ -201,14 +220,14 @@ def dfps_slice_clusters(n: int, size: int) -> int:
     return _dfps_slice_clusters[key]
 
 
-_ffps_clusters: dict[tuple[int, int, int], int] = {}
+_ffps_clusters: dict[tuple[int, int, int, int], int] = {}
 
 
 def ffps_max_clusters(n: int, c: int, size: int) -> int:
     """How many of K2's clusters of `size` CTAs for an n x c cloud are
-    resident at once on this card (an occupancy query, cached; nothing is
-    launched)."""
-    key = (n, c, size)
+    resident at once on the current card (an occupancy query, cached by
+    card; nothing is launched)."""
+    key = (torch.cuda.current_device(), n, c, size)
     if key not in _ffps_clusters:
         active = library().ssd3d_ffps_max_clusters(n, c, size)
         if active < 0:

@@ -1,14 +1,18 @@
-"""Neighbourhood grouping: the multi-ring ball query, the grouping gather and
-the rotated-box interior query of the RoI pool.
+"""Neighbourhood grouping: the multi-ring ball query, the attention-ordered
+and caller-ordered ball queries, k nearest neighbours, the grouping gather
+and the rotated-box interior query of the RoI pool.
 
 Counterpart of `ssd3d/ops/grouping.py` (`ball_query_multi`, `ball_query`,
-`ball_query_dilated`, `group_points`, `query_boxes_3d_points`,
+`ball_query_dilated`, `ball_query_attention`, `ball_query_withidx`,
+`knn_points`, `group_points`, `query_boxes_3d_points`,
 `query_boxes_3d_mask`, `query_points_iou`).
-Each function dispatches on the device of its inputs: CUDA tensors launch the
-hand-written kernel (`csrc/ball_query.cu` on one of its two routes,
-`csrc/gather.cu`, and for the gather's backward `csrc/scatter_add.cu`), CPU
-tensors take the plain PyTorch version beside it. The box queries and the
-point IoU are plain PyTorch on every device, as they are plain XLA in the JAX package.
+Each kernel-backed function dispatches on the device of its inputs: CUDA
+tensors launch the hand-written kernel (`csrc/ball_query.cu` on one of its
+two routes, `csrc/gather.cu`, and for the gather's backward
+`csrc/scatter_add.cu`), CPU tensors take the plain PyTorch version beside it.
+The attention and caller-ordered ball queries, the k-NN, the box queries and
+the point IoU are plain PyTorch on every device, as they are plain XLA in
+the JAX package.
 
 The ball-query contract is the reference CUDA one (tf_grouping_g.cu:215-255,
 :308-357): per ring, the first `ns` points in index order inside the ring,
@@ -25,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from ssd3d_torch.core.geometry import canonicalize_points
+from ssd3d_torch.core.geometry import canonicalize_points, square_distance
 from ssd3d_torch.ops import _build
 
 _QUERY_CHUNK = 256  # plain version: queries per chunk, bounds the [b, chunk, n] tensors
@@ -127,6 +131,7 @@ def ring_groups(specs) -> list:
     return [specs[i:i + KERNEL_MAX_RINGS] for i in range(0, len(specs), KERNEL_MAX_RINGS)]
 
 
+@_build.on_input_device
 def _ball_query_cuda(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
     """K3 on the route `ball_query_route` picks (tests and timing patch it to
     force one), one launch for each group of `ring_groups`."""
@@ -213,6 +218,146 @@ def ball_query_dilated(min_radius: float, max_radius: float, nsample: int,
     return _ball_query_specs("ball_query_dilated", [spec], xyz, new_xyz)[0]
 
 
+def _check_query(op: str, xyz: torch.Tensor, new_xyz: torch.Tensor) -> None:
+    for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
+        if t.dim() != 3 or t.shape[-1] != 3:
+            raise ValueError(f"{op}: {name} must be [b, *, 3], got {tuple(t.shape)}")
+    if xyz.shape[0] != new_xyz.shape[0]:
+        raise ValueError(f"{op}: batch {xyz.shape[0]} != {new_xyz.shape[0]}")
+
+
+def ball_query_withidx(radius: float, nsample: int, xyz: torch.Tensor,
+                       new_xyz: torch.Tensor, sort_idx: torch.Tensor):
+    """Ball query visiting the points in a caller-given order per query
+    (the reference's attention grouping, tf_grouping_g.cu:260): sort_idx
+    int [b, m, n]. Rank r counts where the point sort_idx[r] lies inside the
+    radius; the first `nsample` such ranks are mapped back through sort_idx,
+    padded by repeating the first (sort_idx[..., 0] for an empty ball).
+    -> (idx int32 [b, m, nsample], cnt int32 [b, m])."""
+    _check_query("ball_query_withidx", xyz, new_xyz)
+    r2 = float(np.float32(radius * radius))
+    order = sort_idx.long()
+    parts = []
+    for q0 in range(0, new_xyz.shape[1], _QUERY_CHUNK):
+        d2 = _pairwise_dist2(new_xyz[:, q0:q0 + _QUERY_CHUNK], xyz)
+        o = order[:, q0:q0 + _QUERY_CHUNK]
+        rank, cnt = _first_k(d2.gather(-1, o) < r2, nsample)
+        parts.append((o.gather(-1, rank.long()).to(torch.int32), cnt))
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
+
+
+def _order_key(s: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 whose signed order is the float order: the JAX
+    package's order-preserving uint32 key minus 2^31 (the sign-flip
+    transform; NaN-free inputs)."""
+    bits = s.float().contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+# `ball_query_attention` takes the queries of all clouds in chunks of at
+# most this many (query, point) pairs: its live buffers are a few of
+# [b, chunk, n] (f32 distances, int32 keys, int64 slots and indices), ~8 GiB
+# at this size, so SA1 of the flagship (8 x 4,096 queries over 16,384
+# points) runs in two chunks a radius.
+ATTN_CHUNK_PAIRS = 1 << 28
+_INT32_MIN = -(1 << 31)
+
+
+def attention_chunk(b: int, m: int, n: int) -> int:
+    """Queries a cloud of `ball_query_attention`'s chunks: as many as keep
+    b x chunk x n within ATTN_CHUNK_PAIRS, at least 1, at most m."""
+    return max(1, min(m, ATTN_CHUNK_PAIRS // max(1, b * n)))
+
+
+def _attention_chunk(r2: float, ns: int, pts: torch.Tensor, qs: torch.Tensor,
+                     f: torch.Tensor, nf: torch.Tensor):
+    """One chunk of queries of every cloud: [b, q, 3] over [b, n, 3], keys
+    from features nf [b, q, cf] against f [b, n, cf]. Each row's in-radius
+    points are compacted first, in index order (a running count and a
+    scatter, no sort), to the widest row's count k: the bisection's 32
+    passes and the selections then run over [b, q, k], not [b, q, n]."""
+    b, q, n = qs.shape[0], qs.shape[1], pts.shape[1]
+    dev = qs.device
+    in_r = _pairwise_dist2(qs, pts) < r2  # [b, q, n]
+    key = _order_key(square_distance(nf, f))  # [b, q, n], signed order of d
+    total = in_r.sum(-1)  # [b, q]
+    k = max(int(total.max()), 1)
+    slot = torch.where(in_r, in_r.cumsum(-1) - 1, k)  # out-of-radius: a spare slot
+    ckey = torch.full((b, q, k + 1), _INT32_MIN, dtype=torch.int32, device=dev)
+    ckey = ckey.scatter_(-1, slot, key)[..., :k]
+    cidx = torch.zeros(b, q, k + 1, dtype=torch.int64, device=dev)
+    cidx = cidx.scatter_(-1, slot, torch.arange(n, device=dev).expand(b, q, n))[..., :k]
+    valid = torch.arange(k, device=dev) < total[..., None]
+    ckey = torch.where(valid, ckey, _INT32_MIN)  # the spare slot's writes dropped
+    # the largest unsigned threshold T with count(in-radius keys >= T) >= ns,
+    # one bit a step from the top; a candidate has a bit set, so it is at
+    # least 1 unsigned and the masked-out INT32_MIN never reaches it
+    t = torch.zeros((b, q), dtype=torch.int64, device=dev)
+    for bit in range(31, -1, -1):
+        cand = t | (1 << bit)
+        c = (ckey >= (cand - (1 << 31)).to(torch.int32)[..., None]).sum(-1)
+        t = torch.where(c >= ns, cand, t)
+    t = (t - (1 << 31)).to(torch.int32)[..., None]
+    above = valid & (ckey > t)
+    pos_gt, _ = _first_k(above, ns)
+    pos_eq, _ = _first_k(valid & (ckey == t), ns)
+    cg = above.sum(-1, dtype=torch.int32)[..., None]
+    cnt = total.to(torch.int32).clamp(max=ns)
+    slots = torch.arange(ns, device=dev, dtype=torch.int32)
+    from_eq = (slots - cg).clamp(0, ns - 1).long()
+    pos = torch.where(slots < cg, pos_gt, pos_eq.gather(-1, from_eq)).long()
+    idx = cidx.gather(-1, pos.clamp(max=k - 1)).to(torch.int32)
+    # pad rule: repeat the first-visited member, the max key (lowest index
+    # on ties), so the multiset is the sorted visitation's
+    kmax = ckey.amax(-1, keepdim=True)
+    first_pos = torch.where(valid & (ckey == kmax), torch.arange(k, device=dev), k)
+    first = cidx.gather(-1, first_pos.amin(-1, keepdim=True).clamp(max=k - 1)).to(torch.int32)
+    idx = torch.where(slots < cnt[..., None], idx, first)
+    idx = torch.where(cnt[..., None] > 0, idx, torch.zeros_like(idx))
+    return idx, cnt
+
+
+def ball_query_attention(radius: float, nsample: int, xyz: torch.Tensor,
+                         new_xyz: torch.Tensor, feats: torch.Tensor,
+                         new_feats: torch.Tensor):
+    """Attention-ordered ball query without a per-query sort.
+
+    The reference visits the n points of each query in descending feature
+    distance (`square_distance` of new_feats [b, m, cf] against feats
+    [b, n, cf]) and takes the first `nsample` inside the radius
+    (layers_util.py:122-130, tf_grouping_g.cu:260). This computes the same
+    emitted multiset as the JAX package does: the in-radius points with
+    the largest feature distance, a threshold tie going to the lowest
+    index (the stable sort's rule), padded by repeating the first-visited
+    member (the largest key, lowest index on ties); slots are in index
+    order. The threshold comes from a 32-step bisection over
+    order-preserving integer keys of each ball's points: comparisons and
+    counts only, vectorised over the clouds and over chunks of queries
+    (`attention_chunk`); one host read a chunk (its widest ball).
+    -> (idx int32 [b, m, nsample], cnt int32 [b, m]); equal to the JAX
+    package's at f32."""
+    _check_query("ball_query_attention", xyz, new_xyz)
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    r2 = float(np.float32(radius * radius))
+    chunk = attention_chunk(b, m, n)
+    parts = [_attention_chunk(r2, nsample, xyz, new_xyz[:, q0:q0 + chunk], feats,
+                              new_feats[:, q0:q0 + chunk]) for q0 in range(0, m, chunk)]
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
+
+
+def knn_points(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """The k nearest points of each query (reference knn_point,
+    tf_grouping.py:130): the top k of the negated squared distance ->
+    (dist2 f32 [b, m, k] ascending, idx int32 [b, m, k])."""
+    _check_query("knn_points", xyz, new_xyz)
+    parts = []
+    for q0 in range(0, new_xyz.shape[1], _QUERY_CHUNK):
+        neg, idx = (-_pairwise_dist2(new_xyz[:, q0:q0 + _QUERY_CHUNK], xyz)).topk(k, dim=-1)
+        parts.append((-neg, idx.to(torch.int32)))
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
+
+
 def _points_in_boxes(xyz: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     """xyz: [b, n, 3]; boxes: [b, m, 7] -> bool [b, m, n]. A point is inside
     when, in the box's frame, |x| <= l/2, -h <= y <= 0 and |z| <= w/2 (the
@@ -260,6 +405,7 @@ def gather_rows_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return points.gather(1, flat[..., None].expand(-1, -1, c))
 
 
+@_build.on_input_device
 def _gather_rows_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if points.dtype not in (torch.float32, torch.int32):
         raise ValueError(f"group_points: kernel takes f32 or i32, got {points.dtype}")
@@ -290,6 +436,7 @@ def scatter_add_rows_plain(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.
     return out.index_add_(0, flat.reshape(-1), g.reshape(b * rows, c)).reshape(b, n, c)
 
 
+@_build.on_input_device
 def _scatter_add_rows_cuda(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
     if g.dtype != torch.float32:
         raise ValueError(f"scatter_add_rows: kernel takes f32, got {g.dtype}")

@@ -71,6 +71,7 @@ def three_nn_slices(b: int, n: int, m: int) -> int:
     return s
 
 
+@_build.on_input_device
 def _three_nn_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """K6 with the slices `three_nn_slices` gives (timing patches it to
     force others)."""

@@ -6,7 +6,9 @@ by score, the K x K IoU matrix, a sequential keep sweep, then the first
 `jnp.argsort` is, so equal scores keep their index order. All classes and
 batch elements sweep together in one loop of K steps, on the host: the
 proposal NMS of PointRCNN (`class_unaware_nms`, 2,048 candidates after the
-top-k prefilter) runs 2,048 such steps for a batch.
+top-k prefilter) runs 2,048 such steps for a batch. The soft-NMS, the
+IoU-guided NMS and the point-mask NMS of the reference's legacy paths are
+here too, for one set of candidates each.
 """
 
 from __future__ import annotations
@@ -18,17 +20,14 @@ from ssd3d_torch.core.iou import aabb_iou
 from ssd3d_torch.ops.topk import top_k_set
 
 
-def _nms_rows(bev_boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
-              iou_threshold: float):
-    """Greedy NMS over rows: bev_boxes [r, k, 4], scores [r, k]
-    -> (idx int32 [r, max_output], valid bool [r, max_output])."""
-    r, k = scores.shape
-    dev = scores.device
-    order = torch.argsort(-scores, dim=-1, stable=True)
-    boxes_sorted = bev_boxes.gather(1, order[..., None].expand(r, k, 4))
-    iou = aabb_iou(boxes_sorted, boxes_sorted)
-    later = torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
-    suppress = (iou > iou_threshold) & later  # [r, k, k]: i kills later j
+def _greedy_keep(order: torch.Tensor, suppress: torch.Tensor, max_output: int):
+    """The greedy sweep over rows: candidates visited in `order` [r, k]
+    (indices into the input), suppress [r, k, k] in visiting order (entry
+    i kills a later j where true) -> (idx int32 [r, max_output], the first
+    `max_output` kept in visiting order, padded with 0; valid bool)."""
+    r, k = order.shape
+    dev = order.device
+    suppress = suppress & torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
     keep = torch.ones(r, k, dtype=torch.bool, device=dev)
     for i in range(k):
         keep &= ~(suppress[:, i] & keep[:, i:i + 1])
@@ -45,6 +44,17 @@ def _nms_rows(bev_boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
     return idx, valid
 
 
+def _nms_rows(bev_boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
+              iou_threshold: float):
+    """Greedy NMS over rows: bev_boxes [r, k, 4], scores [r, k]
+    -> (idx int32 [r, max_output], valid bool [r, max_output])."""
+    r, k = scores.shape
+    order = torch.argsort(-scores, dim=-1, stable=True)
+    boxes_sorted = bev_boxes.gather(1, order[..., None].expand(r, k, 4))
+    iou = aabb_iou(boxes_sorted, boxes_sorted)
+    return _greedy_keep(order, iou > iou_threshold, max_output)
+
+
 def nms_bev(bev_boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
             iou_threshold: float):
     """Greedy NMS on axis-aligned BEV rectangles.
@@ -53,6 +63,69 @@ def nms_bev(bev_boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
     -> (idx int32 [max_output] into the input, valid bool [max_output])."""
     idx, valid = _nms_rows(bev_boxes[None], scores[None], max_output, iou_threshold)
     return idx[0], valid[0]
+
+
+def soft_nms_bev(bev_boxes: torch.Tensor, scores: torch.Tensor, max_output: int,
+                 sigma: float = 0.5, score_thresh: float = 1e-3):
+    """Gaussian soft-NMS on BEV rectangles (reference cython_nms.pyx
+    soft_nms): pick the highest live score (the first on ties), then decay
+    every score not yet picked by exp(-iou^2 / sigma) against the pick,
+    min(max_output, k) times. bev_boxes: [k, 4]; scores: [k] -> (idx int32
+    [max_output] in pick order, scores at their pick [max_output], valid
+    bool [max_output]: picked with a score above score_thresh); padded
+    with 0 / 0 / False past k."""
+    k = scores.shape[0]
+    iou = aabb_iou(bev_boxes, bev_boxes)
+    scores = scores.clone()
+    taken = torch.zeros(k, dtype=torch.bool, device=scores.device)
+    picks, picked = [], []
+    for _ in range(min(max_output, k)):
+        live = torch.where(taken, -torch.inf, scores)
+        i = live.argmax()
+        s_i = live[i]
+        scores = torch.where(taken, scores, scores * torch.exp(-(iou[i] ** 2) / sigma))
+        scores[i] = s_i  # the pick keeps its score undecayed
+        taken[i] = True
+        picks.append(i)
+        picked.append(s_i)
+    idx = torch.stack(picks).to(torch.int32)
+    sel = torch.stack(picked)
+    valid = sel > score_thresh
+    pad = max(0, max_output - k)
+    if pad:
+        idx = torch.nn.functional.pad(idx, (0, pad))
+        sel = torch.nn.functional.pad(sel, (0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
+    return idx, sel, valid
+
+
+def iou_guided_nms(iou_matrix: torch.Tensor, scores: torch.Tensor, iou_3d: torch.Tensor,
+                   max_output: int, iou_threshold: float = 0.1):
+    """IoU-branch-guided greedy NMS (reference np_functions/gt_sampler.py:8-24,
+    cython_nms.pyx matrix_iou_guided_nms): candidates visited in descending
+    ensemble score = scores * iou_3d (a stable sort: equal scores keep index
+    order), each kept one suppressing every later candidate whose given IoU
+    with it is >= iou_threshold. iou_matrix: [k, k]; scores, iou_3d: [k]
+    -> (idx int32 [max_output] in visiting order, their ensemble scores (0
+    where not valid), valid bool [max_output])."""
+    ensemble = scores * iou_3d
+    order = torch.argsort(-ensemble, stable=True)
+    iou_sorted = iou_matrix[order][:, order]
+    idx, valid = _greedy_keep(order[None], (iou_sorted >= iou_threshold)[None], max_output)
+    idx, valid = idx[0], valid[0]
+    return idx, torch.where(valid, ensemble[idx.long()], torch.zeros_like(ensemble[:1])), valid
+
+
+def points_mask_nms(points_iou: torch.Tensor, scores: torch.Tensor, max_output: int,
+                    iou_threshold: float):
+    """NMS where the overlap is the IoU of point-membership masks (reference
+    nms_kernel.cu PointsNms; compose the matrix with `query_points_iou`):
+    the greedy sweep of `iou_guided_nms` in score order, suppressing at
+    >= iou_threshold. points_iou: [k, k]; scores: [k] -> (idx int32
+    [max_output], valid bool [max_output])."""
+    idx, _, valid = iou_guided_nms(points_iou, scores, torch.ones_like(scores), max_output,
+                                   iou_threshold)
+    return idx, valid
 
 
 def class_unaware_nms(boxes_3d: torch.Tensor, scores: torch.Tensor, max_output: int,

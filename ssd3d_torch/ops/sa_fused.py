@@ -188,6 +188,7 @@ def sa_fused_multi_plain(src, idx_list, centers, masks, layers_list, agg_layer=N
     return _apply(feat, agg_layer) if agg_layer is not None else feat
 
 
+@_build.on_input_device
 def _sa_fused_cuda(src, idx_list, centers, masks, layers_list, agg_layer, route):
     b, n, cp = src.shape
     m = centers.shape[1]

@@ -140,6 +140,7 @@ def dfps_slice_size(b: int, n: int) -> int:
     return min(DFPS_SLICE_SIZES, key=cost)
 
 
+@_build.on_input_device
 def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """K1 on the route `fps_route` picks (tests and timing patch it, or
     `dfps_slice_size`, to force one)."""
@@ -219,6 +220,7 @@ def ffps_dist_ppt(n: int) -> int:
     return ppt if ppt <= FFPS_DIST_MAX_PPT else 0
 
 
+@_build.on_input_device
 def _ffps_dist_cuda(dist: torch.Tensor, npoint: int) -> torch.Tensor:
     if dist.dtype != torch.float32:
         raise ValueError(f"farthest_point_sample_from_dist: the kernel takes float32, "
@@ -355,6 +357,7 @@ def ffps_route(b: int, n: int, c: int) -> str:
     return "block" if ffps_block_fits(n, c) else "stream"
 
 
+@_build.on_input_device
 def _ffps_cuda(fused: torch.Tensor, npoint: int) -> torch.Tensor:
     """K2 on the route `ffps_route` picks (tests and timing patch it, or
     `ffps_cluster_size`, to force one)."""

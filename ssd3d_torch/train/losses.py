@@ -13,6 +13,11 @@ The reference's masking and normalisation are kept exactly:
 - the IoU branch: huber against the targets' 3D IoU, rescaled to [-1, 1];
 - nuScenes' attributes (sigmoid CE over 8, where the GT has one) and
   velocities (huber, where the GT's is finite), over the positive points.
+
+Every normaliser counts over the global batch (`parallel.data_parallel.
+global_count`): under data parallelism each rank divides its own sum by
+the count of every rank's rows, as the JAX package's `mask.sum()` over its
+mesh-sharded array does.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from ssd3d_torch.core.geometry import boxes_to_corners, centerness
 from ssd3d_torch.core.iou import boxes_iou_matched
+from ssd3d_torch.parallel.data_parallel import global_count
 from ssd3d_torch.train.assigner import vote_targets
 
 
@@ -108,7 +114,7 @@ class LossConfig:
 def classification_loss(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tensor:
     pmask, nmask = targets["pmask"], targets["nmask"]
     cls_mask = (pmask + nmask).amax(-1)  # [bs, pts]
-    norm = cls_mask.sum().clamp(min=1.0)
+    norm = global_count(cls_mask)
     logits = outputs["cls"]  # [bs, pts, c]
     gt_cls = targets["gt_cls"]  # [bs, pts], 0 = background
     softmax = cfg.cls_activation == "Softmax"
@@ -141,7 +147,7 @@ def classification_loss(cfg: LossConfig, outputs: dict, targets: dict) -> torch.
 
 def offset_loss_res(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tensor:
     pmask = targets["pmask"]
-    norm = pmask.sum().clamp(min=1.0)
+    norm = global_count(pmask)
     err = outputs["offset"] - targets["gt_offset"]
     return (huber(err).sum(-1) * pmask).sum() / norm
 
@@ -151,7 +157,7 @@ def offset_loss_bin(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tens
     y and the sizes. gt_offset [..., 8] = x bin, x res, z bin, z res, y res,
     dl, dh, dw; the prediction [..., 4 nb + 4]."""
     pmask = targets["pmask"]
-    norm = pmask.sum().clamp(min=1.0)
+    norm = global_count(pmask)
     nb = cfg.reg_bin_cls_num
     gt, pred = targets["gt_offset"], outputs["offset"]
 
@@ -170,7 +176,7 @@ def offset_loss_bin(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tens
 
 def angle_loss(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tensor:
     pmask = targets["pmask"]
-    norm = pmask.sum().clamp(min=1.0)
+    norm = global_count(pmask)
     gt_bin = targets["gt_angle_cls"]
     bin_l = (softmax_ce(outputs["angle_cls"], gt_bin) * pmask).sum() / norm
     onehot = one_hot(gt_bin, cfg.num_angle_cls, outputs["angle_res"].dtype)
@@ -182,7 +188,7 @@ def angle_loss(cfg: LossConfig, outputs: dict, targets: dict) -> torch.Tensor:
 def corner_loss(cfg: LossConfig, pred_boxes_gt_angle: torch.Tensor, targets: dict) -> torch.Tensor:
     """pred_boxes_gt_angle: [bs, pts, cls, 7] decoded with the GT angle bin."""
     pmask = targets["pmask"]
-    norm = pmask.sum().clamp(min=1.0)
+    norm = global_count(pmask)
     diff = boxes_to_corners(pred_boxes_gt_angle) - boxes_to_corners(targets["gt_boxes"])
     return (huber(diff).sum((-2, -1)) * pmask).sum() / norm
 
@@ -190,7 +196,7 @@ def corner_loss(cfg: LossConfig, pred_boxes_gt_angle: torch.Tensor, targets: dic
 def vote_loss(vote_offset: torch.Tensor, vote_mask: torch.Tensor,
               vote_target: torch.Tensor) -> torch.Tensor:
     per = huber(vote_target - vote_offset).sum(-1) * vote_mask
-    return per.sum() / vote_mask.sum().clamp(min=1.0)
+    return per.sum() / global_count(vote_mask)
 
 
 def iou_branch_loss(cfg: LossConfig, outputs: dict, targets: dict,
@@ -205,7 +211,7 @@ def iou_branch_loss(cfg: LossConfig, outputs: dict, targets: dict,
         raise ValueError("iou_branch_loss: the IoU branch needs anchor boxes [bs, pts, cls, 7], "
                          f"got {tuple(anchors.shape)} (an anchor-free regression method)")
     pmask = targets["pmask"].amax(-1)
-    norm = pmask.sum().clamp(min=1.0)
+    norm = global_count(pmask)
     onehot = one_hot(targets["gt_cls"] - 1, cfg.num_classes)
     cls_num = anchors.shape[2]
     with torch.no_grad():
@@ -228,12 +234,12 @@ def attr_velo_loss(cfg: LossConfig, outputs: dict, targets: dict):
     gt_attr = targets["gt_attribute"]  # [bs, pts, cls]
     attr_mask = (gt_attr >= 0).to(pmask.dtype) * pmask
     a = sigmoid_ce(outputs["attribute"], one_hot(gt_attr, 8, outputs["attribute"].dtype))
-    attr_l = (a * attr_mask[..., None]).sum() / (attr_mask.sum().clamp(min=1.0) * 8.0)
+    attr_l = (a * attr_mask[..., None]).sum() / (global_count(attr_mask) * 8.0)
     gt_velo = targets["gt_velocity"]  # [bs, pts, cls, 2]
     velo_mask = (~torch.isnan(gt_velo.sum(-1))).to(pmask.dtype) * pmask
     gt_velo = torch.where(torch.isnan(gt_velo), 0.0, gt_velo)
     v = huber(outputs["velocity"] - gt_velo).sum(-1) * velo_mask
-    return attr_l, v.sum() / velo_mask.sum().clamp(min=1.0)
+    return attr_l, v.sum() / global_count(velo_mask)
 
 
 def compute_stage_losses(cfg: LossConfig, coder, outputs: dict, targets: dict,

@@ -16,6 +16,14 @@ With TRAIN_PARAM_PREFIX only the matching top-level modules reach the
 optimizer (`trained_parameters`), so the clip's norm and Adam see only them,
 as optax's `multi_transform` does. Parameters, BatchNorm buffers and the
 optimizer state are updated in place.
+
+Under data parallelism (`init_state(parallel="dp" | "fsdp")`, one process
+a card) the step's forward runs through the wrapped loss module
+(`parallel.data_parallel.wrap`), each rank's backward is scaled by the
+rank count, the metrics are summed over the ranks, the clip takes the norm
+of the whole gradient (of every shard under FSDP) and the step's draws are
+the global batch's, each rank keeping its rows: the step equals the
+single-process step on the global batch.
 """
 
 from __future__ import annotations
@@ -25,7 +33,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ssd3d_torch.parallel import data_parallel as dp
+from ssd3d_torch.parallel.distributed import world
 from ssd3d_torch.train import losses as L
 from ssd3d_torch.train.adabound import AdaBound
 from ssd3d_torch.train.assigner import AssignerConfig, assign_targets
@@ -40,7 +51,9 @@ class Adam(torch.optim.Optimizer):
     """optax.adam's arithmetic: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 +
     b2 nu, update = -lr (mu / bc1) / (sqrt(nu / bc2) + eps) with the bias
     corrections bc = 1 - b^t rounded to float32 as optax computes them.
-    Multi-tensor (`torch._foreach_*`) ops, a handful of launches a step."""
+    Multi-tensor (`torch._foreach_*`) ops, a handful of launches a step,
+    on each tensor's local shard under FSDP (the update is elementwise; a
+    sharded tensor's ops would each go through its Python dispatch)."""
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8):
@@ -57,9 +70,9 @@ class Adam(torch.optim.Optimizer):
                     self.state[p].update(mu=torch.zeros_like(p), nu=torch.zeros_like(p))
             group["count"] = count = group.get("count", 0) + 1
             b1, b2 = group["b1"], group["b2"]
-            grads = [p.grad for p in params]
-            mu = [self.state[p]["mu"] for p in params]
-            nu = [self.state[p]["nu"] for p in params]
+            grads = [dp.local(p.grad) for p in params]
+            mu = [dp.local(self.state[p]["mu"]) for p in params]
+            nu = [dp.local(self.state[p]["nu"]) for p in params]
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, grads, alpha=1 - b1)
             torch._foreach_mul_(nu, b2)
@@ -71,7 +84,7 @@ class Adam(torch.optim.Optimizer):
             torch._foreach_add_(denom, group["eps"])
             update = torch._foreach_div(mu, bc1)
             torch._foreach_div_(update, denom)
-            torch._foreach_add_(params, update, alpha=-group["lr"])
+            torch._foreach_add_([dp.local(p) for p in params], update, alpha=-group["lr"])
 
 
 def trained_parameters(model: torch.nn.Module, train_param_prefix=()) -> list:
@@ -99,28 +112,53 @@ def make_optimizer(solver_cfg, params) -> torch.optim.Optimizer:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """optax.global_norm: sqrt of the sum of squares of every entry."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    """optax.global_norm: sqrt of the sum of squares of every entry. The
+    entries of FSDP2's sharded tensors are summed shard by shard and
+    all-reduced, so the norm is the whole tensors' on every rank."""
+    tensors = list(tensors)
+    plain = [t for t in tensors if dp.local(t) is t]
+    sharded = [dp.local(t) for t in tensors if dp.local(t) is not t]
+    total = sum((t.float() * t.float()).sum() for t in plain)
+    if sharded:
+        part = sum((t.float() * t.float()).sum() for t in sharded)
+        dist.all_reduce(part)
+        total = total + part
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float = MAX_GRAD_NORM) -> None:
     """optax.clip_by_global_norm in place: (g / norm) * max_norm when norm
-    >= max_norm, g otherwise. Decided on the device (no host sync)."""
+    >= max_norm, g otherwise. Decided on the device (no host sync); a
+    sharded gradient is scaled shard by shard."""
     norm = global_norm(grads)
     keep = norm < max_norm
-    for g in grads:
+    for g in map(dp.local, grads):
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
 
 
 @dataclasses.dataclass
 class TrainState:
     """Step counter, the model (parameters and BatchNorm buffers) and the
-    optimizer (its state); the counterpart of the JAX TrainState."""
+    optimizer (its state); the counterpart of the JAX TrainState. Under
+    data parallelism `parallel` is the graph's loss module wrapped in DDP
+    or FSDP2, through which every step's forward runs."""
 
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    parallel: torch.nn.Module | None = None
+
+
+def new_state(graph, train_param_prefix, parallel: str | None = None) -> TrainState:
+    """A graph's TrainState at step 0: the model in train mode, wrapped for
+    `parallel` ("dp" or "fsdp" over the default process group; FSDP2
+    shards the parameters in place, so the optimizer comes after), and the
+    optimizer over the trained parameters."""
+    graph.model.train()
+    wrapped = dp.wrap(graph, parallel) if parallel else None
+    opt = make_optimizer(graph.solver_cfg, trained_parameters(graph.model, train_param_prefix))
+    return TrainState(step=0, model=graph.model, optimizer=opt, parallel=wrapped)
 
 
 def apply_update(state: TrainState, lr: float) -> None:
@@ -146,14 +184,17 @@ def optimizer_step(state: TrainState, solver_cfg, compute_losses,
     `apply_update` at this step's learning rate. Updates `state` in place and
     returns the metrics (the loss dict, `total`, `lr`, and with `histograms`
     `grad_norm` and `param_norm`) as tensors on the model's device, but
-    `lr`, a float."""
+    `lr`, a float. Under data parallelism the backward is scaled by the rank
+    count (`dp.backward_scale`) and the losses are the global batch's,
+    summed over the ranks."""
     bn_m = bn_momentum(solver_cfg, state.step)
     lr = learning_rate(solver_cfg, state.step)
     state.model.zero_grad(set_to_none=True)
     total, loss_dict = compute_losses(bn_m)
-    total.backward()
-    metrics = {k: v.detach() for k, v in loss_dict.items()}
-    metrics.update(total=total.detach(), lr=lr)
+    (total * dp.backward_scale() if world() > 1 else total).backward()
+    metrics = dp.sum_over_ranks({k: v.detach() for k, v in loss_dict.items()}
+                                | {"total": total.detach()})
+    metrics["lr"] = lr
     if histograms:
         metrics["grad_norm"] = global_norm(
             [p.grad for p in state.model.parameters() if p.grad is not None])
@@ -195,12 +236,11 @@ class TrainGraph:
             histograms=bool(cfg.TRAIN.CONFIG.SUMMARY_HISTOGRAMS),
         )
 
-    def init_state(self) -> TrainState:
-        """Puts the model in train mode and builds its optimizer."""
-        self.model.train()
-        opt = make_optimizer(self.solver_cfg,
-                             trained_parameters(self.model, self.train_param_prefix))
-        return TrainState(step=0, model=self.model, optimizer=opt)
+    def init_state(self, parallel: str | None = None) -> TrainState:
+        """Puts the model in train mode, wraps it for data parallelism
+        `parallel` ("dp" | "fsdp", under a process group) and builds its
+        optimizer (`new_state`)."""
+        return new_state(self, self.train_param_prefix, parallel)
 
     def compute_losses(self, batch: dict, bn_m: float, draws: AugDraws | None = None):
         """batch: points [bs, n, 3 + c], gt_boxes [bs, g, 7], gt_labels
@@ -227,12 +267,16 @@ class TrainGraph:
         """One optimizer step (`optimizer_step`). With device augmentation
         its draws are `draws` where given, else drawn from a generator on
         the batch's device seeded by (seed, step), so that a resumed run
-        draws what the unbroken run drew; without, the step draws nothing."""
+        draws what the unbroken run drew; without, the step draws nothing.
+        Under data parallelism the draws are the global batch's and this
+        rank keeps its rows."""
         if self.aug_cfg is not None and draws is None:
             points = batch["points"]
             gen = torch.Generator(device=points.device).manual_seed((seed << 32) + state.step)
-            draws = draw_augmentation(gen, points.shape[0], points.shape[1],
-                                      batch["gt_boxes"].shape[1], points.device)
+            full = draw_augmentation(gen, points.shape[0] * world(), points.shape[1],
+                                     batch["gt_boxes"].shape[1], points.device)
+            draws = AugDraws(**{f.name: dp.local_rows(getattr(full, f.name))
+                                for f in dataclasses.fields(AugDraws)})
+        losses = state.parallel or self.compute_losses
         return optimizer_step(state, self.solver_cfg,
-                              lambda bn_m: self.compute_losses(batch, bn_m, draws),
-                              self.histograms)
+                              lambda bn_m: losses(batch, bn_m, draws), self.histograms)

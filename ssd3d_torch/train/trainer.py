@@ -1,7 +1,7 @@
-"""Training runtime on one device: the port's train step (single-stage, or
-PointRCNN's two-stage step), `torch.save` checkpoints and metrics logging
-(counterpart of `ssd3d/train/trainer.py`, itself the replacement of the
-reference trainer, lib/core/trainer.py).
+"""Training runtime: the port's train step (single-stage, or PointRCNN's
+two-stage step), `torch.save` checkpoints and metrics logging (counterpart
+of `ssd3d/train/trainer.py`, itself the replacement of the reference
+trainer, lib/core/trainer.py), on one device or one process a card.
 
 A checkpoint is one step directory `<ckpt>/<step>/state.pt` holding the
 step, the model's `state_dict` (parameters and BatchNorm buffers) and the
@@ -11,8 +11,16 @@ every tensor on the CPU, so a checkpoint written on the card loads with
 reader polling the directory (the evaluate daemon) never sees half a
 checkpoint. The trainer runs on the card unless asked for the CPU; its
 loader's worker processes start by forkserver on every device (a process
-that has initialised CUDA must not fork). The JAX package's multi-host and fsdp
-branches are not ported (ROADMAP Queue 1 item 12).
+that has initialised CUDA must not fork).
+
+Multi-GPU: under the SSD3D_DIST_* contract (`parallel.distributed`) each
+process trains on its card as one rank of a process group, on its rows of
+the global batch (`data_parallel.row_range`, BATCH_SIZE x GPU_NUM, cut to a
+multiple of the rank count as the JAX trainer cuts it), with TPU.PARALLEL_MODE
+`dp` (DDP) or `fsdp` (FSDP2). Rank 0 alone writes the logs, metrics.jsonl
+and checkpoints; a checkpoint holds the full state dict (every shard
+gathered) in the single-process format, so dp, fsdp and single-process runs
+resume each other's checkpoints.
 """
 
 from __future__ import annotations
@@ -25,11 +33,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ssd3d_torch.data import build_loader
 from ssd3d_torch.entry import init_weights
 from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.ops import _build
+from ssd3d_torch.parallel import data_parallel as dp
+from ssd3d_torch.parallel.distributed import initialize_from_env, rank, rank_device, world
 from ssd3d_torch.train.train_step import TrainState
 
 STATE_FILE = "state.pt"
@@ -40,8 +51,8 @@ WORKER_START = "forkserver"
 
 
 def _to_cpu(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, torch.Tensor):  # a sharded tensor whole (every rank gathers)
+        return dp.full(tree.detach()).to("cpu", copy=True)
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -51,7 +62,7 @@ def _to_cpu(tree):
 
 def checkpoint_of(state: TrainState) -> dict:
     """A TrainState -> the checkpoint dict (step, model, optimizer), every
-    tensor copied to the CPU."""
+    tensor copied to the CPU whole (under FSDP every rank takes part)."""
     return {"step": int(state.step),
             "model": _to_cpu(state.model.state_dict()),
             "optimizer": _to_cpu(state.optimizer.state_dict())}
@@ -59,9 +70,16 @@ def checkpoint_of(state: TrainState) -> dict:
 
 def load_checkpoint(state: TrainState, ckpt: dict) -> None:
     """Restore a TrainState in place from a checkpoint dict: parameters,
-    BatchNorm buffers, optimizer state and step."""
-    state.model.load_state_dict(ckpt["model"])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    BatchNorm buffers, optimizer state and step; whole tensors are sharded
+    as the state's are (FSDP)."""
+    current = state.model.state_dict()
+    state.model.load_state_dict({k: dp.shard_like(v, current[k]) if k in current else v
+                                 for k, v in ckpt["model"].items()})
+    params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    opt = ckpt["optimizer"]
+    state.optimizer.load_state_dict(dict(opt, state={
+        i: {k: dp.shard_like(v, params[i]) if torch.is_tensor(v) else v for k, v in s.items()}
+        for i, s in opt["state"].items()}))
     state.step = int(ckpt["step"])
 
 
@@ -155,13 +173,15 @@ def merge_by_name(dst: dict, src: dict):
 
 
 class Trainer:
-    """End-to-end KITTI or nuScenes training on one device (the reference
-    trainer.py CLI body): single-stage models and PointRCNN's stages, the loader on
-    host workers, a checkpoint every CHECKPOINT_INTERVAL and at the end,
+    """End-to-end KITTI or nuScenes training (the reference trainer.py CLI
+    body): single-stage models and PointRCNN's stages, the loader on host
+    workers, a checkpoint every CHECKPOINT_INTERVAL and at the end,
     metrics every SUMMARY_INTERVAL. Resume is batch-exact: the loader's
     stream starts at the restored step, and PointRCNN's minibatch draws
     come from a generator seeded by the seed and the step. Stage 2 of
-    PointRCNN starts from a stage-1 run by `restore_model_path`."""
+    PointRCNN starts from a stage-1 run by `restore_model_path`. Under the
+    SSD3D_DIST_* contract, or in a process group the caller started, it is
+    one rank of a data-parallel run (module docstring)."""
 
     def __init__(self, cfg, log_dir: str, split: str = "train", seed: int = 0,
                  restore_model_path: str | None = None,
@@ -170,21 +190,29 @@ class Trainer:
         if restore_tf_checkpoint:
             raise NotImplementedError(
                 "Trainer: --restore_tf_checkpoint is not ported yet (ROADMAP Queue 1 item 13)")
-        if cfg.TPU.PARALLEL_MODE == "fsdp":
-            raise NotImplementedError(
-                "Trainer: PARALLEL_MODE fsdp is not ported yet (ROADMAP Queue 1 item 12)")
-        if cfg.TPU.PARALLEL_MODE != "dp":
+        if cfg.TPU.PARALLEL_MODE not in ("dp", "fsdp"):
             raise ValueError(f"unknown TPU.PARALLEL_MODE {cfg.TPU.PARALLEL_MODE!r}")
-        self.device = _build.resolve_device(device)
+        device = _build.resolve_device(device)
+        # the process group (and this rank's card) before anything is built
+        self.owns_group = initialize_from_env(print, device)
+        self.device = rank_device(device)
+        self.world, self.rank = world(), rank()
+        # under a process group every rank runs the same program; rank 0
+        # alone owns the run dir's files (JAX trainer.py:171-173)
+        self.is_lead = self.rank == 0
+        self.parallel = cfg.TPU.PARALLEL_MODE if dist.is_initialized() else None
         self.cfg = cfg
         self.seed = seed
         self.log_dir = os.path.abspath(log_dir)
         os.makedirs(self.log_dir, exist_ok=True)
-        self.log_file = open(os.path.join(self.log_dir, "log_train.txt"), "a")
-        self.metrics_file = open(os.path.join(self.log_dir, "metrics.jsonl"), "a")
-        # config snapshot into the run dir (trainer.py:59)
-        with open(os.path.join(self.log_dir, "config_snapshot.json"), "w") as f:
-            json.dump(cfg.to_dict(), f, indent=1, default=str)
+        self.log_file = open(os.path.join(self.log_dir, "log_train.txt") if self.is_lead
+                             else os.devnull, "a")
+        self.metrics_file = open(os.path.join(self.log_dir, "metrics.jsonl") if self.is_lead
+                                 else os.devnull, "a")
+        if self.is_lead:
+            # config snapshot into the run dir (trainer.py:59)
+            with open(os.path.join(self.log_dir, "config_snapshot.json"), "w") as f:
+                json.dump(cfg.to_dict(), f, indent=1, default=str)
 
         pipeline = build_pipeline(cfg, nms_pre_topk=cfg.TPU.NMS_PRE_TOPK or 2048,
                                   device=self.device)
@@ -192,7 +220,15 @@ class Trainer:
         self.graph = pipeline.graph
         self.loader = build_loader(cfg, split, training=True, seed=seed,
                                    device_aug=cfg.TPU.DEVICE_AUGMENT)
-        self.batch_size = cfg.TRAIN.CONFIG.BATCH_SIZE * cfg.TRAIN.CONFIG.GPU_NUM
+        self.batch_size = dp.global_batch_size(
+            cfg.TRAIN.CONFIG.BATCH_SIZE * cfg.TRAIN.CONFIG.GPU_NUM, self.world)
+        if self.batch_size != cfg.TRAIN.CONFIG.BATCH_SIZE * cfg.TRAIN.CONFIG.GPU_NUM:
+            self.log(f"batch size adjusted to {self.batch_size} for {self.world} ranks")
+        if self.parallel:
+            # this rank loads only its rows of each global batch
+            self.loader.row_range = dp.row_range(self.batch_size, self.rank, self.world)
+            self.log(f"{self.parallel} over {self.world} ranks: rank {self.rank} trains on rows "
+                     f"{list(self.loader.row_range)} of {self.batch_size} on {self.device}")
         self.ckpt = CheckpointManager(os.path.join(self.log_dir, "ckpt"),
                                       cfg.TRAIN.CONFIG.MAX_CHECKPOINTS_TO_KEEP)
         self.restore_model_path = restore_model_path
@@ -208,6 +244,8 @@ class Trainer:
         self.batch_keys = tuple(batch_keys)
 
     def log(self, msg: str) -> None:
+        if not self.is_lead:
+            return
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
         print(line, flush=True)
         self.log_file.write(line + "\n")
@@ -218,25 +256,27 @@ class Trainer:
 
     def init_or_restore(self) -> TrainState:
         """This run's latest checkpoint if it has one, else fresh weights,
-        warm-started from `restore_model_path` when given."""
-        state = self.graph.init_state()
+        warm-started from `restore_model_path` when given; wrapped for the
+        run's parallel mode (the warm start before, the checkpoint after:
+        it is sharded as the state is)."""
         ckpt, step = self.ckpt.restore(map_location=self.device)
+        if ckpt is None and self.restore_model_path:
+            self._warm_start(self.graph.model, self.restore_model_path)
+        state = self.graph.init_state(self.parallel)
         if ckpt is not None:
             load_checkpoint(state, ckpt)
             self.log(f"restored checkpoint at step {step}")
-        elif self.restore_model_path:
-            self._warm_start(state, self.restore_model_path)
         return state
 
-    def _warm_start(self, state: TrainState, path: str) -> None:
+    def _warm_start(self, model: torch.nn.Module, path: str) -> None:
         """Transfer restore from another run (reference --restore_model_path,
         trainer.py:161-174): copy the tensors whose names and shapes
         intersect; the step and the optimizer state start fresh."""
         raw, step = restore_from_path(path, map_location=self.device)
         if raw is None:
             raise FileNotFoundError(f"no checkpoint under {path!r}")
-        merged, copied, skipped = merge_by_name(state.model.state_dict(), raw["model"])
-        state.model.load_state_dict(merged)
+        merged, copied, skipped = merge_by_name(model.state_dict(), raw["model"])
+        model.load_state_dict(merged)
         self.log(
             f"warm start from {path} (step {step}): {len(copied)} tensors restored, "
             f"{len(skipped)} left at init" + (f" (e.g. {skipped[0]})" if skipped else "")
@@ -280,6 +320,7 @@ class Trainer:
             start_iter=start_step,
         )
         it = start_step
+        saved = start_step if start_step else None
         t_last = time.perf_counter()
         waited = 0.0
         try:
@@ -306,16 +347,27 @@ class Trainer:
                         {"iter": it, "sec_per_it": dt, "loader_wait_s": wait, **metrics}) + "\n")
                     self.metrics_file.flush()
                 if it % cfg.CHECKPOINT_INTERVAL == 0:
-                    self.ckpt.save(it, checkpoint_of(state))
-                    self.log(f"saved checkpoint at iter {it}")
-                    if cfg.SUMMARY_BEV_IMAGES:
+                    self._save(it, state)
+                    saved = it
+                    if cfg.SUMMARY_BEV_IMAGES and self.is_lead:
                         self._draw(batch, it)
         finally:
-            # tear the worker pool down now (the generator's finally)
+            # tear the worker pool down now (the generator's finally),
+            # before the process group goes
             batch_gen.close()
-        if self.ckpt.latest_step() != it:
-            self.ckpt.save(it, checkpoint_of(state))
+        if saved != it:
+            self._save(it, state)
         self.log(f"training done at iter {it}")
         self.log_file.close()
         self.metrics_file.close()
+        if self.owns_group:
+            dist.barrier()
+            dist.destroy_process_group()
         return state
+
+    def _save(self, it: int, state: TrainState) -> None:
+        """Every rank gathers the checkpoint (FSDP's shards); rank 0 writes."""
+        ckpt = checkpoint_of(state)
+        if self.is_lead:
+            self.ckpt.save(it, ckpt)
+            self.log(f"saved checkpoint at iter {it}")

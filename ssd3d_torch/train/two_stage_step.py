@@ -28,14 +28,11 @@ from ssd3d_torch.core.geometry import boxes_bottom_to_center
 from ssd3d_torch.models.two_stage import expand_boxes
 from ssd3d_torch.ops.grouping import query_boxes_3d_mask
 from ssd3d_torch.ops.sampling import gather_by_mask
+from ssd3d_torch.parallel import data_parallel as dp
+from ssd3d_torch.parallel.distributed import world
 from ssd3d_torch.train import losses as L
 from ssd3d_torch.train.assigner import AssignerConfig, assign_targets
-from ssd3d_torch.train.train_step import (
-    TrainState,
-    make_optimizer,
-    optimizer_step,
-    trained_parameters,
-)
+from ssd3d_torch.train.train_step import TrainState, new_state, optimizer_step
 
 
 def gather_tree_by_mask(tree: dict, mask: torch.Tensor, k: int) -> dict:
@@ -91,13 +88,11 @@ class TwoStageGraph:
             freeze_rpn=bool(prefix) and not any(p.startswith("rpn") for p in prefix),
         )
 
-    def init_state(self) -> TrainState:
-        """Puts the model in train mode and builds the optimizer over the
-        trained parameters."""
-        self.model.train()
-        opt = make_optimizer(self.solver_cfg,
-                             trained_parameters(self.model, self.train_param_prefix))
-        return TrainState(step=0, model=self.model, optimizer=opt)
+    def init_state(self, parallel: str | None = None) -> TrainState:
+        """Puts the model in train mode, wraps it for data parallelism
+        `parallel` ("dp" | "fsdp") and builds the optimizer over the
+        trained parameters (`train_step.new_state`)."""
+        return new_state(self, self.train_param_prefix, parallel)
 
     def compute_losses(self, batch: dict, bn_m: float, uniforms: torch.Tensor | None = None):
         """batch: points [bs, n, 4], gt_boxes [bs, g, 7], gt_labels [bs, g];
@@ -165,12 +160,15 @@ class TwoStageGraph:
         ([bs, 2, proposals] uniforms: each scan's positive and negative
         subsets) are `uniforms` where given, else drawn from a generator on
         the batch's device seeded by (seed, step), so that a resumed run
-        draws what the unbroken run drew."""
+        draws what the unbroken run drew; under data parallelism for the
+        global batch, this rank keeping its rows."""
         if uniforms is None and not self.only_first_stage \
                 and self.assigner_2.minibatch_size != -1:
             points = batch["points"]
             gen = torch.Generator(device=points.device).manual_seed((seed << 32) + state.step)
-            uniforms = torch.rand(points.shape[0], 2, self.rpn_spec.max_output, generator=gen,
-                                  device=points.device)
+            uniforms = dp.local_rows(torch.rand(points.shape[0] * world(), 2,
+                                                self.rpn_spec.max_output, generator=gen,
+                                                device=points.device))
+        losses = state.parallel or self.compute_losses
         return optimizer_step(state, self.solver_cfg,
-                              lambda bn_m: self.compute_losses(batch, bn_m, uniforms))
+                              lambda bn_m: losses(batch, bn_m, uniforms))

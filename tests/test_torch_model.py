@@ -127,11 +127,18 @@ def test_training_mode_runs_forward_and_backward():
 
 
 def test_unported_layer_types_raise():
+    """Every layer type of the JAX package builds, attention grouping too
+    (tests/test_torch_attention.py holds it to JAX); a layer type neither
+    package knows raises."""
     cfg = flagship(shrink=8, device="cpu")[0]
-    row = list(cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE[0])
-    row[10] = True  # attention grouping (FP and global SA layers are ported)
+    arch = cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE
+    arch[0][10] = True  # attention grouping
+    model, _ = build_detector(cfg, device="cpu")
+    assert model.backbone.layer1.use_attention and not model.backbone.layer2.use_attention
+    row = list(arch[0])
+    row[11] = "Unknown_Layer"
     cfg.MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE = [row]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match="unknown layer type"):
         build_detector(cfg, device="cpu")
 
 

@@ -59,6 +59,8 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssd3d_torch.train.trainer", "ssd3d_torch.train.two_stage_step",
             "ssd3d_torch.utils.viz", "ssd3d_torch.train.adabound",
             "ssd3d_torch.train.device_aug"} <= names
+    assert {"ssd3d_torch.parallel.distributed", "ssd3d_torch.parallel.data_parallel",
+            "ssd3d_torch.parallel.steps"} <= names
 
 
 def test_entry_runs_the_flagship_on_a_cpu_scan():

@@ -17,14 +17,15 @@ import torch
 import ssd3d.ops as jops
 from ssd3d.core import geometry as jgeometry
 from ssd3d.ops import grouping as jgrouping
+from ssd3d.ops import nms as jnms
 from ssd3d.ops import sampling as jsampling
 import ssd3d_torch.ops as ops
 from ssd3d_torch.core import geometry
 from ssd3d_torch.ops import _build, sampling
 
-# the JAX package's public ops that wait for the nuScenes slice
-NUSCENES_OPS = {"ball_query_attention", "ball_query_withidx", "knn_points", "soft_nms_bev",
-                "iou_guided_nms", "points_mask_nms"}
+# the JAX package's public ops the port lacks: none since attention grouping
+# and the legacy NMS variants came in
+NUSCENES_OPS = set()
 
 
 def _t(a):
@@ -33,6 +34,7 @@ def _t(a):
 
 def test_public_names_are_the_jax_packages_but_the_nuscenes_ones():
     assert set(ops.__all__) == set(jops.__all__) - NUSCENES_OPS
+    assert set(ops.__all__) == set(jops.__all__)
     assert all(callable(getattr(ops, name)) for name in ops.__all__)
 
 
@@ -160,6 +162,55 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _bev_candidates(seed: int, k: int = 60):
+    """k BEV rectangles over a 10 m square (many overlap) and their scores."""
+    rng = np.random.RandomState(seed)
+    ctr, size = rng.uniform(0, 10, (k, 2)), rng.uniform(0.5, 3, (k, 2))
+    bev = np.concatenate([ctr - size / 2, ctr + size / 2], -1).astype(np.float32)
+    return bev, rng.rand(k).astype(np.float32)
+
+
+@pytest.mark.parametrize("max_output", [20, 80])  # fewer picks than candidates; padded past them
+def test_soft_nms_bev_matches_jax(max_output):
+    bev, scores = _bev_candidates(6)
+    want = jnms.soft_nms_bev(jnp.asarray(bev), jnp.asarray(scores), max_output)
+    got = ops.soft_nms_bev(_t(bev), _t(scores), max_output)
+    assert got[0].dtype == torch.int32 and got[0].shape == (max_output,)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=1e-6)
+    assert 0 < int(got[2].sum()) <= min(max_output, len(scores))
+    assert not got[2][len(scores):].any()  # past the candidates: padding
+
+
+@pytest.mark.parametrize("max_output", [5, 80])
+def test_iou_guided_and_points_mask_nms_match_jax(max_output):
+    """The greedy sweep over a given overlap matrix in ensemble-score order;
+    the scores hold ties (a stable sort breaks them by index, as JAX's
+    argsort does)."""
+    bev, scores = _bev_candidates(7)
+    scores[10:20] = scores[0]  # ties in the visiting order
+    iou = np.asarray(jgeometry_iou(bev))
+    iou_3d = np.random.RandomState(8).uniform(0.3, 1.0, len(scores)).astype(np.float32)
+    want = jnms.iou_guided_nms(jnp.asarray(iou), jnp.asarray(scores), jnp.asarray(iou_3d),
+                               max_output, 0.1)
+    got = ops.iou_guided_nms(_t(iou), _t(scores), _t(iou_3d), max_output, 0.1)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=1e-6)
+    want_pm = jnms.points_mask_nms(jnp.asarray(iou), jnp.asarray(scores), max_output, 0.1)
+    got_pm = ops.points_mask_nms(_t(iou), _t(scores), max_output, 0.1)
+    np.testing.assert_array_equal(got_pm[0].numpy(), np.asarray(want_pm[0]))
+    np.testing.assert_array_equal(got_pm[1].numpy(), np.asarray(want_pm[1]))
+    assert 0 < int(got_pm[1].sum()) <= max_output
+
+
+def jgeometry_iou(bev):
+    from ssd3d.core.iou import aabb_iou
+
+    return aabb_iou(jnp.asarray(bev), jnp.asarray(bev))
 
 
 @pytest.mark.cuda

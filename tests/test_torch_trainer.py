@@ -265,8 +265,13 @@ def test_trainer_asks_for_worker_processes_that_do_not_fork_on_the_card(scans, t
 
 def test_trainer_names_what_is_not_ported(scans, tmp_path):
     opts = _opts(scans)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Trainer(config.load_cfg(TINY, opts + ["TPU.PARALLEL_MODE", "fsdp"]), str(tmp_path),
+    # fsdp is ported (tests/test_torch_distributed.py); in a single process,
+    # without a process group, there is nothing to shard and the step is plain
+    single = Trainer(config.load_cfg(TINY, opts + ["TPU.PARALLEL_MODE", "fsdp"]),
+                     str(tmp_path / "fsdp"), device="cpu")
+    assert single.parallel is None and single.world == 1 and single.is_lead
+    with pytest.raises(ValueError, match="unknown TPU.PARALLEL_MODE"):
+        Trainer(config.load_cfg(TINY, opts + ["TPU.PARALLEL_MODE", "zero"]), str(tmp_path),
                 device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         Trainer(config.load_cfg(TINY, opts), str(tmp_path), restore_tf_checkpoint="x",
