@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen phases, each of which raises on failure (no error is caught):
+Nineteen phases, each of which raises on failure (no error is caught):
 
 1. Environment: the card's name and power limit, torch / CUDA / nvcc
    versions, and the build of the CUDA kernels from `ssd3d_torch/csrc/`
@@ -166,6 +166,22 @@ Eighteen phases, each of which raises on failure (no error is caught):
    ranks' decisions replayed; step ms beside the plain step's, the NCCL
    version; then `bin.train` under SSD3D_DIST_* in dp and in fsdp (4
    iterations, a checkpoint each) and a single process resuming each.
+19. The kernels as `torch.library` custom ops and what they make possible:
+   (a) `torch.library.opcheck` of each op's CUDA registration at a shape of
+   its path; (b) the flagship exported by `bin.export --symbolic_batch`
+   from a checkpoint of its seed-0 weights, loaded in a process that
+   imports only `ssd3d_torch.ops` and run at batch 1 and 8, every output
+   bit for bit live `infer`'s and every kernel's launches live's, then
+   live and exported scans/s at batch 8 in turns; (c) PointRCNN and STD
+   exported at batch 4, loaded, equal to live with live's launches, with
+   each trace's seconds and artifact's bytes; (d) the flagship's weights
+   written as a reference TF checkpoint (`write_tf_checkpoint`, no
+   TensorFlow on the card), converted by `utils.tf_checkpoint` leaf for
+   leaf, `bin.evaluate --restore_tf_checkpoint` on a synthetic tree equal
+   to `bin.evaluate` of a port checkpoint of the same weights, and one
+   `bin.train --restore_tf_checkpoint` iteration starting from them; (e)
+   `utils.profiling.trace` around one flagship batch, its summary naming
+   K1-K4 and its device total within 1% of `key_averages()`'.
 
 The second line from the end is a JSON object with one entry per kernel:
 `launches_by_path` counts its launches in one run of each path (flagship
@@ -177,7 +193,9 @@ STD inference, phase 13; one STD stage-2 step and STD's CLI chain, phase 14;
 one step with the training options, phase 15; nuScenes inference at batch 4
 and at 65,536 points, one nuScenes train step and nuScenes' CLI chain,
 phase 16; attention inference and its train step, phase 17; rank 0's dp
-and fsdp train steps, phase 18), `launches` is their sum;
+and fsdp train steps, phase 18; the loaded flagship artifact at batch 8,
+the PointRCNN and STD artifacts, and the reference checkpoint's evaluate
+and train, phase 19), `launches` is their sum;
 times and bounds are of the shape in `shape`
 (K1's, K2's and K3's on the route that shape takes; `routes` holds every
 route's times at each shape of theirs, and `launches_by_route` their
@@ -281,7 +299,8 @@ from ssd3d_torch.train.two_stage_step import TwoStageGraph
 from ssd3d_torch.train.trainer import CheckpointManager, merge_by_name
 from ssd3d_torch.parallel import steps as parallel_steps
 from ssd3d_torch.parallel.steps import Decisions
-from ssd3d_torch.utils import synth, synth_nuscenes
+from ssd3d_torch.train.trainer import Trainer
+from ssd3d_torch.utils import profiling, synth, synth_nuscenes, tf_bundle, tf_checkpoint
 from ssd3d_torch.utils.timing import cuda_ms
 
 BATCH = 8
@@ -3709,6 +3728,505 @@ def phase_data_parallel() -> dict:
     return paths
 
 
+# ----------------------------------------------------------------- phase 19
+
+# batches of the flagship's symbolic-batch artifact, and its timed batches a
+# turn (live and exported, in turns)
+EXPORT_BATCHES = (1, 8)
+EXPORT_TIMED = 10
+EXPORT_TWO_STAGE = (("pointrcnn", POINTRCNN_CFG), ("std", STD_CFG))
+# the kernels of a path and the regular expression of their CUDA kernels'
+# names in a profiler trace
+TRACE_KERNELS = {"fps": "dfps", "ffps": "ffps", "ball_query": "ball_query",
+                 "gather": "gather_(rows|words)"}
+# the profiler's two device totals (the trace's events, `key_averages()`)
+# may part by this share
+TRACE_TOTAL_RTOL = 0.01
+TF_DTYPES = {np.dtype("float32"): 1, np.dtype("float64"): 2, np.dtype("int32"): 3,
+             np.dtype("int64"): 9}
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _field(num: int, payload) -> bytes:
+    """A protobuf field: an int as a varint, bytes length-delimited."""
+    if isinstance(payload, int):
+        return _varint(num << 3) + _varint(payload)
+    return _varint(num << 3 | 2) + _varint(len(payload)) + payload
+
+
+def _table_block(entries: list[tuple[bytes, bytes]], restart_every: int = 16) -> bytes:
+    """A LevelDB block: prefix-compressed entries, restart offsets, count."""
+    out, restarts, last = bytearray(), [], b""
+    for i, (key, value) in enumerate(entries):
+        shared = 0
+        if i % restart_every == 0:
+            restarts.append(len(out))
+        else:
+            while shared < min(len(key), len(last)) and key[shared] == last[shared]:
+                shared += 1
+        out += _varint(shared) + _varint(len(key) - shared) + _varint(len(value))
+        out += key[shared:] + value
+        last = key
+    for r in restarts or [0]:
+        out += r.to_bytes(4, "little")
+    return bytes(out + len(restarts or [0]).to_bytes(4, "little"))
+
+
+def write_tf_checkpoint(ckpt_dir: str, name: str, tensors: dict) -> str:
+    """A TensorFlow V2 checkpoint of numpy arrays (float32, float64, int32,
+    int64) at `<ckpt_dir>/<name>`, with the directory's `checkpoint` file
+    naming it: the `.index` table (data blocks of about 4 KB, an index
+    block, an empty metaindex block, the footer) and one data shard. For a
+    card without TensorFlow; `tests/test_torch_tf_checkpoint.py` has
+    TensorFlow read it back. -> the prefix."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    prefix = os.path.join(ckpt_dir, name)
+    data = bytearray()
+    entries = [(b"", _field(1, 1) + _field(3, _field(1, 1)))]  # one shard, producer 1
+    for key in sorted(tensors, key=lambda k: k.encode()):
+        arr = np.asarray(tensors[key])
+        raw = arr.astype(arr.dtype.newbyteorder("<")).tobytes()
+        shape = b"".join(_field(2, _field(1, d)) for d in arr.shape)
+        crc = tf_bundle.mask_crc(tf_bundle.crc32c(raw))
+        entries.append((key.encode(), _field(1, TF_DTYPES[arr.dtype]) + _field(2, shape)
+                        + _field(4, len(data)) + _field(5, len(raw))
+                        + _varint(6 << 3 | 5) + crc.to_bytes(4, "little")))
+        data += raw
+    table, index = bytearray(), []
+
+    def put(block: bytes) -> bytes:
+        handle = _varint(len(table)) + _varint(len(block))
+        table.extend(block + b"\0" + tf_bundle.mask_crc(
+            tf_bundle.crc32c(block + b"\0")).to_bytes(4, "little"))
+        return handle
+
+    chunk: list = []
+    for entry in entries:
+        chunk.append(entry)
+        if sum(len(k) + len(v) for k, v in chunk) >= 4096 or entry is entries[-1]:
+            index.append((chunk[-1][0], put(_table_block(chunk))))
+            chunk = []
+    meta = put(_table_block([]))
+    idx = put(_table_block(index, restart_every=1))
+    footer = (meta + idx).ljust(40, b"\0") + tf_bundle.TABLE_MAGIC.to_bytes(8, "little")
+    with open(prefix + ".index", "wb") as f:
+        f.write(bytes(table) + footer)
+    with open(prefix + ".data-00000-of-00001", "wb") as f:
+        f.write(bytes(data))
+    with open(os.path.join(ckpt_dir, "checkpoint"), "w") as f:
+        f.write(f'model_checkpoint_path: "{name}"\nall_model_checkpoint_paths: "{name}"\n')
+    return prefix
+
+
+def reference_tensors(cfg, state_dict: dict) -> dict:
+    """The port's weights under the upstream reference's TF variable names
+    (`utils.tf_checkpoint`'s name map, inverted): conv1d weights [1, in,
+    out], biases, BatchNorm gamma / beta / moving statistics, plus the
+    global step and an Adam slot as a reference checkpoint holds them.
+    Every leaf of `state_dict` must have a name."""
+    conv_map = (tf_checkpoint.build_two_stage_name_map(cfg) if cfg.MODEL.TYPE == "DoubleStage"
+                else tf_checkpoint.build_name_map(cfg))
+    out, named = {"global_step": np.array(1234, np.int64)}, set()
+    for path, tf_prefix in conv_map.items():
+        module = ".".join(path)
+        if f"{module}.conv.kernel" not in state_dict:
+            continue
+        leaves = [("conv.kernel", "weights"), ("conv.bias", "biases")]
+        if f"{module}.bn.scale" in state_dict:
+            leaves += tf_checkpoint.BN_LEAVES
+        for leaf, tf_leaf in leaves:
+            value = state_dict[f"{module}.{leaf}"].detach().cpu().numpy()
+            out[f"{tf_prefix}/{tf_leaf}"] = value[None] if leaf == "conv.kernel" else value
+            named.add(f"{module}.{leaf}")
+        out[f"{tf_prefix}/weights/Adam"] = np.zeros_like(out[f"{tf_prefix}/weights"])
+    check(named == set(state_dict), f"{len(set(state_dict) - named)} leaves have no reference "
+          f"name, e.g. {sorted(set(state_dict) - named)[:3]}")
+    return out
+
+
+_EXPORT_LOAD_SIDE = r"""
+import sys, time, torch
+import ssd3d_torch.ops
+from ssd3d_torch.ops import _build
+artifact, inputs, out = sys.argv[1:4]
+t0 = time.perf_counter()
+detector = torch.export.load(artifact).module()
+load_s = time.perf_counter() - t0
+runs = []
+with torch.inference_mode():
+    for points in torch.load(inputs):
+        _build.reset_launches()
+        det = detector(points.cuda())
+        torch.cuda.synchronize()
+        runs.append({"det": {k: v.cpu() for k, v in det.items()},
+                     "launches": _build.launches(), "routes": _build.route_launches()})
+loaded = sorted(m for m in sys.modules if m.startswith("ssd3d_torch."))
+torch.save({"runs": runs, "modules": loaded, "load_s": load_s}, out)
+"""
+
+
+def _live(pipe, points) -> tuple[dict, dict]:
+    """One live pass -> (detections on the CPU, launches with routes)."""
+    _build.reset_launches()
+    det = pipe.infer(points)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    launches["routes"] = _build.route_launches()
+    return {k: v.cpu() for k, v in det.items()}, launches
+
+
+def _same_outputs(got: dict, want: dict, what: str) -> None:
+    check(set(got) == set(want), f"{what}: keys {sorted(got)}, live {sorted(want)}")
+    differ = [k for k in want if not (got[k].dtype == want[k].dtype
+                                      and torch.equal(got[k], want[k]))]
+    check(not differ, f"{what}: {differ} differ from live infer")
+
+
+def opcheck_ops() -> None:
+    """(a) `torch.library.opcheck` of every op's CUDA registration at one
+    small shape of its path (schema, fake against real, dispatch)."""
+    from ssd3d_torch.ops import library
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    xyz = rand(2, 4096, 3, scale=20.0)
+    sa3 = load_cfg(str(FLAGSHIP_CFG)).MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE[2]
+    specs = ring_specs(sa3[2], sa3[3], True)
+    idx = torch.randint(0, 1024, (2, 8192), generator=g, device="cuda", dtype=torch.int32)
+    roi_idx = [torch.randint(0, 128, (64, 32, ns), generator=g, device="cuda",
+                             dtype=torch.int32) for ns in (16, 32)]
+    layers = [[(rand(131, 64, scale=0.1), rand(64), rand(64).abs() + 0.5, rand(64))
+               for _ in range(1)] for _ in range(2)]
+    layers[0].append((rand(64, 128, scale=0.1), rand(128), rand(128).abs() + 0.5, rand(128)))
+    params = [t for scale in layers for layer in scale for t in layer]
+    args = {
+        "fps": (xyz, 512),
+        "ffps": (rand(2, 4096, 67), 512),
+        "ffps_dist": (sampling.fused_square_distance(rand(2, 1024, 4)), 256),
+        "ball_query": (xyz[:, :1024].contiguous(), xyz[:, :256].contiguous(),
+                       [s[0] for s in specs], [s[1] for s in specs], [s[2] for s in specs],
+                       [s[3] for s in specs]),
+        "gather_rows": (rand(2, 1024, 131), idx),
+        "scatter_add_rows": (idx, rand(2, 8192, 67), 1024),
+        "three_nn": (xyz, xyz[:, ::4].contiguous()),
+        "sa_fused": (rand(64, 128, 131), roi_idx, rand(64, 32, 3), torch.ones(64, 32, 2,
+                     device="cuda"), params, [2, 1], False),
+    }
+    check(set(args) == set(library.OPS), f"opcheck covers {sorted(args)}")
+    for name, a in args.items():
+        _build.reset_launches()
+        res = torch.library.opcheck(getattr(torch.ops.ssd3d, name).default, a)
+        check(set(res.values()) == {"SUCCESS"}, f"opcheck of ssd3d::{name} on the card: {res}")
+        check(sum(_build.launches().values()) > 0, f"opcheck of ssd3d::{name} launched nothing")
+    log(f"opcheck passed on the CUDA registration of each of the {len(args)} ops "
+        f"({', '.join(sorted(args))})")
+
+
+def start_exports(root: str) -> dict:
+    """`bin.export` of the flagship (`--symbolic_batch`) and of PointRCNN
+    and STD (`--batch 4`), each from a checkpoint of its seed-0 weights, in
+    three processes at once: a trace is Python on one core, and the
+    two-stage ones write out the proposal sweep's 2,048 steps (ROADMAP
+    Queue 1 item 7b) -> {name: (run dir, process)}."""
+    runs = {}
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    for name, cfg_path, args in (("flagship", FLAGSHIP_CFG, ["--symbolic_batch"]),
+                                 ("pointrcnn", POINTRCNN_CFG, ["--batch", str(TWO_STAGE_BATCH)]),
+                                 ("std", STD_CFG, ["--batch", str(TWO_STAGE_BATCH)])):
+        run = os.path.join(root, name)
+        pipe = build_pipeline(load_cfg(str(cfg_path)), device="cpu")
+        init_weights(pipe.model, 0)
+        CheckpointManager(os.path.join(run, "ckpt")).save(0, {"step": 0,
+                                                              "model": pipe.model.state_dict()})
+        out = open(os.path.join(root, f"{name}.log"), "w")
+        runs[name] = (run, subprocess.Popen(
+            [sys.executable, "-m", "ssd3d_torch.bin.export", "--cfg", str(cfg_path),
+             "--log_dir", run, *args], env=env, stdout=out, stderr=subprocess.STDOUT), out)
+    return runs
+
+
+def finish_exports(root: str, runs: dict, card: str) -> dict:
+    """Wait for `start_exports`' processes -> {name: the artifact's .json}."""
+    metas = {}
+    for name, (run, proc, out) in runs.items():
+        rc = proc.wait(timeout=900)
+        out.close()
+        check(rc == 0, f"bin.export of {name} failed:\n"
+              + open(os.path.join(root, f"{name}.log")).read()[-3000:])
+        with open(os.path.join(run, "detector.pt2.json")) as f:
+            metas[name] = json.load(f)
+        meta = metas[name]
+        check(meta["device"] == "cuda" and meta["bytes"] == os.path.getsize(
+            os.path.join(run, "detector.pt2")), f"bin.export of {name} wrote {meta}")
+        log(f"{name} export (input {meta['input']}): traced in {meta['trace_s']:.2f} s, "
+            f"{meta['bytes']} bytes ({card}; the three traces ran at once)")
+    return metas
+
+
+def start_load_side(root: str, scans: torch.Tensor) -> subprocess.Popen:
+    """(b) The flagship's symbolic-batch artifact run at batch 1 and 8 in a
+    process that imports only `ssd3d_torch.ops` (`_EXPORT_LOAD_SIDE`)."""
+    run = os.path.join(root, "flagship")
+    torch.save([scans[:b].cpu() for b in EXPORT_BATCHES], os.path.join(run, "inputs.pt"))
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    return subprocess.Popen([sys.executable, "-c", _EXPORT_LOAD_SIDE,
+                             os.path.join(run, "detector.pt2"), os.path.join(run, "inputs.pt"),
+                             os.path.join(run, "loaded.pt")],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def export_flagship(root: str, scans: torch.Tensor, card: str,
+                    load_side: subprocess.Popen) -> dict:
+    """(b) The load side's outputs and launches against live `infer`; then
+    live and exported scans/s at batch 8 in turns -> the loaded batch-8
+    pass's launches."""
+    run = os.path.join(root, "flagship")
+    artifact, out = os.path.join(run, "detector.pt2"), os.path.join(run, "loaded.pt")
+    pipe = build_pipeline(load_cfg(str(FLAGSHIP_CFG)), device="cuda")
+    init_weights(pipe.model, 0)
+    batches = torch.load(os.path.join(run, "inputs.pt"))
+    text, _ = load_side.communicate(timeout=600)
+    check(load_side.returncode == 0, f"the load-side process failed:\n{text[-3000:]}")
+    loaded = torch.load(out)
+    # `ssd3d_torch.ops` and what it imports (`core`'s geometry), nothing more
+    outside = [m for m in loaded["modules"] if m.split(".")[1] not in ("ops", "core")]
+    check(not outside, f"the load side imported {outside}")
+    path = None
+    for points, run_ in zip(batches, loaded["runs"], strict=True):
+        want, live_launches = _live(pipe, points.cuda())
+        what = f"the flagship's artifact at batch {points.shape[0]}"
+        _same_outputs(run_["det"], want, what)
+        got = dict(run_["launches"], routes=run_["routes"])
+        check(got == live_launches, f"{what}: launches {got}, live {live_launches}")
+        check(all(got[k] > 0 for k in ("fps", "ffps", "ball_query", "gather")),
+              f"{what} launched {got}")
+        log(f"{what}: every output equal to live infer bit for bit; launches {run_['launches']} "
+            f"equal live's")
+        path = got
+    log(f"the load side imported {len(loaded['modules'])} modules of the port, none of the "
+        f"models, config, checkpoints or CLIs; torch.export.load took {loaded['load_s']:.2f} s")
+
+    served = torch.export.load(artifact).module()
+    points = scans[:EXPORT_BATCHES[-1]].contiguous()
+    rates = {"live": [], "exported": []}
+    for which in ("live", "exported", "exported", "live"):
+        fn = pipe.infer if which == "live" else served
+        with torch.inference_mode():
+            fn(points)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EXPORT_TIMED):
+                fn(points)
+            torch.cuda.synchronize()
+        rates[which].append(EXPORT_TIMED * points.shape[0] / (time.perf_counter() - t0))
+    log(f"flagship at batch {points.shape[0]}, scans/s in turns (live, exported, exported, "
+        f"live): live {rates['live'][0]:.2f} / {rates['live'][1]:.2f}, exported "
+        f"{rates['exported'][0]:.2f} / {rates['exported'][1]:.2f} ({card})")
+    return path
+
+
+def export_two_stage(root: str, card: str) -> dict:
+    """(c) The PointRCNN and STD artifacts of batch 4 (a fixed batch: a
+    symbolic one traces the proposal sweep's 2,048 steps at several times
+    the cost) loaded and run against live -> each loaded pass's launches."""
+    b = TWO_STAGE_BATCH
+    points = torch.from_numpy(synthetic_scenes(b, N_POINTS, seed=19)["points"]).cuda()
+    paths = {}
+    for name, cfg_path in EXPORT_TWO_STAGE:
+        pipe = build_pipeline(load_cfg(str(cfg_path)), device="cuda")
+        init_weights(pipe.model, 0)
+        exported = torch.export.load(os.path.join(root, name, "detector.pt2"))
+        served = exported.module()
+        want, live_launches = _live(pipe, points)
+        _build.reset_launches()
+        with torch.inference_mode():
+            det = served(points)
+        torch.cuda.synchronize()
+        got_launches = _build.launches()
+        got_launches["routes"] = _build.route_launches()
+        what = f"{name}'s artifact at batch {b}"
+        _same_outputs({k: v.cpu() for k, v in det.items()}, want, what)
+        check(got_launches == live_launches,
+              f"{what}: launches {got_launches}, live {live_launches}")
+        check(got_launches["three_nn"] == 4 and got_launches["sa_fused"] == 2,
+              f"{what}: K6 and K7 launched {got_launches}")
+        log(f"{what} ({len(exported.graph.nodes)} graph nodes): detections and proposals equal "
+            f"live bit for bit; launches {got_launches} equal live's ({card})")
+        paths[f"export_{name}"] = got_launches
+        del pipe, served, exported
+        torch.cuda.empty_cache()
+    return paths
+
+
+def convert_reference_checkpoint(root: str) -> dict:
+    """(d) The flagship's seed-0 weights written as a reference TF
+    checkpoint (`write_tf_checkpoint`), converted into a fresh flagship;
+    `bin.evaluate --restore_tf_checkpoint` against `bin.evaluate` of a port
+    checkpoint of the same weights; one `bin.train` iteration from it ->
+    the launches of that evaluate and train."""
+    cfg_path = str(FLAGSHIP_CFG)
+    source = build_pipeline(load_cfg(cfg_path), device="cuda")
+    init_weights(source.model, 0)
+    want = {k: v.detach().clone() for k, v in source.model.state_dict().items()}
+    cfg = load_cfg(cfg_path)
+    t0 = time.perf_counter()
+    tensors = reference_tensors(cfg, want)
+    tf_dir = os.path.join(root, "tf_ckpt")
+    write_tf_checkpoint(tf_dir, "model.ckpt-1234", tensors)
+    write_s = time.perf_counter() - t0
+    fresh = build_pipeline(cfg, device="cuda")
+    init_weights(fresh.model, 1)
+    t0 = time.perf_counter()
+    converted, missing = tf_checkpoint.convert_tf_checkpoint(tf_dir, cfg,
+                                                             fresh.model.state_dict())
+    convert_s = time.perf_counter() - t0
+    fresh.model.load_state_dict(converted)
+    got = fresh.model.state_dict()
+    differ = [k for k in want if not (got[k].device == want[k].device
+                                      and torch.equal(got[k], want[k]))]
+    check(not missing and not differ,
+          f"conversion: unmatched {missing}, leaves differ {differ[:3]}")
+    size = sum(os.path.getsize(os.path.join(tf_dir, f)) for f in os.listdir(tf_dir))
+    log(f"reference TF checkpoint of the flagship: {len(tensors)} variables, {size} bytes "
+        f"written in {write_s:.2f} s; converted on the card in {convert_s:.2f} s, every one "
+        f"of the {len(want)} state-dict leaves equal to the source's")
+    del source, fresh
+
+    data, npz = os.path.join(root, "kitti"), os.path.join(root, "npz")
+    synth.write_tree(data, n_train=BATCH, n_val=CLI_VAL_SCANS, n_points=CLI_SCAN_POINTS, seed=0)
+    opts = ["--device", "cuda", "DATASET.KITTI.BASE_DIR_PATH", data,
+            "DATASET.KITTI.TRAIN_LIST", os.path.join(data, "train.txt"),
+            "DATASET.KITTI.VAL_LIST", os.path.join(data, "val.txt"),
+            "DATASET.KITTI.SAVE_NUMPY_PATH", npz]
+    for split in ("train", "val"):
+        preprocess_cli.main(["--cfg", cfg_path, "--img_list", split] + opts)
+    port_run = os.path.join(root, "port_ckpt")
+    CheckpointManager(os.path.join(port_run, "ckpt")).save(
+        0, {"step": 0, "model": {k: v.cpu() for k, v in want.items()}})
+    metrics: list = []
+    real = evaluate_cli.evaluate_checkpoint
+
+    def recorded(*args, **kw):
+        metrics.append(real(*args, **kw))
+        return metrics[-1]
+
+    paths, calls = {}, []
+    with mock.patch.object(evaluate_cli, "evaluate_checkpoint", recorded), \
+            recording_inference(calls):
+        paths["tf_evaluate"] = cli_launches(
+            "bin.evaluate --restore_tf_checkpoint",
+            lambda: evaluate_cli.main(["--cfg", cfg_path, "--log_dir", os.path.join(root, "ev_tf"),
+                                       "--restore_tf_checkpoint", tf_dir, "--viz_scans", "0"]
+                                      + opts))
+        evaluate_cli.main(["--cfg", cfg_path, "--log_dir", os.path.join(root, "ev_port"),
+                           "--restore_model_path", port_run, "--viz_scans", "0"] + opts)
+    (res_tf, m_tf), (res_port, m_port) = metrics
+    rows_tf, rows_port = _det_rows(calls[0]["det"]), _det_rows(calls[1]["det"])
+    check(len(rows_tf) == len(rows_port) == CLI_VAL_SCANS
+          and all(np.array_equal(a, b) for a, b in zip(rows_tf, rows_port)),
+          "bin.evaluate's detections from the TF checkpoint differ from the port checkpoint's")
+    check(os.path.isfile(os.path.join(root, "ev_tf", "eval_tf_ckpt.json")),
+          "bin.evaluate --restore_tf_checkpoint wrote no eval_tf_ckpt.json")
+    check(m_tf == m_port and json.dumps(res_tf, sort_keys=True) == json.dumps(res_port,
+                                                                              sort_keys=True),
+          f"selection metric {m_tf} from the TF checkpoint, {m_port} from the port's")
+    log(f"bin.evaluate over {CLI_VAL_SCANS} val scans: selection metric {m_tf} from the "
+        f"reference checkpoint, equal to the port checkpoint's, every result and each of the "
+        f"{sum(len(r) for r in rows_tf)} detections above the threshold equal")
+
+    # one training iteration from the converted weights
+    run_t = os.path.join(root, "train_tf")
+    trainer = Trainer(load_cfg(cfg_path, opts[2:]), os.path.join(root, "train_tf_init"),
+                      restore_tf_checkpoint=tf_dir, device="cuda")
+    state = trainer.init_or_restore()
+    start = state.model.state_dict()
+    check(all(torch.equal(start[k], want[k]) for k in want),
+          "the Trainer did not start from the converted weights")
+    del trainer, state, start
+    paths["tf_train"] = cli_launches(
+        "one bin.train iteration from the reference checkpoint",
+        lambda: train_cli.main(["--cfg", cfg_path, "--log_dir", run_t, "--restore_tf_checkpoint",
+                                tf_dir, "--max_iterations", "1"] + opts
+                               + ["TRAIN.CONFIG.SUMMARY_INTERVAL", "1"]))
+    with open(os.path.join(run_t, "log_train.txt")) as f:
+        text = f.read()
+    check(f"TF checkpoint {tf_dir} converted (0 unmatched paths)" in text,
+          "bin.train did not convert the reference checkpoint")
+    m = _metrics(run_t)
+    check(len(m) == 1 and all(np.isfinite(m[0][k]) for k in LOSS_KEYS + ("total",)),
+          f"bin.train from the reference checkpoint logged {m}")
+    log(f"bin.train from the reference checkpoint: the Trainer starts from its weights; "
+        f"iteration 1 total loss {m[0]['total']:.4f}")
+    return paths
+
+
+def profile_flagship(root: str, scans: torch.Tensor, card: str) -> None:
+    """(e) `utils.profiling.trace` around one flagship batch: the summary
+    names K1-K4 and its device total agrees with `key_averages()`."""
+    _, model, spec, _ = flagship(device="cuda", seed=0)
+    with torch.inference_mode():
+        spec.decode_and_nms(model(scans))  # warm
+    log_dir = os.path.join(root, "trace")
+    with profiling.trace(log_dir) as prof:
+        torch.cuda._sleep(100_000)  # the trace's first launches may be lost: a spin first
+        with torch.inference_mode():
+            spec.decode_and_nms(model(scans))
+    by_name = profiling.summarize_trace(log_dir, top=10_000)
+    by_cat = profiling.summarize_trace(log_dir, top=10, by_category=True)
+    for kernel, pattern in TRACE_KERNELS.items():
+        check(any(re.search(pattern, name) for name, _ in by_name),
+              f"the trace summary names no {kernel} kernel ({pattern})")
+    total = sum(ms for _, ms in by_cat)
+    averages = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    check(abs(total - averages) <= TRACE_TOTAL_RTOL * averages,
+          f"trace summary {total:.3f} ms of device time, key_averages {averages:.3f} ms")
+    log(f"profiling.trace of one flagship batch of {scans.shape[0]}: device {total:.3f} ms in "
+        f"the summary ({', '.join(f'{c} {ms:.3f}' for c, ms in by_cat)}), {averages:.3f} ms "
+        f"in key_averages ({card}); top kernels: "
+        + "; ".join(f"{n[:40]} {ms:.3f} ms" for n, ms in by_name[:6]))
+
+
+def phase_export_convert_profile(scans: torch.Tensor, card: str) -> dict:
+    """Phase 19: the custom ops, serving export, reference-checkpoint
+    conversion and profiling -> the launches of the loaded passes and the
+    conversion's evaluate and train. The three exports trace in their own
+    processes while (a), (d) and (e) run."""
+    log("== phase 19: the kernels as custom ops, torch.export artifacts (flagship with a "
+        "symbolic batch, PointRCNN and STD at batch 4), a reference TF checkpoint converted "
+        "without TensorFlow, profiling hooks")
+    with tempfile.TemporaryDirectory(prefix="ssd3d_export_") as root:
+        runs = start_exports(root)
+        procs = [proc for _, proc, _ in runs.values()]
+        try:
+            opcheck_ops()
+            paths = convert_reference_checkpoint(root)
+            profile_flagship(root, scans, card)
+            finish_exports(root, {"flagship": runs.pop("flagship")}, card)
+            load_side = start_load_side(root, scans)
+            procs.append(load_side)
+            finish_exports(root, runs, card)
+            paths.update(export_two_stage(root, card))
+            paths["export_flagship"] = export_flagship(root, scans, card, load_side)
+        finally:
+            for proc in procs:  # every process this phase started ends with it
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return paths
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
@@ -3745,6 +4263,7 @@ def main() -> int:
     paths.update(timed(phase_nuscenes, report))
     paths.update(timed(phase_attention_and_groupnorm, report))
     paths.update(timed(phase_data_parallel))
+    paths.update(timed(phase_export_convert_profile, scans, card))
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -8,7 +8,12 @@ copies the best checkpoint aside (evaluator.py:94-135). Takes single-stage (3DSS
 two-stage (PointRCNN) configs through `models.api.build_pipeline`.
 
     python -m ssd3d_torch.bin.evaluate --cfg <yaml> --log_dir runs/3dssd \
-        [--once] [--cls_threshold 0.3] [--limit N] [--device cpu]
+        [--once] [--cls_threshold 0.3] [--limit N] [--device cpu] \
+        [--restore_model_path <run, ckpt or step dir>] \
+        [--restore_tf_checkpoint <reference TF-1 checkpoint>]
+
+With `--restore_tf_checkpoint` it evaluates the converted reference
+checkpoint once and writes `<log_dir>/eval_tf_ckpt.json`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ssd3d_torch.eval.predictions import (
 )
 from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.train.trainer import CheckpointManager, restore_from_path
+from ssd3d_torch.utils.tf_checkpoint import convert_tf_checkpoint
 
 
 def _gt_boxes(gt, wanted=None):
@@ -102,15 +108,14 @@ def main(argv: list[str] | None = None):
                     "ckpt dir, or a single step dir such as best_ckpt) "
                     "instead of polling --log_dir/ckpt")
     ap.add_argument("--restore_tf_checkpoint", default=None,
-                    help="not ported yet (ROADMAP Queue 1 item 13)")
+                    help="evaluate a reference TF-1 checkpoint once (a V2 prefix, or a "
+                    "directory with a checkpoint file; name-mapped weight conversion, "
+                    "BatchNorm statistics included, without TensorFlow)")
     ap.add_argument("--device", default="cuda",
                     help="the device to evaluate on: cuda (default) or cpu")
     ap.add_argument("opts", nargs="*", default=[])
     args = ap.parse_args(argv)
     device = cli_device(args.device)
-    if args.restore_tf_checkpoint:
-        raise NotImplementedError("bin.evaluate: --restore_tf_checkpoint is not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
     cfg = load_cfg(args.cfg, args.opts)
     os.makedirs(args.log_dir, exist_ok=True)
     pipeline = build_pipeline(cfg, device=device)
@@ -126,6 +131,14 @@ def main(argv: list[str] | None = None):
         with open(os.path.join(args.log_dir, f"eval_{tag}.json"), "w") as f:
             json.dump(results, f, indent=1)
         return metric
+
+    if args.restore_tf_checkpoint:
+        state, missing = convert_tf_checkpoint(args.restore_tf_checkpoint, cfg,
+                                               pipeline.model.state_dict())
+        print(f"evaluating converted TF checkpoint {args.restore_tf_checkpoint} "
+              f"({len(missing)} unmatched)")
+        run({"model": state}, "tf_ckpt", "tf_ckpt")
+        return
 
     if args.restore_model_path:
         ckpt, step = restore_from_path(args.restore_model_path, map_location=device)

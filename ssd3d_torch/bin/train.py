@@ -17,7 +17,8 @@ with the RPN frozen:
         --restore_model_path runs/rcnn1
 
 A second run on the same `--log_dir` resumes from its latest checkpoint,
-batch-exact.
+batch-exact. `--restore_tf_checkpoint <prefix or dir>` starts from a model
+trained by the upstream reference (`utils.tf_checkpoint`).
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ def main(argv: list[str] | None = None):
                     "ckpt dir, or one step dir): name-intersect transfer "
                     "restore, as the reference trainer's flag of the same name")
     ap.add_argument("--restore_tf_checkpoint", default=None,
-                    help="not ported yet (ROADMAP Queue 1 item 13)")
+                    help="start from a reference TF-1 checkpoint (a V2 prefix, or a "
+                    "directory with a checkpoint file), converted without TensorFlow")
     ap.add_argument("--device", default="cuda",
                     help="the device to train on: cuda (default) or cpu")
     ap.add_argument("opts", nargs="*", default=[])

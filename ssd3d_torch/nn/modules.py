@@ -24,6 +24,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 from ssd3d_torch.nn.layers import PointConv, SharedMLP
 from ssd3d_torch.ops import sa_fused
@@ -39,6 +40,10 @@ from ssd3d_torch.ops.sampling import (
     farthest_point_sample_features,
     gather_points,
 )
+
+
+# the RoI regime's least number of clouds for the fused route
+FUSED_MIN_CLOUDS = 64
 
 
 def _fusion_sample(xyz: torch.Tensor, features: torch.Tensor,
@@ -141,15 +146,54 @@ class PointnetSAModuleMSG(nn.Module):
             out = aggregation_channel
         self.out_channels = out
 
-    def _use_fused(self, packed_src: torch.Tensor, queries) -> bool:
+    def _use_fused(self, packed_src: torch.Tensor, queries):
         """The fused route: inference, BatchNorm (not GroupNorm), f32 (K7
         computes in f32), the RoI regime (n <= 512 clouds, b >= 64 of them)
         and K7's envelope. The RoI gate is the JAX package's, chosen from TPU
-        measurements; both routes are timed on the H100 in `chip_smoke.py`."""
+        measurements; both routes are timed on the H100 in `chip_smoke.py`.
+        -> True or False; None where the batch is symbolic (`torch.export`)
+        and b >= 64 is not known from its range: the traced program then
+        decides when it runs (`torch.cond`)."""
         b, n, cp = packed_src.shape
-        return (not self.training and self.bn and not self.use_gn and self.compute_dtype is None
-                and packed_src.dtype == torch.float32 and n <= 512 and b >= 64
-                and sa_fused.supports(cp, [idx.shape[2] for idx, _ in queries], self.mlp_list))
+        if not (not self.training and self.bn and not self.use_gn and self.compute_dtype is None
+                and packed_src.dtype == torch.float32 and n <= 512
+                and sa_fused.supports(cp, [idx.shape[2] for idx, _ in queries], self.mlp_list)):
+            return False
+        if isinstance(b, torch.SymInt):
+            if statically_known_true(b >= FUSED_MIN_CLOUDS):
+                return True
+            if statically_known_true(b < FUSED_MIN_CLOUDS):
+                return False
+            return None
+        return b >= FUSED_MIN_CLOUDS
+
+    def _fused(self, packed_src, new_xyz, *queries):
+        """Every scale and the aggregation through K7; queries: idx, cnt of
+        each scale in turn."""
+        pairs = list(zip(queries[0::2], queries[1::2]))
+        idx_list = [idx * (cnt > 0).to(torch.int32)[..., None] for idx, cnt in pairs]
+        masks = torch.stack([(cnt > 0).float() for _, cnt in pairs], dim=-1)
+        return sa_fused.sa_fused_multi(
+            packed_src, idx_list, new_xyz, masks,
+            [getattr(self, f"mlp{i}").fold() for i in range(self.n_scales)],
+            self.aggregation.fold() if self.aggregation is not None else None)
+
+    def _grouped(self, packed_src, new_xyz, *queries, bn_momentum: float = 0.9):
+        """Every scale as gather, MLP and max-pool, then the aggregation."""
+        scale_feats = []
+        for i, (idx, cnt) in enumerate(zip(queries[0::2], queries[1::2])):
+            has_pts = (cnt > 0).to(torch.int32)
+            idx = idx * has_pts[..., None]  # empty balls gather point 0
+            grouped = group_points(packed_src, idx)
+            grouped_xyz = grouped[..., -3:] - new_xyz[:, :, None, :]
+            grouped = torch.cat([grouped[..., :-3], grouped_xyz], dim=-1)
+            grouped = getattr(self, f"mlp{i}")(grouped, bn_momentum)
+            pooled = max_pool(grouped)
+            scale_feats.append(pooled * has_pts[..., None].to(pooled.dtype))
+        new_features = torch.cat(scale_feats, dim=-1)
+        if self.aggregation is not None:
+            new_features = self.aggregation(new_features, bn_momentum)
+        return new_features
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
                 former_fps_idx: torch.Tensor | None = None,
@@ -182,27 +226,15 @@ class PointnetSAModuleMSG(nn.Module):
                                        new_xyz.detach(), dilated=self.dilated_group)
         # one packed gather per scale instead of separate xyz / feature gathers
         packed_src = torch.cat([features, xyz], dim=-1)
-        if self._use_fused(packed_src, queries):
-            idx_list = [idx * (cnt > 0).to(torch.int32)[..., None] for idx, cnt in queries]
-            masks = torch.stack([(cnt > 0).float() for _, cnt in queries], dim=-1)
-            new_features = sa_fused.sa_fused_multi(
-                packed_src, idx_list, new_xyz, masks,
-                [getattr(self, f"mlp{i}").fold() for i in range(self.n_scales)],
-                self.aggregation.fold() if self.aggregation is not None else None)
-            return new_xyz, new_features, fps_idx
-        scale_feats = []
-        for i, (idx, cnt) in enumerate(queries):
-            has_pts = (cnt > 0).to(torch.int32)
-            idx = idx * has_pts[..., None]  # empty balls gather point 0
-            grouped = group_points(packed_src, idx)
-            grouped_xyz = grouped[..., -3:] - new_xyz[:, :, None, :]
-            grouped = torch.cat([grouped[..., :-3], grouped_xyz], dim=-1)
-            grouped = getattr(self, f"mlp{i}")(grouped, bn_momentum)
-            pooled = max_pool(grouped)
-            scale_feats.append(pooled * has_pts[..., None].to(pooled.dtype))
-        new_features = torch.cat(scale_feats, dim=-1)
-        if self.aggregation is not None:
-            new_features = self.aggregation(new_features, bn_momentum)
+        flat = tuple(t for query in queries for t in query)
+        fused = self._use_fused(packed_src, queries)
+        if fused is None:
+            new_features = torch.cond(packed_src.shape[0] >= FUSED_MIN_CLOUDS, self._fused,
+                                      self._grouped, (packed_src, new_xyz) + flat)
+        elif fused:
+            new_features = self._fused(packed_src, new_xyz, *flat)
+        else:
+            new_features = self._grouped(packed_src, new_xyz, *flat, bn_momentum=bn_momentum)
         return new_xyz, new_features, fps_idx
 
 

@@ -1,7 +1,9 @@
 """Point ops: sampling, grouping, interpolation, NMS (counterpart of
 `ssd3d/ops/__init__.py`, the names the port has). The CUDA kernels are built
 at their first launch by `ssd3d_torch.ops._build`, which also keeps their
-launch counts."""
+launch counts; importing this package registers each kernel as a custom op
+`torch.ops.ssd3d.<name>` (`ops/library.py`), which is all that a process
+loading an exported detector needs of the port."""
 
 from ssd3d_torch.ops.grouping import (
     ball_query,
@@ -30,6 +32,7 @@ from ssd3d_torch.ops.sampling import (
     gather_by_mask,
     gather_points,
 )
+from ssd3d_torch.ops import library  # noqa: F401  (registers torch.ops.ssd3d.*)
 
 __all__ = [
     "farthest_point_sample",

@@ -251,8 +251,9 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def require_cuda(op: str, *tensors: torch.Tensor) -> bool:
-    """Device dispatch: True for CUDA tensors (take the kernel), False for CPU
-    tensors (take the plain version); anything else, or a mix, raises."""
+    """The public ops' device check before their custom op dispatches: True
+    for CUDA tensors (the kernel), False for CPU tensors (the plain
+    version); anything else, or a mix, raises with the op's name."""
     devs = {t.device.type for t in tensors}
     if devs == {"cuda"}:
         return True

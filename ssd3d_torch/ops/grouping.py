@@ -6,10 +6,11 @@ Counterpart of `ssd3d/ops/grouping.py` (`ball_query_multi`, `ball_query`,
 `ball_query_dilated`, `ball_query_attention`, `ball_query_withidx`,
 `knn_points`, `group_points`, `query_boxes_3d_points`,
 `query_boxes_3d_mask`, `query_points_iou`).
-Each kernel-backed function dispatches on the device of its inputs: CUDA
-tensors launch the hand-written kernel (`csrc/ball_query.cu` on one of its
-two routes, `csrc/gather.cu`, and for the gather's backward
-`csrc/scatter_add.cu`), CPU tensors take the plain PyTorch version beside it.
+Each kernel-backed function calls its custom op (`ops/library.py`), which
+dispatches on the device of its inputs: CUDA tensors launch the
+hand-written kernel (`csrc/ball_query.cu` on one of its two routes,
+`csrc/gather.cu`, and for the gather's backward `csrc/scatter_add.cu`),
+CPU tensors take the plain PyTorch version beside it.
 The attention and caller-ordered ball queries, the k-NN, the box queries and
 the point IoU are plain PyTorch on every device, as they are plain XLA in
 the JAX package.
@@ -134,12 +135,17 @@ def ring_groups(specs) -> list:
 @_build.on_input_device
 def _ball_query_cuda(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
     """K3 on the route `ball_query_route` picks (tests and timing patch it to
-    force one), one launch for each group of `ring_groups`."""
-    return [ring for group in ring_groups(specs) for ring in _ball_query_launch(group, xyz, new_xyz)]
+    force one), one launch for each group of `ring_groups` -> (idx int32
+    [b, m, sum of ns], cnt int32 [b, m, rings]), the rings side by side."""
+    parts = [_ball_query_launch(group, xyz, new_xyz) for group in ring_groups(specs)]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p[0] for p in parts], -1), torch.cat([p[1] for p in parts], -1)
 
 
 def _ball_query_launch(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
-    """One launch of K3 for at most KERNEL_MAX_RINGS rings."""
+    """One launch of K3 for at most KERNEL_MAX_RINGS rings -> (idx, cnt)
+    with the rings side by side."""
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     k = len(specs)
@@ -172,11 +178,7 @@ def _ball_query_launch(specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
         *[t.data_ptr() if t is not None else None for t in (grids, cell_start, points_by_cell)],
         cap, cell_min, route=route,
     )
-    out, off = [], 0
-    for r, ns in enumerate(ns_list):
-        out.append((idx[..., off:off + ns], cnt[..., r]))
-        off += ns
-    return out
+    return idx, cnt
 
 
 def ball_query_multi(radius_list, nsample_list, xyz: torch.Tensor,
@@ -196,9 +198,15 @@ def _ball_query_specs(op: str, specs, xyz: torch.Tensor, new_xyz: torch.Tensor):
             raise ValueError(f"{op}: {name} must be f32 [b, *, 3]")
     if xyz.shape[0] != new_xyz.shape[0]:
         raise ValueError(f"{op}: batch {xyz.shape[0]} != {new_xyz.shape[0]}")
-    if _build.require_cuda(op, xyz, new_xyz):
-        return _ball_query_cuda(specs, xyz, new_xyz)
-    return ball_query_multi_plain(specs, xyz, new_xyz)
+    _build.require_cuda(op, xyz, new_xyz)
+    idx, cnt = torch.ops.ssd3d.ball_query(xyz, new_xyz, [s[0] for s in specs],
+                                          [s[1] for s in specs], [s[2] for s in specs],
+                                          [s[3] for s in specs])
+    out, off = [], 0
+    for r, (_, _, ns, _) in enumerate(specs):
+        out.append((idx[..., off:off + ns], cnt[..., r]))
+        off += ns
+    return out
 
 
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
@@ -420,9 +428,8 @@ def _gather_rows_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    if _build.require_cuda("gather_rows", points, idx):
-        return _gather_rows_cuda(points, idx)
-    return gather_rows_plain(points, idx)
+    _build.require_cuda("gather_rows", points, idx)
+    return torch.ops.ssd3d.gather_rows(points, idx)
 
 
 def scatter_add_rows_plain(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor:
@@ -458,14 +465,14 @@ def scatter_add_rows(idx: torch.Tensor, g: torch.Tensor, n: int) -> torch.Tensor
     either device, so the kernel equals the CPU plain version bit for bit."""
     if g.dim() != 3 or idx.shape != g.shape[:2]:
         raise ValueError(f"scatter_add_rows: idx {tuple(idx.shape)}, g {tuple(g.shape)}")
-    if _build.require_cuda("scatter_add_rows", idx, g):
-        return _scatter_add_rows_cuda(idx, g, n)
-    return scatter_add_rows_plain(idx, g, n)
+    _build.require_cuda("scatter_add_rows", idx, g)
+    return torch.ops.ssd3d.scatter_add_rows(idx, g, n)
 
 
 class _GatherRows(torch.autograd.Function):
     """The row gather with the row scatter-add as its backward (the CUDA
-    GroupPointGrad contract); both dispatch on the device."""
+    GroupPointGrad contract); both are custom ops (`ops/library.py`) and
+    dispatch on the device."""
 
     @staticmethod
     def forward(ctx, points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

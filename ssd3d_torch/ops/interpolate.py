@@ -3,8 +3,8 @@
 
 `three_nn` finds each unknown point's three nearest known points and returns
 their SQUARED distances (the reference op's contract, tf_interpolate_g.cu:24).
-It dispatches on the device of its inputs: CUDA tensors launch the
-hand-written kernel K6 (`csrc/three_nn.cu`), CPU tensors take
+Its custom op (`ops/library.py`) dispatches on the device of its inputs:
+CUDA tensors launch the hand-written kernel K6 (`csrc/three_nn.cu`), CPU tensors take
 `three_nn_plain`. Both write d2 as ((dx*dx + dy*dy) + dz*dz) from exact
 differences and fill equal distances into slots in index order, so their
 indices agree exactly and their distances bit for bit. The op has no
@@ -97,10 +97,8 @@ def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
     if xyz1.shape[0] != xyz2.shape[0] or xyz2.shape[1] < 3:
         raise ValueError(f"three_nn: needs equal batches and at least 3 knowns, got "
                          f"{tuple(xyz1.shape)} and {tuple(xyz2.shape)}")
-    xyz1, xyz2 = xyz1.detach(), xyz2.detach()
-    if _build.require_cuda("three_nn", xyz1, xyz2):
-        return _three_nn_cuda(xyz1, xyz2)
-    return three_nn_plain(xyz1, xyz2)
+    _build.require_cuda("three_nn", xyz1, xyz2)
+    return torch.ops.ssd3d.three_nn(xyz1.detach(), xyz2.detach())
 
 
 def k_interpolate(points: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ centre's ball from the packed source (features, then xyz), the centre
 subtraction, the folded conv + BatchNorm + ReLU chain and the max-pool times
 the scale's has-points mask; then the optional aggregation layer. A layer is
 given as (kernel [ci, co], bias, inv, shift) with BatchNorm folded to an
-affine (`nn.layers.PointConv.fold`). CUDA tensors launch kernel K7
+affine (`nn.layers.PointConv.fold`). Its custom op (`ops/library.py`)
+dispatches on the device: CUDA tensors launch kernel K7
 (`csrc/sa_fused.cu`), which keeps the grouped rows in shared memory; CPU
 tensors take `sa_fused_multi_plain`. Both compute in f32.
 
@@ -15,7 +16,7 @@ tensor cores in 3xTF32 (each f32 operand split into a TF32 big part and a
 TF32 remainder, `tf32_round`, and big.big + big.small + small.big summed in
 f32), for scales whose layers are at most 256 wide; "fma", the first design's
 f32 FMA GEMM, for the wider ones. The wgmma route takes its weights staged
-by `stage_weights`, once per call.
+by `stage_weights`, once per call, inside the op.
 
 `supports` is K7's envelope (either route), and both entry points raise
 outside it on every device, so a CPU run refuses what the card would refuse.
@@ -258,14 +259,18 @@ def sa_fused_multi(src: torch.Tensor, idx_list, centers: torch.Tensor, masks: to
     if (any(tuple(idx.shape[:2]) != (b, m) for idx in idx_list)
             or masks.shape != (b, m, len(idx_list))):
         raise ValueError("sa_fused_multi: idx, centers and masks disagree on [b, m, R]")
-    route = sa_fused_route(src.shape[2], ns_list, widths)
-    if route is None:
+    if not supports(src.shape[2], ns_list, widths):
         raise ValueError(f"sa_fused_multi: outside K7's envelope (cp={src.shape[2]}, "
                          f"ns={ns_list}, widths={widths}); gate the call with supports()")
+    _build.require_cuda("sa_fused_multi", src, centers, masks, *idx_list)
+    flat = [layer for layers in layers_list for layer in layers]
+    if agg_layer is not None:
+        flat.append(agg_layer)
     with torch.no_grad():
-        if _build.require_cuda("sa_fused_multi", src, centers, masks, *idx_list):
-            return _sa_fused_cuda(src, idx_list, centers, masks, layers_list, agg_layer, route)
-        return sa_fused_multi_plain(src, idx_list, centers, masks, layers_list, agg_layer)
+        return torch.ops.ssd3d.sa_fused(
+            src, [idx.to(torch.int32) for idx in idx_list], centers, masks.float(),
+            [t.detach().float() for layer in flat for t in layer],
+            [len(layers) for layers in layers_list], agg_layer is not None)
 
 
 def sa_fused(src: torch.Tensor, idx: torch.Tensor, centers: torch.Tensor, layers) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Point sampling: D-FPS, F-FPS, the row gather of sampled points and the
 first-k gather by mask.
 
-Counterpart of `ssd3d/ops/sampling.py`. The three FPS functions dispatch on
-the device of their input: a CUDA tensor launches the hand-written kernel
+Counterpart of `ssd3d/ops/sampling.py`. The three FPS functions call their
+custom ops (`ops/library.py`), which dispatch on the device of their input:
+a CUDA tensor launches the hand-written kernel
 (`csrc/fps.cu`, `csrc/ffps.cu`, each with three routes chosen from the
 shape, which together take any n and c; `csrc/ffps_dist.cu` over a given
 distance matrix, any n), a CPU tensor takes the plain PyTorch version
@@ -167,9 +168,8 @@ def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """D-FPS. xyz: f32 [b, n, 3] -> int32 [b, npoint]."""
     _check_points("farthest_point_sample", xyz, 3)
-    if _build.require_cuda("farthest_point_sample", xyz):
-        return _fps_cuda(xyz, npoint)
-    return fps_plain(xyz, npoint)
+    _build.require_cuda("farthest_point_sample", xyz)
+    return torch.ops.ssd3d.fps(xyz, npoint)
 
 
 # ---------------------------------------------------------------- F-FPS (K2)
@@ -247,9 +247,8 @@ def farthest_point_sample_from_dist(dist: torch.Tensor, npoint: int) -> torch.Te
         raise ValueError(f"farthest_point_sample_from_dist: expected [b, n, n], "
                          f"got {tuple(dist.shape)}")
     dist = dist.detach()
-    if _build.require_cuda("farthest_point_sample_from_dist", dist):
-        return _ffps_dist_cuda(dist, npoint)
-    return fps_from_dist_plain(dist, npoint)
+    _build.require_cuda("farthest_point_sample_from_dist", dist)
+    return torch.ops.ssd3d.ffps_dist(dist, npoint)
 
 
 def ffps_plain(fused: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -392,9 +391,8 @@ def farthest_point_sample_features(fused: torch.Tensor, npoint: int) -> torch.Te
     """F-FPS over fused (xyz ++ feature) vectors.
     fused: f32 [b, n, c] -> int32 [b, npoint]."""
     _check_points("farthest_point_sample_features", fused)
-    if _build.require_cuda("farthest_point_sample_features", fused):
-        return _ffps_cuda(fused, npoint)
-    return ffps_plain(fused, npoint)
+    _build.require_cuda("farthest_point_sample_features", fused)
+    return torch.ops.ssd3d.ffps(fused, npoint)
 
 
 def fps_pick_shortfall(points: torch.Tensor, picks: torch.Tensor) -> float:

@@ -42,6 +42,7 @@ from ssd3d_torch.ops import _build
 from ssd3d_torch.parallel import data_parallel as dp
 from ssd3d_torch.parallel.distributed import initialize_from_env, rank, rank_device, world
 from ssd3d_torch.train.train_step import TrainState
+from ssd3d_torch.utils.tf_checkpoint import convert_tf_checkpoint
 
 STATE_FILE = "state.pt"
 # how the loader's worker processes start, on every device: one clean server
@@ -187,9 +188,6 @@ class Trainer:
                  restore_model_path: str | None = None,
                  restore_tf_checkpoint: str | None = None,
                  device: torch.device | str = "cuda"):
-        if restore_tf_checkpoint:
-            raise NotImplementedError(
-                "Trainer: --restore_tf_checkpoint is not ported yet (ROADMAP Queue 1 item 13)")
         if cfg.TPU.PARALLEL_MODE not in ("dp", "fsdp"):
             raise ValueError(f"unknown TPU.PARALLEL_MODE {cfg.TPU.PARALLEL_MODE!r}")
         device = _build.resolve_device(device)
@@ -232,6 +230,7 @@ class Trainer:
         self.ckpt = CheckpointManager(os.path.join(self.log_dir, "ckpt"),
                                       cfg.TRAIN.CONFIG.MAX_CHECKPOINTS_TO_KEEP)
         self.restore_model_path = restore_model_path
+        self.restore_tf_checkpoint = restore_tf_checkpoint
         batch_keys = ["points", "gt_boxes", "gt_labels"]
         if cfg.DATASET.TYPE.upper() == "NUSCENES":
             # the velocity / attribute heads' labels (data/nuscenes.py)
@@ -258,10 +257,19 @@ class Trainer:
         """This run's latest checkpoint if it has one, else fresh weights,
         warm-started from `restore_model_path` when given; wrapped for the
         run's parallel mode (the warm start before, the checkpoint after:
-        it is sharded as the state is)."""
+        it is sharded as the state is). A reference TF checkpoint
+        (`restore_tf_checkpoint`) is converted into the fresh weights after
+        any warm start, as the JAX trainer does."""
         ckpt, step = self.ckpt.restore(map_location=self.device)
         if ckpt is None and self.restore_model_path:
             self._warm_start(self.graph.model, self.restore_model_path)
+        if ckpt is None and self.restore_tf_checkpoint:
+            model = self.graph.model
+            converted, missing = convert_tf_checkpoint(self.restore_tf_checkpoint, self.cfg,
+                                                       model.state_dict(), log=self.log)
+            model.load_state_dict(converted)
+            self.log(f"TF checkpoint {self.restore_tf_checkpoint} converted "
+                     f"({len(missing)} unmatched paths)")
         state = self.graph.init_state(self.parallel)
         if ckpt is not None:
             load_checkpoint(state, ckpt)

@@ -61,6 +61,8 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssd3d_torch.train.device_aug"} <= names
     assert {"ssd3d_torch.parallel.distributed", "ssd3d_torch.parallel.data_parallel",
             "ssd3d_torch.parallel.steps"} <= names
+    assert {"ssd3d_torch.ops.library", "ssd3d_torch.bin.export", "ssd3d_torch.utils.tf_bundle",
+            "ssd3d_torch.utils.tf_checkpoint", "ssd3d_torch.utils.profiling"} <= names
 
 
 def test_entry_runs_the_flagship_on_a_cpu_scan():
@@ -106,6 +108,24 @@ def test_each_kernel_source_names_the_tpu_kernel_it_replaces():
         assert "ssd3d/ops/pallas/" + pallas.split(":")[0] in head, name
         assert pallas.split(":")[1] in head, name
         assert "bounds it on the H100" in head, name
+
+
+def test_each_custom_op_names_its_source_and_the_tpu_kernels_it_replaces():
+    """Every kernel is one custom op (`ops/library.py`), whose entry names
+    its CUDA source and the `pl.pallas_call` functions that source
+    replaces; each such function exists in the JAX package's Pallas file."""
+    from ssd3d_torch.ops import library
+
+    sources = set()
+    for op, (source, replaced) in library.OPS.items():
+        assert (REPO / "ssd3d_torch" / "csrc" / source).is_file(), op
+        sources.add(source)
+        for site in replaced:
+            file, fn = site.split(":")
+            text = (REPO / "ssd3d" / "ops" / "pallas" / file).read_text()
+            assert f"def {fn}(" in text, site
+        assert getattr(torch.ops.ssd3d, op).default._schema.name == f"ssd3d::{op}"
+    assert sources == {p.name for p in (REPO / "ssd3d_torch" / "csrc").glob("*.cu")}
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -273,9 +273,12 @@ def test_trainer_names_what_is_not_ported(scans, tmp_path):
     with pytest.raises(ValueError, match="unknown TPU.PARALLEL_MODE"):
         Trainer(config.load_cfg(TINY, opts + ["TPU.PARALLEL_MODE", "zero"]), str(tmp_path),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Trainer(config.load_cfg(TINY, opts), str(tmp_path), restore_tf_checkpoint="x",
-                device="cpu")
+    # reference TF checkpoints are ported (tests/test_torch_tf_checkpoint.py):
+    # a path that holds none is refused, with the path, when the run starts
+    absent = str(tmp_path / "no_tf_ckpt")
+    with pytest.raises(FileNotFoundError, match="no checkpoint at"):
+        Trainer(config.load_cfg(TINY, opts), str(tmp_path / "tf"), restore_tf_checkpoint=absent,
+                device="cpu").init_or_restore()
     # PointRCNN's stage 2 is ported: the trainer builds the two-stage graph
     # the JAX package's trainer builds, and its optimizer holds only the
     # RCNN's parameters (TRAIN_PARAM_PREFIX rcnn, roi)
