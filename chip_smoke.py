@@ -100,13 +100,22 @@ Nineteen phases, each of which raises on failure (no error is caught):
    near-tie; then `bin.train` of stage 1, `bin.train` of stage 2 warm-started
    from it, and `bin.evaluate` of the stage-2 run, with s/it and the loader's
    share.
-12. K2m, F-FPS over a given distance matrix (`csrc/ffps_dist.cu`), against
-   the plain loop at the TPU entries' shapes ([8, 1024, 1024] -> 256,
-   [8, 4096, 4096] -> 512), an odd n, a 10 x 10 x 10 lattice whose picks
-   tie, and [1, 20000, 20000] (the scratch tier), picks equal, timed with
-   the bound; then the public op path (`ssd3d_torch.ops`:
-   farthest_point_sample_from_dist, ball_query, ball_query_dilated) and its
-   launches.
+12. K2m, F-FPS over a given distance matrix (`csrc/ffps_dist.cu`), on its
+   block route and its cluster route (every cluster size whose slice the
+   registers hold; at the rule's size, or at 2 where the rule takes the
+   block route, both exchanges: K1's, and the CTA's key with its row
+   prefetched into L2) against the plain loop at the TPU entries' shapes
+   ([8, 1024, 1024] -> 256, [8, 4096, 4096] -> 512), an odd n, a 10 x 10
+   x 10 lattice whose picks tie, [1, 20000, 20000] (the block route's
+   scratch tier), a matrix with negative entries, signed zeros and NaNs,
+   a pair on either side of the card's L2 ([3 | 4, 2048, 2048] -> 256), a
+   row below the prefetch's 2,048 points ([4, 1536, 1536] -> 256) and more
+   clouds than clusters of 2 are resident ([128, 1024, 1024] -> 256, where
+   the cluster route runs in waves), picks equal, every variant timed
+   against the others in turns (back to back, with L2 flushed, and with
+   the matrix rewritten before each call) with the bound; then the public op
+   path (`ssd3d_torch.ops`: farthest_point_sample_from_dist, ball_query,
+   ball_query_dilated) and its launches by route.
 13. STD (`configs/kitti/std/std.yaml`, the PointsPool voxel pooler, full
    widths, f32, 100 proposals) at batch 4: K1 (the RCNN's D-FPS over each
    RoI's 6 x 6 x 6 voxel centres, whose picks tie), K3, K4 (the pooler's
@@ -301,7 +310,7 @@ from ssd3d_torch.parallel import steps as parallel_steps
 from ssd3d_torch.parallel.steps import Decisions
 from ssd3d_torch.train.trainer import Trainer
 from ssd3d_torch.utils import profiling, synth, synth_nuscenes, tf_bundle, tf_checkpoint
-from ssd3d_torch.utils.timing import cuda_ms
+from ssd3d_torch.utils.timing import cuda_ms, cuda_ms_cold, cuda_ms_each
 
 BATCH = 8
 N_POINTS = 16384
@@ -470,7 +479,8 @@ def path_routes(path: str) -> dict[str, dict[str, int]]:
     routes = {"fps": [fps_route(*shape) for shape in calls["fps"]],
               "ffps": [sampling.ffps_route(*shape) for shape in calls["ffps"]],
               "ball_query": [grouping.ball_query_route(n) for n in calls["ball_query"]],
-              "sa_fused": [sa_fused.sa_fused_route(*shape) for shape in calls["sa_fused"]]}
+              "sa_fused": [sa_fused.sa_fused_route(*shape) for shape in calls["sa_fused"]],
+              "ffps_dist": []}  # no model path calls K2m
     return {k: {r: v.count(r) for r in sorted(set(v))} for k, v in routes.items()}
 
 
@@ -2727,19 +2737,32 @@ def phase_two_stage_cli(config: str = "pointrcnn") -> dict:
 # K2m: F-FPS over a given matrix at the TPU entries' two shape classes (the
 # VMEM entry's [8, 1024, 1024] -> 256; the HBM entry's fusion-sampling
 # segment [<= 16, 4096, 4096] -> 512), an odd n, a lattice whose every pick
-# is a tie, and past the register tier's 16,384 points
+# is a tie, past the block route's register tier of 16,384 points, a
+# matrix of negative entries, signed zeros and NaNs, a pair that differs
+# only in whether the matrix fits in the H100's 50 MiB of L2 (48 and 64
+# MiB), a row length below the prefetch's 2,048 points
+# (`sampling.ffps_dist_exchange`), and more clouds than clusters of 2 are
+# resident (`sampling.ffps_dist_route` takes the block route)
 FFPS_DIST_SHAPES = (("VMEM entry", 8, 1024, 256, "random"),
                     ("HBM entry", 8, 4096, 512, "fused"),
                     ("odd n", 3, 1000, 100, "random"),
                     ("lattice ties", 4, 1000, 200, "lattice"),
-                    ("scratch tier", 1, 20000, 64, "random"))
+                    ("scratch tier", 1, 20000, 64, "random"),
+                    ("NaN and negative", 4, 3000, 300, "nan"),
+                    ("below L2", 3, 2048, 256, "random"),
+                    ("past L2", 4, 2048, 256, "random"),
+                    ("row border", 4, 1536, 256, "random"),
+                    ("block side", 128, 1024, 256, "random"))
 
 
 def dist_matrix(kind: str, b: int, n: int, gen: torch.Generator, dev) -> torch.Tensor:
     """A [b, n, n] f32 matrix of squared distances: of random 5-channel
-    vectors; of SA2-like fused vectors (xyz and 64 ReLU features); or of a
+    vectors; of SA2-like fused vectors (xyz and 64 ReLU features); of a
     10 x 10 x 10 integer lattice scaled by a power of two a cloud, whose
-    distances are exact, so that from every pick many points tie."""
+    distances are exact, so that from every pick many points tie; or ("nan")
+    random ones shifted by -2 (a third negative), with 1% of the entries
+    -0.0, 1% +0.0 and one in 200,000 NaN (a NaN reaches the running minima
+    after some tens of picks, and from then on wins every pick)."""
     if kind == "lattice":
         g = torch.stack(torch.meshgrid(*[torch.arange(10.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
         d = ((g[:, None] - g[None]) ** 2).sum(-1)
@@ -2748,20 +2771,65 @@ def dist_matrix(kind: str, b: int, n: int, gen: torch.Generator, dev) -> torch.T
     f = torch.randn(b, n, c, generator=gen).to(dev)
     if kind == "fused":
         f = torch.cat([f[..., :3] * 20, f[..., 3:].relu()], -1)
-    return torch.cdist(f, f).square_()
+    d = torch.cdist(f, f).square_()
+    if kind == "nan":
+        u = torch.rand(b, n, n, generator=gen).to(dev)
+        d = (d - 2.0).masked_fill_(u < 0.01, -0.0).masked_fill_((u >= 0.01) & (u < 0.02), 0.0)
+        d.masked_fill_(u > 1 - 5e-6, float("nan"))
+    return d
+
+
+def on_ffps_dist(route: str, size: int = 0, exchange: str = "prefetch"):
+    """K2m forced onto `route`, and the cluster route onto `size` CTAs and
+    `exchange` (one of `sampling.FFPS_DIST_EXCHANGES`)."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(sampling, "ffps_dist_route", lambda b, n: route))
+    stack.enter_context(mock.patch.object(sampling, "ffps_dist_cluster_size", lambda b, n: size))
+    stack.enter_context(mock.patch.object(sampling, "ffps_dist_exchange",
+                                          lambda b, n: exchange))
+    return stack
+
+
+def ffps_dist_variants(b: int, n: int) -> tuple[dict[str, tuple[str, int, str]], str]:
+    """K2m's variants at b clouds of n points, by label -> (route, size,
+    exchange): the block route; the cluster route at the rule's size (2
+    where the rule takes the block route: its clusters then run in waves)
+    with each exchange; at every other size whose slice the registers hold,
+    with the rule's exchange; and the label of the variant the rules take."""
+    rule = sampling.ffps_dist_route(b, n)
+    size, exchange = sampling.ffps_dist_cluster_size(b, n), sampling.ffps_dist_exchange(b, n)
+    variants = {"block": ("block", 0, "")}
+    for s in sampling.FFPS_DIST_CLUSTER_SIZES:
+        if not sampling.ffps_dist_cluster_plan(n, s)["ppt"]:
+            continue
+        for e in sampling.FFPS_DIST_EXCHANGES if s == (size or 2) else (exchange,):
+            variants[f"cluster {s} {e}"] = ("cluster", s, e)
+    chosen = "block" if rule == "block" else f"cluster {size} {exchange}"
+    return variants, chosen
 
 
 def phase_ffps_dist(report: list[dict]) -> dict:
-    """K2m against its plain version at FFPS_DIST_SHAPES, then the public op
-    path that runs it -> the path's launches; K2m's entry into `report`."""
+    """K2m on every route, cluster size and exchange against its plain
+    version at FFPS_DIST_SHAPES, timed route against route in turns; then the
+    public op path that runs it -> the path's launches; K2m's entry into
+    `report`."""
     log("== phase 12: K2m (F-FPS from a distance matrix) and the public op surface")
     dev, gen = torch.device(DEV), torch.Generator().manual_seed(12)
-    shapes = {}
+    shapes, rules = {}, {}
     for name, b, n, m, kind in FFPS_DIST_SHAPES:
         dist = dist_matrix(kind, b, n, gen, dev)
         want = fps_from_dist_plain(dist, m)
-        got = public_ops.farthest_point_sample_from_dist(dist, m)
-        check(torch.equal(got, want), f"K2m disagrees with plain at {name} {[b, n, n]} -> {m}")
+        variants, chosen = ffps_dist_variants(b, n)
+        rules[name] = chosen
+        for label, (route, size, exchange) in variants.items():
+            with on_ffps_dist(route, size, exchange):
+                before = dict(_build.FFPS_DIST.by_route)
+                got = public_ops.farthest_point_sample_from_dist(dist, m)
+                torch.cuda.synchronize()
+                check(_build.FFPS_DIST.by_route.get(route, 0) == before.get(route, 0) + 1,
+                      f"K2m {label} at {name}: launches by route {_build.FFPS_DIST.by_route}")
+            check(torch.equal(got, want),
+                  f"K2m {label} disagrees with plain at {name} {[b, n, n]} -> {m}")
         tied = 0
         if kind == "lattice":  # how many picks were ties on the plain loop's own values
             row = dist.gather(1, want.long()[:, :, None].expand(b, m, n))
@@ -2769,28 +2837,65 @@ def phase_ffps_dist(report: list[dict]) -> dict:
             top = run.amax(-1, keepdim=True)
             tied = int(((run == top).sum(-1) > 1).sum())
             check(tied >= b * (m - 1) // 2, f"only {tied} lattice picks were ties")
-        ppt = sampling.ffps_dist_ppt(n)
+        if kind == "nan":  # the NaNs reached the picks: from the first, one index repeats
+            nan_picks = int((want[:, 1:] == want[:, -1:]).sum())
+            check(nan_picks > b and bool(dist.isnan().any()), "no NaN reached the picks")
+        # in turns: every variant, then every variant again in reverse; each
+        # time back to back ("warm", `cuda_ms`: the rows a run reads stay in
+        # L2 for the next where they fit), with L2 flushed before each call
+        # ("cold", `cuda_ms_cold`: a caller that wrote other data since its
+        # matrix), and with the matrix rewritten in place before each call
+        # ("fresh": a caller whose producer just wrote it, its tail in L2)
+        rewrite = lambda: dist.mul_(1.0)  # noqa: E731  (bit for bit, NaNs and -0 too)
+        modes = {"warm": lambda f: cuda_ms(f, 5), "cold": lambda f: cuda_ms_cold(f, 5),
+                 "fresh": lambda f: cuda_ms_each(f, rewrite, 5)}
+        turns = {mode: {label: [] for label in variants} for mode in modes}
+        for label in [*variants, *reversed(variants)]:
+            with on_ffps_dist(*variants[label]):
+                fn = lambda: public_ops.farthest_point_sample_from_dist(dist, m)  # noqa: E731
+                for mode, timer in modes.items():
+                    turns[mode][label].append(timer(fn))
         # bytes: the m rows read once and the picks written; operations: a
         # min and a compare a point and pick
-        e = dict(shape=f"[{b}, {n}, {n}] -> {m}", tier="registers" if ppt else "global",
-                 ms=cuda_ms(lambda: public_ops.farthest_point_sample_from_dist(dist, m), 5),
+        e = dict(shape=f"[{b}, {n}, {n}] -> {m}", rule=chosen,
+                 ms=statistics.mean(turns["warm"][chosen]),
+                 cold_ms=statistics.mean(turns["cold"][chosen]),
+                 fresh_ms=statistics.mean(turns["fresh"][chosen]),
                  plain_ms=cuda_ms(lambda: fps_from_dist_plain(dist, m), 1),
                  **bound(4 * (b * m * n + b * m), 2 * b * m * n))
+        e["routes"] = {}
+        for label in variants:
+            r = e["routes"][label] = {}
+            for mode in modes:
+                t = statistics.mean(turns[mode][label])
+                key = "" if mode == "warm" else f"{mode}_"
+                r.update({f"{key}ms": t, f"{key}us_a_pick": 1e3 * t / m,
+                          f"{key}share": e["bound_ms"] / t, f"{key}turns": turns[mode][label]})
         shapes[name] = e
-        log(f"K2m {name} {e['shape']} ({kind}): picks equal to plain"
+        log(f"K2m {name} {e['shape']} ({kind}): picks equal to plain on "
+            f"{len(variants)} variants"
             + (f", {tied} of {b * (m - 1)} picks ties" if kind == "lattice" else "")
-            + f"; {e['tier']} tier; {e['ms']:.4f} ms ({1e3 * e['ms'] / m:.2f} us a pick) vs "
-              f"plain {e['plain_ms']:.3f} ms; bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-              f"{100 * e['bound_ms'] / e['ms']:.1f}%")
+            + (f", {nan_picks} picks the NaN's" if kind == "nan" else "")
+            + f"; plain {e['plain_ms']:.3f} ms; bound {e['bound_ms']:.4f} ms ({e['bound_by']}); "
+              f"the rule takes {chosen}; ms (us a pick, share of the bound; turns) warm / "
+              f"L2 cold / fresh")
+        for label, r in e["routes"].items():
+            log(f"  {label:>20}: " + " / ".join(
+                f"{r[k + 'ms']:.4f} ({r[k + 'us_a_pick']:.3f}, {100 * r[k + 'share']:.1f}%; "
+                + ", ".join(f"{t:.4f}" for t in r[k + "turns"]) + ")"
+                for k in ("", "cold_", "fresh_"))
+                + (" <- the rule" if label == chosen else ""))
         del dist
     main = shapes["HBM entry"]
     report.append(dict(name="ffps_dist", route="cuda", source="ssd3d_torch/csrc/ffps_dist.cu",
                        replaces="ssd3d/ops/pallas/fps.py:183 (ffps_pallas; ffps_pallas_hbm :291)",
                        launches=0, max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
                        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
-                       shape=f"HBM entry {main['shape']}",
+                       shape=f"HBM entry {main['shape']}", kernel_route=main["rule"],
                        other_shapes={k: v for k, v in shapes.items() if k != "HBM entry"},
-                       check="picks equal to the plain loop's (fps_from_dist_plain)"))
+                       routes=main["routes"],
+                       check="picks equal to the plain loop's (fps_from_dist_plain) on every "
+                             "route, cluster size and exchange"))
     # the path: the public ops a user calls, over a scan's SA2 segment
     dist = dist_matrix("fused", BATCH, 4096, gen, dev)
     xyz = torch.from_numpy(synthetic_scenes(2, N_POINTS, seed=12)["points"][..., :3]).to(dev)
@@ -2803,7 +2908,9 @@ def phase_ffps_dist(report: list[dict]) -> dict:
     launches["routes"] = _build.route_launches()
     log(f"kernel launches of the public op path (farthest_point_sample_from_dist on "
         f"[{BATCH}, 4096, 4096], ball_query and ball_query_dilated on two scans): {launches}")
+    rule_route = sampling.ffps_dist_route(BATCH, 4096)
     check(launches["ffps_dist"] == 1 and launches["ball_query"] == 2
+          and launches["routes"]["ffps_dist"] == {rule_route: 1}
           and sum(launches[k] for k in launches if k not in ("ffps_dist", "ball_query",
                                                                "routes")) == 0,
           f"the public op path launched {launches}")
@@ -4267,7 +4374,7 @@ def main() -> int:
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["name"] in ("fps", "ffps", "ball_query", "sa_fused"):
+        if entry["name"] in ("fps", "ffps", "ball_query", "sa_fused", "ffps_dist"):
             entry["launches_by_route"] = {p: n["routes"][entry["name"]] for p, n in paths.items()}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

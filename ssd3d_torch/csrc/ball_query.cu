@@ -517,13 +517,11 @@ cudaError_t launch_grid_route(const float* xyz, const float* queries, int* idx, 
     return cudaErrorInvalidValue;
   }
   const size_t smem = 4 * sizeof(unsigned short) * (size_t)n;
-  static bool ready = false;
-  if (!ready) {
+  {  // an attribute of the current card: set at every call
     const cudaError_t err =
         cudaFuncSetAttribute(grid_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)(4 * sizeof(unsigned short) * kGridMaxPoints));
     if (err != cudaSuccess) return err;
-    ready = true;
   }
   grid_build_kernel<<<b, kBuildThreads, smem, stream>>>(
       xyz, n, cell_min, cap, grids, cell_start, reinterpret_cast<float4*>(sorted));

@@ -328,16 +328,15 @@ cudaError_t cluster_config(const Plan& pl, int csize, int b, cudaLaunchAttribute
   return cudaSuccess;
 }
 
+// attributes of the current card, so set at every call, as a process may
+// launch on several
 cudaError_t prepare() {
-  static bool done = false;
-  if (done) return cudaSuccess;
   const void* f = reinterpret_cast<const void*>(ffps_cluster_kernel);
   cudaError_t err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kMaxSmem - kStaticSmem);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(f, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
-  done = err == cudaSuccess;
   return err;
 }
 

@@ -300,15 +300,24 @@ cudaLaunchConfig_t cluster_config(const ClusterPlan& pl, int b, int n, cudaLaunc
 }
 
 // The largest cluster size at which all b clusters are resident at once, or
-// 2 if none is (the clusters then run in waves). Occupancy answers are cached
-// by (instantiation, threads, size): one CTA an SM whatever n, so the
-// shared memory a CTA asks for does not change them.
+// 2 if none is (the clusters then run in waves). Occupancy answers, and the
+// attributes they need, are cached by (card, instantiation, threads, size):
+// one CTA an SM whatever n, so the shared memory a CTA asks for does not
+// change them; the attributes are the card's own. Past kMaxCards cards
+// nothing is cached.
+constexpr int kMaxCards = 16;
+
 cudaError_t choose_cluster(int b, int n, ClusterPlan* out) {
-  static int cache[5][kCtaThreads / 32 + 1][4];  // max active clusters + 1; 0 = not asked
+  // max active clusters + 1; 0 = not asked
+  static int cache[kMaxCards][5][kCtaThreads / 32 + 1][4];
+  int card = 0;
+  const cudaError_t dev_err = cudaGetDevice(&card);
+  if (dev_err != cudaSuccess) return dev_err;
   const int sizes[4] = {16, 8, 4, 2};
   for (int si = 0; si < 4; ++si) {
     const ClusterPlan pl = plan(n, sizes[si]);
-    int& known = cache[pl.log_ppt][pl.threads / 32][si];
+    int uncached = 0;
+    int& known = card < kMaxCards ? cache[card][pl.log_ppt][pl.threads / 32][si] : uncached;
     if (known == 0) {
       const void* fn = reinterpret_cast<const void*>(pl.fn);
       cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -110,8 +110,8 @@ class Kernel:
 
     `launches` goes up by one each time the kernel is launched, and nowhere
     else; `chip_smoke.py` reads it to show the main path went through it. A
-    kernel with routes (K1, K2, K3, K7) also counts each launch under the route the
-    caller names, in `by_route`."""
+    kernel with routes (K1, K2, K2m, K3, K7) also counts each launch under the route
+    the caller names, in `by_route`."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
         self.name = name
@@ -174,9 +174,11 @@ THREE_NN = Kernel("three_nn", "ssd3d_three_nn", [P, P, P, P, I, I, I, I])
 # both K7 routes (the last int: 0 FMA, 1 wgmma)
 SA_FUSED = Kernel("sa_fused", "ssd3d_sa_fused",
                   [P, P, P, P, P, I, I, I, I, I, P, P, P, I, P, P, P, P, I])
-# F-FPS over a given distance matrix (the last int: running minima a thread
-# in registers, 0 for the scratch buffer)
-FFPS_DIST = Kernel("ffps_dist", "ssd3d_ffps_dist", [P, P, P, I, I, I, I])
+# F-FPS over a given distance matrix, both routes (the five last ints: the
+# route, 0 one block a cloud, 1 a cluster a cloud; running minima a thread in
+# registers, 0 for the block route's scratch buffer; and the cluster route's
+# cluster size, threads a CTA and exchange)
+FFPS_DIST = Kernel("ffps_dist", "ssd3d_ffps_dist", [P, P, P, I, I, I, I, I, I, I, I])
 KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD, THREE_NN, SA_FUSED, FFPS_DIST)
 
 
@@ -191,8 +193,8 @@ def launches() -> dict[str, int]:
 
 
 def route_launches() -> dict[str, dict[str, int]]:
-    """Launches by route of the kernels that have routes (K1, K2, K3, K7)."""
-    return {k.name: dict(k.by_route) for k in (FPS, FFPS, BALL_QUERY, SA_FUSED)}
+    """Launches by route of the kernels that have routes (K1, K2, K3, K7, K2m)."""
+    return {k.name: dict(k.by_route) for k in (FPS, FFPS, BALL_QUERY, SA_FUSED, FFPS_DIST)}
 
 
 def dfps_cluster_size(b: int, n: int) -> int:
@@ -234,6 +236,22 @@ def ffps_max_clusters(n: int, c: int, size: int) -> int:
             raise RuntimeError(f"ssd3d_torch: F-FPS occupancy query failed: cudaError {-active}")
         _ffps_clusters[key] = active
     return _ffps_clusters[key]
+
+
+_ffps_dist_clusters: dict[tuple[int, int, int, int], int] = {}
+
+
+def ffps_dist_max_clusters(size: int, threads: int, ppt: int) -> int:
+    """How many of K2m's cluster-route clusters of `size` CTAs of `threads`
+    threads, `ppt` running minima a thread, are resident at once on the
+    current card (an occupancy query, cached by card; nothing is launched)."""
+    key = (torch.cuda.current_device(), size, threads, ppt)
+    if key not in _ffps_dist_clusters:
+        active = library().ssd3d_ffps_dist_max_clusters(size, threads, ppt)
+        if active < 0:
+            raise RuntimeError(f"ssd3d_torch: K2m occupancy query failed: cudaError {-active}")
+        _ffps_dist_clusters[key] = active
+    return _ffps_dist_clusters[key]
 
 
 def resolve_device(device: torch.device | str) -> torch.device:

@@ -203,25 +203,82 @@ def fps_from_dist_plain(dist: torch.Tensor, npoint: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
-# K2m (csrc/ffps_dist.cu): one block of 1,024 threads a cloud, each thread
-# keeping the running minima of its points t + k * 1024 in registers (up to
-# 16 a thread, n <= 16,384), past that in a scratch buffer [b, n].
+# K2m (csrc/ffps_dist.cu) has two routes. The cluster route: one cloud over a
+# cluster of 2 to 16 CTAs, one CTA an SM, CTA r owning a contiguous slice of
+# the columns and its threads the running minima in registers (up to 16 a
+# thread of 1,024), the argmax a key exchange across the cluster. The block
+# route (the first design), where no cluster size fits: one block of
+# 1,024 threads a cloud, each thread keeping the running minima of its points
+# t + k * 1024 in registers (up to 16 a thread, n <= 16,384), past that in a
+# scratch buffer [b, n].
 FFPS_DIST_THREADS = 1024
 FFPS_DIST_MAX_PPT = 16
+FFPS_DIST_CLUSTER_SIZES = (16, 8, 4, 2)
+# the cluster route's exchanges (the kernel's `exchange`): "warps", K1's,
+# every warp sends its key; "prefetch", the CTA's best key sent by one warp,
+# with the CTA's winner's row prefetched into L2
+FFPS_DIST_EXCHANGES = ("warps", "prefetch")
+# clouds of at least this many points (rows of 8 KB) take "prefetch"
+FFPS_DIST_PREFETCH_N = 2048
 
 
 def ffps_dist_ppt(n: int) -> int:
-    """K2m's running minima a thread for clouds of n points: the least power
-    of two that covers n over 1,024 threads, or 0 (the scratch buffer) past
-    16."""
+    """K2m's running minima a thread for clouds (block route) or slices
+    (cluster route) of n points: the least power of two that covers n over
+    1,024 threads, or 0 (the block route's scratch buffer) past 16."""
     ppt = 1
     while ppt * FFPS_DIST_THREADS < n:
         ppt *= 2
     return ppt if ppt <= FFPS_DIST_MAX_PPT else 0
 
 
+def ffps_dist_cluster_plan(n: int, size: int) -> dict:
+    """The cluster route's CTA for clouds of n points over `size` CTAs: points
+    a CTA (`slice`, CTA r owning columns r * slice on), running minima a
+    thread (`ppt`, 0 where the slice is past the registers' 16 x 1,024), and
+    threads (the fewest warps that cover the slice at `ppt` a thread)."""
+    slice_ = -(-n // size)
+    ppt = ffps_dist_ppt(slice_)
+    threads = -(-slice_ // (32 * ppt)) * 32 if ppt else 0
+    return dict(slice=slice_, ppt=ppt, threads=threads)
+
+
+def ffps_dist_cluster_size(b: int, n: int) -> int:
+    """K2m's cluster size for b clouds of n points: the largest of 16, 8, 4
+    and 2 whose slice the registers hold and at which all b clusters are
+    resident at once on this card (an occupancy query, nothing launched);
+    0 where none is."""
+    for size in FFPS_DIST_CLUSTER_SIZES:
+        plan = ffps_dist_cluster_plan(n, size)
+        if plan["ppt"] and _build.ffps_dist_max_clusters(size, plan["threads"],
+                                                         plan["ppt"]) >= b:
+            return size
+    return 0
+
+
+def ffps_dist_route(b: int, n: int) -> str:
+    """K2m's route for b clouds of n points: "cluster" where a cluster size
+    fits (`ffps_dist_cluster_size`), else "block". The cluster route was
+    the faster at every shape where its clusters are all resident, and the
+    block route where they would run in waves ([128, 1024, 1024]; PERF.md
+    §6)."""
+    return "cluster" if ffps_dist_cluster_size(b, n) else "block"
+
+
+def ffps_dist_exchange(b: int, n: int) -> str:
+    """The cluster route's exchange for b clouds of n points (one of
+    FFPS_DIST_EXCHANGES): "prefetch" for rows of FFPS_DIST_PREFETCH_N points
+    or more, whose read from HBM outlasts the CTA's own reduction and the
+    prefetch; "warps", K1's, for shorter rows. The matrix's size against the
+    L2 does not decide it: a matrix its producer has just written is read
+    from HBM all the same from 48 MiB on (PERF.md §6)."""
+    return "prefetch" if n >= FFPS_DIST_PREFETCH_N else "warps"
+
+
 @_build.on_input_device
 def _ffps_dist_cuda(dist: torch.Tensor, npoint: int) -> torch.Tensor:
+    """K2m on the route `ffps_dist_route` picks (tests and timing patch it,
+    `ffps_dist_cluster_size` or `ffps_dist_exchange` to force one)."""
     if dist.dtype != torch.float32:
         raise ValueError(f"farthest_point_sample_from_dist: the kernel takes float32, "
                          f"got {dist.dtype}")
@@ -230,10 +287,24 @@ def _ffps_dist_cuda(dist: torch.Tensor, npoint: int) -> torch.Tensor:
     out = torch.empty(b, npoint, dtype=torch.int32, device=dist.device)
     if out.numel() == 0:
         return out
-    ppt = ffps_dist_ppt(n)
-    scratch = None if ppt else torch.empty(b, n, dtype=torch.float32, device=dist.device)
-    _build.FFPS_DIST(dist.data_ptr(), out.data_ptr(),
-                     scratch.data_ptr() if scratch is not None else None, b, n, npoint, ppt)
+    route = ffps_dist_route(b, n)
+    if route == "cluster":
+        size = ffps_dist_cluster_size(b, n)
+        if not size:
+            raise ValueError(f"farthest_point_sample_from_dist: no cluster size fits {b} "
+                             f"clouds of {n} points")
+        plan = ffps_dist_cluster_plan(n, size)
+        exchange = FFPS_DIST_EXCHANGES.index(ffps_dist_exchange(b, n))
+        _build.FFPS_DIST(dist.data_ptr(), out.data_ptr(), None, b, n, npoint, 1, plan["ppt"],
+                         size, plan["threads"], exchange, route=route)
+    elif route == "block":
+        ppt = ffps_dist_ppt(n)
+        scratch = None if ppt else torch.empty(b, n, dtype=torch.float32, device=dist.device)
+        _build.FFPS_DIST(dist.data_ptr(), out.data_ptr(),
+                         scratch.data_ptr() if scratch is not None else None, b, n, npoint, 0,
+                         ppt, 0, 0, 0, route=route)
+    else:
+        raise ValueError(f"farthest_point_sample_from_dist: unknown route {route!r}")
     return out
 
 

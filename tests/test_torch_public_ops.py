@@ -52,11 +52,45 @@ def _random_dist(seed: int, b: int, n: int, c: int = 5) -> np.ndarray:
     return ((f[:, :, None, :] - f[:, None, :, :]) ** 2).sum(-1).astype(np.float32)
 
 
+def _signed_dist(seed: int, b: int, n: int, kind: str) -> np.ndarray:
+    """Random squared distances shifted by -2 (a third of them negative), and
+    for "signed zeros" 10% of the entries -0.0 and 10% +0.0 (ties at 0 that
+    -0 must not break), for "nan" also a few NaNs, which enter the running
+    minima and from then on win every pick at their lowest index."""
+    rng = np.random.RandomState(seed + 1)
+    dist = _random_dist(seed, b, n) - np.float32(2.0)
+    if kind in ("signed zeros", "nan"):
+        u = rng.rand(*dist.shape)
+        dist[u < 0.1] = -0.0
+        dist[(u >= 0.1) & (u < 0.2)] = 0.0
+    if kind == "nan":
+        dist[rng.rand(*dist.shape) < 2e-4] = np.nan
+    return dist
+
+
+def _zero_ties_of_both_signs(dist: np.ndarray, picks: np.ndarray) -> bool:
+    """Whether, along the picks, some step's largest running minimum is 0,
+    held by several points with both -0.0 and +0.0 among them."""
+    d, idx = torch.from_numpy(dist), torch.from_numpy(picks).long()
+    md = torch.full(d.shape[:2], float("inf"))
+    for i in range(picks.shape[1] - 1):
+        md = torch.minimum(md, d[torch.arange(d.shape[0]), idx[:, i]])
+        for row in md:
+            zeros = row[row == 0]
+            if row.max() == 0 and zeros.signbit().any() and not zeros.signbit().all():
+                return True
+    return False
+
+
 @pytest.mark.parametrize("kind,b,n,m", [("random", 2, 300, 64), ("random", 1, 999, 100),
-                                        ("lattice", 2, 216, 128), ("asymmetric", 2, 200, 50)])
+                                        ("lattice", 2, 216, 128), ("asymmetric", 2, 200, 50),
+                                        ("negative", 2, 300, 64), ("signed zeros", 2, 300, 80),
+                                        ("nan", 3, 300, 64)])
 def test_farthest_point_sample_from_dist_matches_jax(kind, b, n, m):
     if kind == "lattice":
         dist = _lattice_dist(b, 6)
+    elif kind in ("negative", "signed zeros", "nan"):
+        dist = _signed_dist(n, b, n, kind)
     else:
         dist = _random_dist(n, b, n)
         if kind == "asymmetric":  # the row of the pick is read, not its column
@@ -66,7 +100,13 @@ def test_farthest_point_sample_from_dist_matches_jax(kind, b, n, m):
     got = ops.farthest_point_sample_from_dist(_t(dist), m)
     assert got.dtype == torch.int32 and got.shape == (b, m)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert len(np.unique(want[0])) == m  # picks are distinct
+    if kind == "nan":  # a NaN reached the picks: from then on one index repeats
+        assert (want[:, 1:] == want[:, -1:]).sum() > b
+    elif kind == "signed zeros":  # a pick among running minima of 0, of both signs
+        assert _zero_ties_of_both_signs(dist, want)
+    elif kind != "negative":  # a negative diagonal lets a point be picked again
+        assert len(np.unique(want[0])) == m  # picks are distinct
+    assert np.array_equal(got.numpy(), sampling.fps_from_dist_plain(_t(dist), m).numpy())
 
 
 def test_farthest_point_sample_from_dist_takes_any_float_dtype_on_the_cpu():
@@ -83,6 +123,62 @@ def test_farthest_point_sample_from_dist_takes_any_float_dtype_on_the_cpu():
 def test_ffps_dist_ppt_covers_the_cloud():
     assert [sampling.ffps_dist_ppt(n) for n in (1, 1024, 1025, 4096, 16384, 16385)] == [
         1, 1, 2, 4, 16, 0]
+
+
+@pytest.mark.parametrize("n,size", [(1, 16), (20, 16), (1000, 16), (1024, 8), (4096, 16),
+                                    (4096, 8), (20000, 16), (20000, 2), (32768, 2), (32769, 2),
+                                    (262144, 16), (262145, 16)])
+def test_ffps_dist_cluster_plan_covers_the_cloud(n, size):
+    """The cluster route's CTA: `size` slices of `slice` columns cover the
+    cloud, each CTA's threads at `ppt` a thread cover its slice, in whole
+    warps of at most 1,024 threads; the register tier reaches 16 CTAs x 1,024
+    threads x 16 = 262,144 points, and a slice past 16,384 points does not fit."""
+    plan = sampling.ffps_dist_cluster_plan(n, size)
+    assert plan["slice"] * size >= n > (plan["slice"] - 1) * size
+    if plan["slice"] > sampling.FFPS_DIST_THREADS * sampling.FFPS_DIST_MAX_PPT:
+        assert plan["ppt"] == 0
+        return
+    assert plan["ppt"] in (1, 2, 4, 8, 16)
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= sampling.FFPS_DIST_THREADS
+    # the fewest points a thread, then the fewest warps, that cover the slice
+    assert plan["ppt"] == 1 or plan["ppt"] // 2 * sampling.FFPS_DIST_THREADS < plan["slice"]
+    assert plan["threads"] * plan["ppt"] >= plan["slice"] > (plan["threads"] - 32) * plan["ppt"]
+
+
+@pytest.mark.parametrize("b,n,want", [(1, 4096, ("cluster", 16)), (8, 4096, ("cluster", 8)),
+                                      (16, 4096, ("cluster", 8)), (17, 4096, ("cluster", 4)),
+                                      (33, 4096, ("cluster", 4)), (34, 4096, ("cluster", 2)),
+                                      (66, 4096, ("cluster", 2)), (67, 4096, ("block", 0)),
+                                      (7, 262144, ("cluster", 16)), (8, 262144, ("block", 0)),
+                                      (1, 300000, ("block", 0))])
+def test_ffps_dist_route_rule(monkeypatch, b, n, want):
+    """K2m's route: the cluster route at the largest size whose slice the
+    registers hold and whose b clusters are all resident (a stand-in for the
+    card's occupancy: 7 clusters of 16, 16 of 8, 33 of 4, 66 of 2), else the
+    block route; a pure function of (b, n) and the occupancy query."""
+    resident = {16: 7, 8: 16, 4: 33, 2: 66}
+    asked = []
+    monkeypatch.setattr(_build, "ffps_dist_max_clusters",
+                        lambda size, threads, ppt: asked.append((size, threads, ppt))
+                        or resident[size])
+    got = (sampling.ffps_dist_route(b, n), sampling.ffps_dist_cluster_size(b, n))
+    assert got == want
+    for size, threads, ppt in asked:  # each query is of a plan that fits
+        assert (threads, ppt) == tuple(sampling.ffps_dist_cluster_plan(n, size)[k]
+                                       for k in ("threads", "ppt"))
+
+
+@pytest.mark.parametrize("b,n,want", [(8, 1024, "warps"), (4, 1536, "warps"),
+                                      (1, 2047, "warps"), (3, 2048, "prefetch"),
+                                      (4, 2048, "prefetch"), (8, 4096, "prefetch"),
+                                      (1, 20000, "prefetch")])
+def test_ffps_dist_exchange_rule(b, n, want):
+    """The cluster route's exchange: K1's for rows shorter than 2,048
+    points, else the CTA's key with its row prefetched into L2, whatever
+    the matrix's size against the L2 ([3, 2048, 2048] is 48 MiB, [4, 2048,
+    2048] 64)."""
+    assert sampling.ffps_dist_exchange(b, n) == want
+    assert want in sampling.FFPS_DIST_EXCHANGES
 
 
 def test_farthest_point_sample_with_preidx_matches_jax():
@@ -213,30 +309,82 @@ def jgeometry_iou(bev):
     return aabb_iou(jnp.asarray(bev), jnp.asarray(bev))
 
 
+# K2m's variants on the card: the block route; the cluster route at every
+# size with the CTA's key and its row's prefetch, and at 16 with K1's
+# exchange
+K2M_VARIANTS = [("block", 0, ""), ("cluster", 16, "prefetch"), ("cluster", 16, "warps"),
+                ("cluster", 8, "prefetch"), ("cluster", 4, "prefetch"), ("cluster", 2, "prefetch")]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("route,size,exchange", K2M_VARIANTS)
 @pytest.mark.parametrize("kind,b,n,m", [("random", 8, 1024, 256), ("random", 3, 1000, 100),
                                         ("lattice", 2, 216, 128), ("asymmetric", 2, 999, 64),
-                                        ("random", 1, 20000, 64)])
-def test_ffps_dist_kernel_equals_plain(cuda, kind, b, n, m):
-    """K2m's picks equal the plain loop's, on both tiers (registers up to
-    16,384 points, the scratch buffer past them), and it counts its
-    launches."""
+                                        ("random", 1, 20000, 64), ("fused", 8, 4096, 512),
+                                        ("nan", 4, 1000, 300)])
+def test_ffps_dist_kernel_equals_plain(cuda, monkeypatch, kind, b, n, m, route, size, exchange):
+    """K2m's picks equal the plain loop's on every route: the block route on
+    both tiers (registers up to 16,384 points, the scratch buffer past
+    them), the cluster route at every cluster size and exchange; NaNs,
+    negative entries and signed zeros included. Each launch counts under its
+    route."""
     if kind == "lattice":
         dist = _t(_lattice_dist(b, 6))
-    elif n > 4096:  # a [1, 20000, 20000] matrix is 1.6 GB: made on the card
-        f = torch.randn(b, n, 4, device=cuda, generator=torch.Generator(cuda).manual_seed(n))
+    elif kind == "nan":
+        dist = _t(_signed_dist(n, b, n, "nan"))
+    elif n > 2048:  # a [1, 20000, 20000] matrix is 1.6 GB: made on the card
+        f = torch.randn(b, n, 67 if kind == "fused" else 4, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(n))
         dist = torch.cdist(f, f).square_()
     else:
         dist = _t(_random_dist(n, b, n))
         if kind == "asymmetric":
             dist = dist * torch.rand(dist.shape, generator=torch.Generator().manual_seed(1))
     dist = dist.to(cuda)
-    before = _build.FFPS_DIST.launches
+    assert route == "block" or sampling.ffps_dist_cluster_plan(n, size)["ppt"]
+    monkeypatch.setattr(sampling, "ffps_dist_route", lambda b_, n_: route)
+    monkeypatch.setattr(sampling, "ffps_dist_cluster_size", lambda b_, n_: size)
+    monkeypatch.setattr(sampling, "ffps_dist_exchange", lambda b_, n_: exchange)
+    before = dict(_build.FFPS_DIST.by_route)
     got = ops.farthest_point_sample_from_dist(dist, m)
     torch.cuda.synchronize()
-    assert _build.FFPS_DIST.launches == before + 1
+    assert _build.FFPS_DIST.by_route == {**before, route: before.get(route, 0) + 1}
     want = sampling.fps_from_dist_plain(dist, m)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["farthest_point_sample_from_dist", "farthest_point_sample",
+                                "farthest_point_sample_features", "ball_query"])
+def test_kernels_run_on_a_second_card_in_one_process(cuda, op):
+    """A kernel whose launch needs attributes of its function (a large
+    dynamic shared memory, clusters of 16: K2m's and K1's cluster routes,
+    K2's, K3's grid) sets them on each card it runs on: called on card 0 and
+    then on card 1 in one process, it gives card 0's answer on both, and
+    K2m the plain loop's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs in one process")
+    gen = torch.Generator().manual_seed(5)
+    if op == "farthest_point_sample_from_dist":
+        f = torch.randn(2, 2048, 5, generator=gen)
+        args = (torch.cdist(f, f).square_(), 128)  # clusters of 16
+    elif op == "farthest_point_sample":
+        args = (torch.randn(2, 4096, 3, generator=gen) * 10, 512)
+    elif op == "farthest_point_sample_features":
+        args = (torch.randn(2, 4096, 67, generator=gen), 256)
+    else:
+        # the grid route, its build past 48 KB of shared memory
+        xyz = torch.rand(2, 16384, 3, generator=gen) * 40
+        args = (0.8, 32, xyz, xyz[:, :1024].contiguous())
+    fn = getattr(ops, op)
+    on = [fn(*(a.to(f"cuda:{k}") if isinstance(a, torch.Tensor) else a for a in args))
+          for k in (0, 1)]
+    on = [tuple(o) if isinstance(o, tuple) else (o,) for o in on]
+    assert all(o.device == torch.device("cuda:1") for o in on[1])
+    for a, b in zip(*on):
+        assert torch.equal(a.cpu(), b.cpu())
+    if op == "farthest_point_sample_from_dist":
+        assert torch.equal(on[1][0].cpu(), sampling.fps_from_dist_plain(*args))
 
 
 @pytest.mark.cuda
