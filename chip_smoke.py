@@ -32,7 +32,12 @@ Nineteen phases, each of which raises on failure (no error is caught):
    its shape takes; prints scans/s at batch 8 and the median batch-1
    latency, and scans/s and a profile with K1 on each of its routes and
    with K2 and K3 on their first designs' routes (one block a cloud; brute
-   force).
+   force). The NMS is one K8 launch: K8 is held bit for bit to the plain
+   sweep (`nms.nms_keep_plain`, the parent's host-driven loop, on the card)
+   on the forward's suppress matrix, under set_sync_debug_mode("error"), and
+   timed; the pass's remaining synchronizing operations are counted
+   (`count_syncs`, logged); and scans/s are read with K8 and K9 and with
+   their plain versions (`plain_loops`, a switch of this script), in turns.
 4. The card against the CPU on one scan: the kernel path on the GPU and the
    plain path on the CPU, same weights, compared pick by pick and box by box.
 5. The training path: the flagship train step (`train_entry`, batch 8 =
@@ -71,7 +76,10 @@ Nineteen phases, each of which raises on failure (no error is caught):
    peak memory, a profile; then at batch 1, 2, 4, 8 and 16 the median of
    nine timed passes and the device busy time of a profiled one, and the
    fixed and per-scan costs fitted to them. The batch of 4 is profiled
-   again with K1 on its one-block route and with K3 on brute force.
+   again with K1 on its one-block route and with K3 on brute force. K8 (the
+   proposal NMS and the final NMS, two launches a forward) is held to the
+   plain sweep on the matrices of batch 1, 4 and 16, timed, with the syncs
+   and the in-turns rates as in phase 3.
 9. PointRCNN on the card against the CPU on one scan: RPN picks, head
    outputs, candidates, and the proposal NMS's keep sets (a candidate kept
    on one leg only must be a near-tie on the CPU's values); then the card's
@@ -121,7 +129,8 @@ Nineteen phases, each of which raises on failure (no error is caught):
    RoI's 6 x 6 x 6 voxel centres, whose picks tie), K3, K4 (the pooler's
    gathers), K6 and K7 (SA1 over 216 voxel centres, both routes) against
    their plain versions on the inputs of one forward; inference through
-   `two_stage_entry(config="std")` with its launches and routes, scans/s,
+   `two_stage_entry(config="std")` with its launches and routes (K8 held
+   to the plain sweep at both of its NMS, its syncs counted), scans/s,
    batch-1 latency, device busy time and peak memory; then card against
    CPU on one scan as phase 9, the card's voxel ids replayed too.
 14. STD's stage 2 (`std_stage2.yaml`) at batch 4 from stage 1's weights:
@@ -141,7 +150,8 @@ Nineteen phases, each of which raises on failure (no error is caught):
    frame) and the loader budgets to 16,384 points: K1, K2, K3 (both routes;
    the grid's cell grown past the outer radius over the +-50 m range) and
    K4 against their plain versions on the inputs of one forward at batch 4;
-   inference at batch 4 (launches by kernel and route) and at batch 1, 2
+   inference at batch 4 (launches by kernel and route; K8 held to the plain
+   sweep at the decode's 40 rows, the syncs counted) and at batch 1, 2
    and 4 (scans/s, batch-1 latency, device busy time, peak memory); one
    scan budgeted to 65,536 points (K1's slice route, K3's brute force)
    against the plain versions and timed; card against CPU at f32 on one
@@ -154,8 +164,13 @@ Nineteen phases, each of which raises on failure (no error is caught):
 17. The flagship with attention grouping on SA1 and SA2 (`entry.flagship(
    attention=ATTENTION_LAYERS)`, bf16, full widths and depth): inference at
    batch 8 (launches by kernel and route: K3 at SA3 and CG-SA only; scans/s,
-   batch-1 latency, device busy, peak memory), each SA1 attention query
-   ([8, 4096] x [8, 16384], one a radius) timed with its kernel launches;
+   batch-1 latency, device busy, peak memory; the syncs counted; scans/s
+   with K9 and with the plain query, in turns); K9 held bit
+   for bit to the plain query at each of SA1's and SA2's three radii, on
+   its first chunk of queries, on its chosen tier and with every ball
+   streaming, under set_sync_debug_mode("error"), both timed with the
+   bound; each whole attention query (keys and K9) timed with its kernel
+   launches;
    card against CPU on one scan at f32 (every attention row equal, or a
    near-tie of the CPU's keys then taken from the card, `AttentionReplay`;
    picks equal, values within F32_TOL); the bf16 train step at batch 8
@@ -177,13 +192,17 @@ Nineteen phases, each of which raises on failure (no error is caught):
    iterations, a checkpoint each) and a single process resuming each.
 19. The kernels as `torch.library` custom ops and what they make possible:
    (a) `torch.library.opcheck` of each op's CUDA registration at a shape of
-   its path; (b) the flagship exported by `bin.export --symbolic_batch`
+   its path, K8 and K9 included; (b) the flagship exported by
+   `bin.export --symbolic_batch`
    from a checkpoint of its seed-0 weights, loaded in a process that
    imports only `ssd3d_torch.ops` and run at batch 1 and 8, every output
    bit for bit live `infer`'s and every kernel's launches live's, then
-   live and exported scans/s at batch 8 in turns; (c) PointRCNN and STD
-   exported at batch 4, loaded, equal to live with live's launches, with
-   each trace's seconds and artifact's bytes; (d) the flagship's weights
+   live and exported scans/s at batch 8 in turns; (c) the attention
+   flagship exported with a symbolic batch and loaded, equal to live bit
+   for bit at batch 1 and 8; PointRCNN and STD exported at batch 4,
+   loaded, equal to live with live's launches, each NMS one
+   `ssd3d.nms_keep` node of the graph, with each trace's seconds, graph
+   nodes and artifact's bytes; (d) the flagship's weights
    written as a reference TF checkpoint (`write_tf_checkpoint`, no
    TensorFlow on the card), converted by `utils.tf_checkpoint` leaf for
    leaf, `bin.evaluate --restore_tf_checkpoint` on a synthetic tree equal
@@ -203,8 +222,11 @@ one step with the training options, phase 15; nuScenes inference at batch 4
 and at 65,536 points, one nuScenes train step and nuScenes' CLI chain,
 phase 16; attention inference and its train step, phase 17; rank 0's dp
 and fsdp train steps, phase 18; the loaded flagship artifact at batch 8,
-the PointRCNN and STD artifacts, and the reference checkpoint's evaluate
-and train, phase 19), `launches` is their sum;
+the loaded attention artifact at batch 8, the PointRCNN and STD
+artifacts, and the reference checkpoint's evaluate and train, phase 19),
+`launches` is their sum; K8's (`nms_keep`) times are of PointRCNN's
+proposal sweep at batch 4 and `other_shapes` holds every path's matrix
+it was held at, K9's (`ball_query_attention`) of its slowest SA chunk;
 times and bounds are of the shape in `shape`
 (K1's, K2's and K3's on the route that shape takes; `routes` holds every
 route's times at each shape of theirs, and `launches_by_route` their
@@ -234,6 +256,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+from collections import Counter
 from pathlib import Path
 from unittest import mock
 
@@ -277,7 +301,7 @@ from ssd3d_torch.models import two_stage
 from ssd3d_torch.nn import modules
 from ssd3d_torch.nn.layers import GroupNorm
 from ssd3d_torch.nn.modules import ffps_segments
-from ssd3d_torch.ops import _build, grouping, interpolate, sa_fused, sampling
+from ssd3d_torch.ops import _build, grouping, interpolate, nms, sa_fused, sampling
 from ssd3d_torch.ops.grouping import (
     ball_query_multi,
     ball_query_multi_plain,
@@ -491,6 +515,127 @@ def check_routes(what: str, path: str) -> dict[str, dict[str, int]]:
     log(f"launches by route in {what}: {got}")
     check(got == want, f"{what}: launches by route {got}, want {want}")
     return got
+
+
+# ------------------------------------------------------------ K8 and K9
+
+# K8 at the suppress matrices that each path's forward handed it, by path and
+# shape (`hold_k8`); main() reports them as the nms_keep entry, headed by
+# PointRCNN's proposal sweep at batch 4
+K8_SHAPES: dict[str, dict] = {}
+K8_HEADLINE = "PointRCNN proposals, batch 4"
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """torch.cuda.set_sync_debug_mode("error") while the context holds: a K8
+    or K9 call that synchronized the host with the card would raise."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def count_syncs(fn, what: str) -> int:
+    """The synchronizing CUDA operations of one fn(), one warning each under
+    set_sync_debug_mode("warn"), logged with their most frequent call sites:
+    a count, not a requirement."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+    log(f"{what}: {len(syncs)} synchronizing operations left in one pass (set_sync_debug_mode "
+        f"warn); most frequent sites: {sites.most_common(5)}")
+    return len(syncs)
+
+
+def plain_loops(sweep: bool = True, query: bool = True):
+    """K8 (`sweep`) and K9 (`query`) patched to their plain versions on the
+    card: the host-driven keep sweep and the attention query with its host
+    read, the parent's behaviour, so that a path runs both ways in one call.
+    A switch of this script only: the CUDA registrations look the wrappers
+    up at call time."""
+    stack = contextlib.ExitStack()
+    if sweep:
+        stack.enter_context(mock.patch.object(nms, "_nms_keep_cuda", nms.nms_keep_plain))
+    if query:
+        stack.enter_context(mock.patch.object(grouping, "_ball_query_attention_cuda",
+                                              grouping.ball_query_attention_plain))
+    return stack
+
+
+def in_turns(fn, points: torch.Tensor, what: str, passes: int, sweep: bool = True) -> dict:
+    """Scans/s of `passes` passes of fn(points) with K8 and K9 and with the
+    plain versions (`plain_loops`: the attention query's, and the sweep's
+    unless `sweep` is False), in turns: plain, kernels, kernels, plain."""
+    b, rates = points.shape[0], {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        with plain_loops(sweep) if which == "plain" else contextlib.nullcontext():
+            fn(points)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(passes):
+                fn(points)
+            torch.cuda.synchronize()
+            rates[which].append(b * passes / (time.perf_counter() - t0))
+    log(f"{what}, scans/s in turns over {passes} passes each: the plain "
+        f"{'sweep and query' if sweep else 'query'} "
+        f"{rates['plain'][0]:.2f} / {rates['plain'][1]:.2f}, K8 and K9 {rates['kernels'][0]:.2f} "
+        f"/ {rates['kernels'][1]:.2f} ({statistics.fmean(rates['kernels']) / statistics.fmean(rates['plain']):.2f}x)")
+    return rates
+
+
+@contextlib.contextmanager
+def recording_nms():
+    """Every suppress matrix that the NMS calls in the context hand K8 (`nms.nms_keep`), cloned."""
+    calls, real = [], nms.nms_keep
+
+    def record(suppress):
+        calls.append(suppress.clone())
+        return real(suppress)
+
+    with mock.patch.object(nms, "nms_keep", record):
+        yield calls
+
+
+def hold_k8(name: str, suppress: torch.Tensor, timed: bool = True) -> dict:
+    """K8 at one suppress matrix of a path: its keep mask bit for bit the
+    plain sweep's (`nms_keep_plain`, the parent's loop, run on the card) with
+    K8 under set_sync_debug_mode("error"), and `_greedy_keep`'s idx and valid
+    equal with K8 and with the plain sweep; with `timed`, both times
+    (`cuda_ms`) and the bound: the function reads the matrix's upper
+    triangle (the entries on and below the diagonal are ignored) and writes
+    the keep mask. K8's packed words are scratch of its design, not counted."""
+    r, k = suppress.shape[:2]
+    with sync_errors():
+        got = nms.nms_keep(suppress)
+    want = nms.nms_keep_plain(suppress)
+    check(torch.equal(got, want), f"K8 at {name} {list(suppress.shape)}: keep differs from the "
+          f"plain sweep in {int((got != want).sum())} candidates")
+    order = torch.arange(k, device=suppress.device).expand(r, k)
+    with_k8 = nms._greedy_keep(order, suppress, 100)
+    with plain_loops():
+        with_plain = nms._greedy_keep(order, suppress, 100)
+    check(all(torch.equal(a, b) for a, b in zip(with_k8, with_plain)),
+          f"_greedy_keep at {name} differs with K8 and with the plain sweep")
+    out = dict(shape=f"suppress [{r}, {k}, {k}]", kept=int(got.sum()), candidates=r * k)
+    if timed:
+        out["ms"] = cuda_ms(lambda: nms.nms_keep(suppress), 10)
+        out["plain_ms"] = cuda_ms(lambda: nms.nms_keep_plain(suppress), 2 if k > 512 else 5)
+        out.update(bound(r * k * (k - 1) // 2 + r * k, 0))
+    K8_SHAPES[name] = out
+    log(f"K8 at {name}, {out['shape']}: keep bit for bit the plain sweep's ({out['kept']} of "
+        f"{r * k} kept), no sync" + (f"; {out['ms']:.4f} ms vs plain {out['plain_ms']:.3f} ms, "
+                                    f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})"
+                                    if timed else ""))
+    return out
 
 
 # ----------------------------------------------------------------- phase 1
@@ -865,6 +1010,8 @@ def phase_main_path(scans: torch.Tensor) -> dict:
     check(launches["scatter_add"] == 0, "inference launched the gather's backward")
     check(launches["three_nn"] == 0 and launches["sa_fused"] == 0,
           "3DSSD launched a PointRCNN kernel")
+    check(launches["nms_keep"] == 1 and launches["ball_query_attention"] == 0,
+          f"the decode's NMS is one K8 launch, and no attention query runs: {launches}")
     # K1, K2, K3 on the route each call's shape takes
     launches["routes"] = check_routes("3DSSD inference", "3DSSD")
     valid = det["valid"]
@@ -875,8 +1022,13 @@ def phase_main_path(scans: torch.Tensor) -> dict:
     check(bool((valid.sum(-1) <= 100).all() and valid.any()),
           "a scan has more than 100 boxes, or no scan has any")
     log(f"valid boxes per scan: {valid.sum(-1).tolist()}")
+    with recording_nms() as calls:
+        infer(scans)
+    hold_k8(f"the flagship's decode, batch {BATCH}", calls[0])
+    count_syncs(lambda: infer(scans), f"flagship inference at batch {BATCH}")
 
     iters = 10
+    in_turns(infer, scans, f"flagship inference at batch {BATCH}", iters)
     infer(scans)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()  # the peak of inference, not of phase 2's plain versions
@@ -1607,7 +1759,9 @@ def phase_two_stage() -> dict:
     torch.cuda.synchronize()
     launches = _build.launches()
     log(f"kernel launches in one PointRCNN forward: {launches}")
-    want = dict(three_nn=4, sa_fused=2, fps=6, ffps=0, scatter_add=0)
+    # the proposal NMS and the final NMS: one K8 launch each
+    want = dict(three_nn=4, sa_fused=2, fps=6, ffps=0, scatter_add=0, nms_keep=2,
+                ball_query_attention=0)
     check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
     check(launches["ball_query"] > 0 and launches["gather"] > 0, "K3 or K4 was not launched")
     # the RPN's SA1-SA4 over 4 clouds, the RCNN's SA1-SA2 over 400
@@ -1623,6 +1777,12 @@ def phase_two_stage() -> dict:
           "a scan has more than 100 proposals, or no scan has any")
     log(f"boxes per scan {det['valid'].sum(-1).tolist()}, proposals per scan "
         f"{det['proposals_valid'].sum(-1).tolist()}")
+    with recording_nms() as calls:
+        fn(points)
+    hold_k8(K8_HEADLINE, calls[0])
+    hold_k8(f"PointRCNN's final NMS, batch {b}", calls[1])
+    count_syncs(lambda: fn(points), f"PointRCNN inference at batch {b}")
+    in_turns(fn, points, f"PointRCNN inference at batch {b}", 3)
 
     fn(points)
     torch.cuda.reset_peak_memory_stats()
@@ -1642,15 +1802,19 @@ def phase_two_stage() -> dict:
         profile_once(lambda: fn(points), f"PointRCNN batch of {b}, K3 on the brute-force route",
                      top=0, each="ball_query")
 
-    # batch scaling on other scans: at each batch a warm-up, PASSES timed
-    # passes (the host-side NMS sweep moves one pass by ~20%) and one
+    # batch scaling on other scans: at each batch a warm-up (K8 held to the
+    # plain sweep at batch 1 and 16 on its proposal matrix), PASSES timed
+    # passes and one
     # profiled pass for the device busy time, which repeats far closer; the
     # fixed and per-scan costs are fitted to this call's readings only
     scans = torch.from_numpy(synthetic_scenes(16, N_POINTS, seed=1)["points"]).cuda()
     sizes, walls, busies = (1, 2, 4, 8, 16), [], []
     for bb in sizes:
         chunk = scans[:bb].contiguous()
-        timed_pass(fn, chunk)
+        with recording_nms() as calls:
+            timed_pass(fn, chunk)
+        if bb in (1, 16):
+            hold_k8(f"PointRCNN proposals, batch {bb}", calls[0])
         torch.cuda.reset_peak_memory_stats()
         dts = sorted(timed_pass(fn, chunk) * 1e3 for _ in range(PASSES))
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3016,10 +3180,16 @@ def phase_std() -> dict:
     torch.cuda.synchronize()
     launches = _build.launches()
     log(f"kernel launches in one STD forward: {launches}")
-    want = dict(three_nn=4, sa_fused=2, fps=6, ffps=0, scatter_add=0, ffps_dist=0)
+    want = dict(three_nn=4, sa_fused=2, fps=6, ffps=0, scatter_add=0, ffps_dist=0, nms_keep=2,
+                ball_query_attention=0)
     check(all(launches[k] == v for k, v in want.items()), f"launches {launches}, want {want}")
     check(launches["ball_query"] == 6 and launches["gather"] > 0, "K3 or K4 was not launched")
     launches["routes"] = check_routes("STD inference", "STD")
+    with recording_nms() as calls:
+        fn(points)
+    hold_k8(f"STD proposals, batch {b}", calls[0], timed=False)
+    hold_k8(f"STD's final NMS, batch {b}", calls[1], timed=False)
+    count_syncs(lambda: fn(points), f"STD inference at batch {b}")
     check(det["boxes"].shape == (b, 100, 7) and det["proposals"].shape == (b, 100, 7),
           f"detections {tuple(det['boxes'].shape)}, proposals {tuple(det['proposals'].shape)}")
     for key in ("boxes", "scores", "proposals"):
@@ -3181,9 +3351,14 @@ def nuscenes_inference(pipe, scans: torch.Tensor, path: str, what: str) -> dict:
     launches = _build.launches()
     log(f"kernel launches in one {what} forward, decode and NMS: {launches}")
     check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather"))
-          and launches["scatter_add"] == launches["three_nn"] == launches["sa_fused"] == 0,
+          and launches["scatter_add"] == launches["three_nn"] == launches["sa_fused"] == 0
+          and launches["nms_keep"] == 1 and launches["ball_query_attention"] == 0,
           f"{what}: launches {launches}")
     launches["routes"] = check_routes(what, path)
+    with recording_nms() as calls:
+        pipe.infer(scans)
+    hold_k8(f"{what}'s decode", calls[0], timed=scans.shape[0] > 1)
+    count_syncs(lambda: pipe.infer(scans), what)
     b, k = scans.shape[0], 10 * pipe.spec.max_output
     check(det["boxes"].shape == (b, k, 7) and det["velocity"].shape == (b, k, 2)
           and det["attribute"].shape == (b, k, 8), f"{what}: detections "
@@ -3522,9 +3697,13 @@ def attention_flagship_on(device, dtype=None, opts=()):
                     attention=ATTENTION_LAYERS)
 
 
-def attention_query_times(model, scans: torch.Tensor) -> list[dict]:
-    """SA1's attention queries at their inputs in one forward: each radius's
-    query timed (`cuda_ms`) and profiled for its kernel launches."""
+def attention_query_times(model, scans: torch.Tensor, report: list[dict]) -> list[dict]:
+    """SA1's and SA2's attention queries (three radii each) at their inputs in
+    one forward: K9 on each query's first chunk held to its plain version bit
+    for bit (under set_sync_debug_mode("error")), on its chosen tier and with
+    every ball streaming (the shared tier cut to 0), both timed (`cuda_ms`)
+    with the bound; then each whole query (keys and K9) timed and profiled
+    for its kernel launches. Appends K9's entry to `report`."""
     seen = []
     real = modules.ball_query_attention
 
@@ -3534,27 +3713,79 @@ def attention_query_times(model, scans: torch.Tensor) -> list[dict]:
 
     with mock.patch.object(modules, "ball_query_attention", record), torch.inference_mode():
         model(scans)
-    sa1 = seen[:len(model.backbone.layer1.radius_list)]
+    radii = [len(model.backbone.layer1.radius_list), len(model.backbone.layer2.radius_list)]
+    check(len(seen) == sum(radii), f"{len(seen)} attention queries in a forward, not {radii}")
     out = []
-    for radius, ns, xyz, new_xyz, feats, new_feats in sa1:
-        fn = lambda: grouping.ball_query_attention(radius, ns, xyz, new_xyz, feats, new_feats)  # noqa: E731
-        ms = cuda_ms(fn, 5)
-        # two calls under the profiler, halved: a call first under a
-        # profiler can lose its first launches (`profile_once`)
-        activities = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=activities) as prof:
-            fn()
-            fn()
-            torch.cuda.synchronize()
+    for i, (radius, ns, xyz, new_xyz, feats, new_feats) in enumerate(seen):
+        layer = "SA1" if i < radii[0] else "SA2"
+        b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+        chunk = grouping.attention_chunk(b, m, n)
+        r2 = float(np.float32(radius * radius))
+        with torch.inference_mode():
+            q = new_xyz[:, :chunk].contiguous()
+            key = grouping._order_key(geometry.square_distance(new_feats[:, :chunk], feats))
+
+            def k9():
+                return torch.ops.ssd3d.ball_query_attention(xyz, q, key, r2, ns)
+
+            def plain():
+                return grouping.ball_query_attention_plain(xyz, q, key, r2, ns)
+
+            with sync_errors():
+                got = k9()
+            want = plain()
+            with mock.patch.object(grouping, "_ATTN_SMEM_CAP", 0):
+                streamed = k9()
+            for g, s_, w in zip(got, streamed, want):
+                check(torch.equal(g, w) and torch.equal(s_, w),
+                      f"K9 at {layer} r={radius} differs from the plain query")
+            totals = torch.cat([(grouping._pairwise_dist2(q[:, q0:q0 + 256], xyz) < r2).sum(-1)
+                                for q0 in range(0, chunk, 256)], 1)
+            inside = int(totals.sum())
+            past = int((totals > grouping._ATTN_SMEM_CAP).sum())
+            ms = cuda_ms(k9, 10)
+            plain_ms = cuda_ms(plain, 3)
+            with mock.patch.object(grouping, "_ATTN_SMEM_CAP", 0):
+                stream_ms = cuda_ms(k9, 3)
+            whole_ms = cuda_ms(lambda: grouping.ball_query_attention(radius, ns, xyz, new_xyz,
+                                                                     feats, new_feats), 5)
+            # two calls under the profiler, halved: a call first under a
+            # profiler can lose its first launches (`profile_once`)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    grouping.ball_query_attention(radius, ns, xyz, new_xyz, feats, new_feats)
+                torch.cuda.synchronize()
         n_launch = sum(1 for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA) // 2
-        chunk = grouping.attention_chunk(xyz.shape[0], new_xyz.shape[1], xyz.shape[1])
-        out.append(dict(radius=radius, nsample=ns, ms=ms, launches=n_launch,
-                        shape=f"{tuple(new_xyz.shape[:2])} x {tuple(xyz.shape[:2])}, "
-                              f"{feats.shape[-1]} feature channels", chunk=chunk))
-        log(f"SA1 attention query r={radius} ns={ns} at {out[-1]['shape']}: {ms:.3f} ms, "
-            f"{n_launch} kernel launches ({-(-new_xyz.shape[1] // chunk)} chunks of {chunk} "
-            f"queries a cloud)")
+        # bytes: the clouds, the keys of in-radius pairs (a pair outside the
+        # radius needs no key) and the outputs; operations: the in-radius test
+        # of every pair (3 sub, 3 mul, 2 add, a compare)
+        bnd = bound(4 * (b * n * 3 + b * chunk * 3 + inside + b * chunk * ns + b * chunk),
+                    9 * b * chunk * n)
+        whole_bytes_ms = 4 * b * chunk * n / H100_BYTES_PER_S * 1e3
+        out.append(dict(layer=layer, radius=radius, nsample=ns, ms=ms, plain_ms=plain_ms,
+                        stream_ms=stream_ms, **bnd, whole_key_read_ms=whole_bytes_ms,
+                        query_ms=whole_ms, launches=n_launch, balls_past_shared_tier=past,
+                        mean_ball=inside / (b * chunk),
+                        shape=f"{b} x {chunk} queries over {n} points, ns {ns}",
+                        query_shape=f"{tuple(new_xyz.shape[:2])} x {tuple(xyz.shape[:2])}, "
+                                    f"{feats.shape[-1]} feature channels", chunk=chunk))
+        log(f"K9 at {layer} r={radius} ns={ns}, chunk {out[-1]['shape']}: idx and cnt bit for bit "
+            f"the plain query's on its tier and all streaming, no sync ({past} of {b * chunk} "
+            f"balls past the shared tier, {inside / (b * chunk):.1f} members a ball); "
+            f"{ms:.3f} ms, all streaming {stream_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; reading every key would take "
+            f"{whole_bytes_ms:.4f} ms); the whole query (keys and K9, "
+            f"{-(-m // chunk)} chunks) {whole_ms:.3f} ms in {n_launch} kernel launches")
+    head = max(out, key=lambda e: e["ms"])
+    report.append(dict(name="ball_query_attention", route="cuda",
+                       source="ssd3d_torch/csrc/ball_query_attention.cu",
+                       replaces="ssd3d/ops/grouping.py:393", launches=0, max_abs_err=0.0,
+                       ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                       bound_by=head["bound_by"], library_ms=None,
+                       shape=f"{head['layer']} r={head['radius']}: {head['shape']}",
+                       other_shapes={f"{e['layer']} r={e['radius']}": e for e in out},
+                       check="idx and cnt equal to the plain query on both tiers"))
     return out
 
 
@@ -3576,10 +3807,12 @@ def phase_attention_and_groupnorm(report: list[dict]) -> dict:
     torch.cuda.synchronize()
     launches = _build.launches()
     log(f"kernel launches in one attention forward, decode and NMS: {launches}")
-    check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather"))
-          and launches["scatter_add"] == launches["three_nn"] == launches["sa_fused"] == 0,
-          f"attention inference: launches {launches}")
+    check(all(launches[k] > 0 for k in ("fps", "ffps", "ball_query", "gather",
+                                         "ball_query_attention"))
+          and launches["scatter_add"] == launches["three_nn"] == launches["sa_fused"] == 0
+          and launches["nms_keep"] == 1, f"attention inference: launches {launches}")
     launches["routes"] = check_routes("attention inference", "3DSSD attention")
+    count_syncs(lambda: infer(scans), f"attention inference at batch {BATCH}")
     paths["attention"] = launches
     valid = det["valid"]
     check(bool(torch.isfinite(det["boxes"]).all() and torch.isfinite(det["scores"]).all()
@@ -3606,7 +3839,8 @@ def phase_attention_and_groupnorm(report: list[dict]) -> dict:
     log(f"attention inference: {rate:.2f} scans/s at batch {BATCH}; batch-1 latency median "
         f"{statistics.median(lat[1:]):.2f} ms; device busy {busy:.2f} ms of a profiled "
         f"{wall:.2f} ms; peak memory {peak:.2f} GiB")
-    MEASURED["attention_queries"] = attention_query_times(model, scans)
+    in_turns(infer, scans, f"attention inference at batch {BATCH}", 3, sweep=False)
+    MEASURED["attention_queries"] = attention_query_times(model, scans, report)
     del model
 
     log("attention flagship card against CPU, one scan, same weights, f32 (the CPU leg takes "
@@ -4030,6 +4264,10 @@ def opcheck_ops() -> None:
         "three_nn": (xyz, xyz[:, ::4].contiguous()),
         "sa_fused": (rand(64, 128, 131), roi_idx, rand(64, 32, 3), torch.ones(64, 32, 2,
                      device="cuda"), params, [2, 1], False),
+        "nms_keep": (rand(8, 256, 256) > 1.0,),
+        "ball_query_attention": (xyz[:, :1024].contiguous(), xyz[:, :256].contiguous(),
+                                 torch.randint(-1000, 1000, (2, 256, 1024), generator=g,
+                                               device="cuda", dtype=torch.int32), 16.0, 32),
     }
     check(set(args) == set(library.OPS), f"opcheck covers {sorted(args)}")
     for name, a in args.items():
@@ -4041,26 +4279,37 @@ def opcheck_ops() -> None:
         f"({', '.join(sorted(args))})")
 
 
+def attention_opts() -> list[str]:
+    """The config overrides that turn attention grouping on at the flagship's
+    ATTENTION_LAYERS (SA1 and SA2), as `entry.flagship(attention=...)` does."""
+    arch = [list(row) for row in load_cfg(str(FLAGSHIP_CFG)).MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE]
+    for row in ATTENTION_LAYERS:
+        arch[row][10] = True
+    return ["MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE", str(arch)]
+
+
 def start_exports(root: str) -> dict:
-    """`bin.export` of the flagship (`--symbolic_batch`) and of PointRCNN
-    and STD (`--batch 4`), each from a checkpoint of its seed-0 weights, in
-    three processes at once: a trace is Python on one core, and the
-    two-stage ones write out the proposal sweep's 2,048 steps (ROADMAP
-    Queue 1 item 7b) -> {name: (run dir, process)}."""
+    """`bin.export` of the flagship and of the flagship with attention
+    grouping (`--symbolic_batch`) and of PointRCNN and STD (`--batch 4`),
+    each from a checkpoint of its seed-0 weights, in four processes at once
+    (a trace is Python on one core) -> {name: (run dir, process)}."""
     runs = {}
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
-    for name, cfg_path, args in (("flagship", FLAGSHIP_CFG, ["--symbolic_batch"]),
-                                 ("pointrcnn", POINTRCNN_CFG, ["--batch", str(TWO_STAGE_BATCH)]),
-                                 ("std", STD_CFG, ["--batch", str(TWO_STAGE_BATCH)])):
+    fixed = ["--batch", str(TWO_STAGE_BATCH)]
+    for name, cfg_path, args, opts in (("flagship", FLAGSHIP_CFG, ["--symbolic_batch"], []),
+                                       ("attention", FLAGSHIP_CFG, ["--symbolic_batch"],
+                                        attention_opts()),
+                                       ("pointrcnn", POINTRCNN_CFG, fixed, []),
+                                       ("std", STD_CFG, fixed, [])):
         run = os.path.join(root, name)
-        pipe = build_pipeline(load_cfg(str(cfg_path)), device="cpu")
+        pipe = build_pipeline(load_cfg(str(cfg_path), opts), device="cpu")
         init_weights(pipe.model, 0)
         CheckpointManager(os.path.join(run, "ckpt")).save(0, {"step": 0,
                                                               "model": pipe.model.state_dict()})
         out = open(os.path.join(root, f"{name}.log"), "w")
         runs[name] = (run, subprocess.Popen(
             [sys.executable, "-m", "ssd3d_torch.bin.export", "--cfg", str(cfg_path),
-             "--log_dir", run, *args], env=env, stdout=out, stderr=subprocess.STDOUT), out)
+             "--log_dir", run, *args, *opts], env=env, stdout=out, stderr=subprocess.STDOUT), out)
     return runs
 
 
@@ -4078,7 +4327,7 @@ def finish_exports(root: str, runs: dict, card: str) -> dict:
         check(meta["device"] == "cuda" and meta["bytes"] == os.path.getsize(
             os.path.join(run, "detector.pt2")), f"bin.export of {name} wrote {meta}")
         log(f"{name} export (input {meta['input']}): traced in {meta['trace_s']:.2f} s, "
-            f"{meta['bytes']} bytes ({card}; the three traces ran at once)")
+            f"{meta['bytes']} bytes ({card}; the four traces ran at once)")
     return metas
 
 
@@ -4145,9 +4394,9 @@ def export_flagship(root: str, scans: torch.Tensor, card: str,
 
 
 def export_two_stage(root: str, card: str) -> dict:
-    """(c) The PointRCNN and STD artifacts of batch 4 (a fixed batch: a
-    symbolic one traces the proposal sweep's 2,048 steps at several times
-    the cost) loaded and run against live -> each loaded pass's launches."""
+    """(c) The PointRCNN and STD artifacts of batch 4 loaded and run against
+    live, each NMS one `ssd3d.nms_keep` node of the graph -> each loaded
+    pass's launches."""
     b = TWO_STAGE_BATCH
     points = torch.from_numpy(synthetic_scenes(b, N_POINTS, seed=19)["points"]).cuda()
     paths = {}
@@ -4169,12 +4418,100 @@ def export_two_stage(root: str, card: str) -> dict:
               f"{what}: launches {got_launches}, live {live_launches}")
         check(got_launches["three_nn"] == 4 and got_launches["sa_fused"] == 2,
               f"{what}: K6 and K7 launched {got_launches}")
-        log(f"{what} ({len(exported.graph.nodes)} graph nodes): detections and proposals equal "
-            f"live bit for bit; launches {got_launches} equal live's ({card})")
+        # each NMS's sweep is one node: nothing is written out a step at a time
+        targets = Counter(str(node.target) for node in exported.graph.nodes
+                          if node.op == "call_function")
+        check(targets["ssd3d.nms_keep.default"] == got_launches["nms_keep"] == 2
+              and max(targets.values()) < 2048,
+              f"{what}: {targets['ssd3d.nms_keep.default']} nms_keep nodes, most frequent "
+              f"{targets.most_common(3)}")
+        log(f"{what} ({len(exported.graph.nodes)} graph nodes, 2 of them ssd3d.nms_keep; most "
+            f"frequent {targets.most_common(2)}): detections and proposals equal live bit for "
+            f"bit; launches {got_launches} equal live's ({card})")
         paths[f"export_{name}"] = got_launches
         del pipe, served, exported
         torch.cuda.empty_cache()
     return paths
+
+
+def export_attention(root: str, scans: torch.Tensor, card: str) -> dict:
+    """(c) The attention flagship's symbolic-batch artifact loaded and run at
+    batch 1 and 8 against live `infer`: every output bit for bit, live's
+    launches -> the batch-8 pass's launches."""
+    pipe = build_pipeline(load_cfg(str(FLAGSHIP_CFG), attention_opts()), device="cuda")
+    init_weights(pipe.model, 0)
+    exported = torch.export.load(os.path.join(root, "attention", "detector.pt2"))
+    served = exported.module()
+    got_launches = None
+    for bb in EXPORT_BATCHES:
+        points = scans[:bb].contiguous()
+        want, live_launches = _live(pipe, points)
+        _build.reset_launches()
+        with torch.inference_mode():
+            det = served(points)
+        torch.cuda.synchronize()
+        got_launches = _build.launches()
+        got_launches["routes"] = _build.route_launches()
+        what = f"the attention flagship's artifact at batch {bb}"
+        _same_outputs({k: v.cpu() for k, v in det.items()}, want, what)
+        check(got_launches == live_launches and got_launches["ball_query_attention"] > 0,
+              f"{what}: launches {got_launches}, live {live_launches}")
+        log(f"{what} ({len(exported.graph.nodes)} graph nodes): every output equal to live infer "
+            f"bit for bit; launches {got_launches} equal live's ({card})")
+    attention_peak_memory(pipe, served, scans, card)
+    del pipe, served, exported
+    torch.cuda.empty_cache()
+    return got_launches
+
+
+# batches of the attention passes whose peak memory is read; below 64, where
+# K7's RoI gate would change the path
+ATTN_MEMORY_BATCHES = (8, 16, 32, 48)
+
+
+def attention_peak_memory(pipe, served, scans: torch.Tensor, card: str) -> dict:
+    """The peak device memory of one attention pass above what was allocated
+    before it (`max_memory_allocated`), live `infer` (a concrete batch: a
+    query chunk holds at most ATTN_CHUNK_PAIRS pairs over all clouds) and
+    the symbolic-batch artifact (a chunk sized for ATTN_CHUNK_CLOUDS clouds),
+    at batches of the scans repeated -> {batch: {"live": GiB, "artifact":
+    GiB}}, None where a pass ran out of memory. Logs the batch at which each
+    would fill the card, extrapolated linearly from the two largest."""
+    card_gib = torch.cuda.mem_get_info()[1] / 2**30
+    out = {}
+    for bb in ATTN_MEMORY_BATCHES:
+        points = scans.repeat(-(-bb // len(scans)), 1, 1)[:bb].contiguous()
+        out[bb] = {}
+        for what, run in (("live", pipe.infer), ("artifact", served)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                with torch.inference_mode():
+                    run(points)
+                torch.cuda.synchronize()
+                out[bb][what] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            except torch.cuda.OutOfMemoryError:
+                out[bb][what] = None
+        del points
+    torch.cuda.empty_cache()
+    fits = {}
+    for what in ("live", "artifact"):
+        (b0, p0), (b1, p1) = [(bb, out[bb][what]) for bb in ATTN_MEMORY_BATCHES[-2:]]
+        slope = (p1 - p0) / (b1 - b0) if p0 is not None and p1 is not None else None
+        fits[what] = b1 + (card_gib - p1) / slope if slope else None
+    log(f"attention flagship, peak memory of one pass above its inputs, GiB of the card's "
+        f"{card_gib:.2f} (live with a concrete batch / the symbolic-batch artifact): "
+        + "; ".join(f"batch {bb} "
+                    + " / ".join("out of memory" if v is None else f"{v:.3f}"
+                                 for v in (out[bb]["live"], out[bb]["artifact"]))
+                    for bb in ATTN_MEMORY_BATCHES)
+        + "; the card would fill at batch ~"
+        + " / ~".join("?" if fits[w] is None else f"{fits[w]:.0f}" for w in ("live", "artifact"))
+        + f" (linear from batches {ATTN_MEMORY_BATCHES[-2]} and {ATTN_MEMORY_BATCHES[-1]}; "
+        f"{card})")
+    return out
 
 
 def convert_reference_checkpoint(root: str) -> dict:
@@ -4311,9 +4648,9 @@ def phase_export_convert_profile(scans: torch.Tensor, card: str) -> dict:
     conversion and profiling -> the launches of the loaded passes and the
     conversion's evaluate and train. The three exports trace in their own
     processes while (a), (d) and (e) run."""
-    log("== phase 19: the kernels as custom ops, torch.export artifacts (flagship with a "
-        "symbolic batch, PointRCNN and STD at batch 4), a reference TF checkpoint converted "
-        "without TensorFlow, profiling hooks")
+    log("== phase 19: the kernels as custom ops, torch.export artifacts (the flagship and the "
+        "attention flagship with a symbolic batch, PointRCNN and STD at batch 4), a reference "
+        "TF checkpoint converted without TensorFlow, profiling hooks")
     with tempfile.TemporaryDirectory(prefix="ssd3d_export_") as root:
         runs = start_exports(root)
         procs = [proc for _, proc, _ in runs.values()]
@@ -4325,6 +4662,7 @@ def phase_export_convert_profile(scans: torch.Tensor, card: str) -> dict:
             load_side = start_load_side(root, scans)
             procs.append(load_side)
             finish_exports(root, runs, card)
+            paths["export_attention"] = export_attention(root, scans, card)
             paths.update(export_two_stage(root, card))
             paths["export_flagship"] = export_flagship(root, scans, card, load_side)
         finally:
@@ -4371,6 +4709,14 @@ def main() -> int:
     paths.update(timed(phase_attention_and_groupnorm, report))
     paths.update(timed(phase_data_parallel))
     paths.update(timed(phase_export_convert_profile, scans, card))
+    head = K8_SHAPES[K8_HEADLINE]
+    report.append(dict(name="nms_keep", route="cuda", source="ssd3d_torch/csrc/nms_keep.cu",
+                       replaces="ssd3d/ops/nms.py:47", launches=0, max_abs_err=0.0,
+                       ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                       bound_by=head["bound_by"], library_ms=None,
+                       shape=f"{K8_HEADLINE}: {head['shape']}",
+                       other_shapes={k: v for k, v in K8_SHAPES.items() if k != K8_HEADLINE},
+                       check="keep bit for bit the plain sweep's at every path's matrices"))
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

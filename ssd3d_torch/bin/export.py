@@ -40,9 +40,6 @@ The JAX exporter's `--platforms` (jax.export's lowering targets) and
 meaning here: the artifact runs where PyTorch runs, and its custom ops are
 registered, not serialised.
 
-Attention grouping (an SA row with its attention flag set) does not
-export: its ball query sizes its buffers from the data
-(`ops/grouping._attention_chunk` reads the widest ball back to the host).
 """
 
 from __future__ import annotations
@@ -57,7 +54,6 @@ import torch
 from ssd3d_torch.bin import cli_device
 from ssd3d_torch.config import load_cfg
 from ssd3d_torch.models.api import build_pipeline
-from ssd3d_torch.nn.modules import PointnetSAModuleMSG
 from ssd3d_torch.train.trainer import CheckpointManager, restore_from_path
 
 
@@ -66,13 +62,6 @@ def export_infer(pipeline, batch: int, n_points: int,
     """`pipeline.inference` (its weights included) traced by `torch.export`
     on points [batch, n_points, 4] of the pipeline's device; with
     `symbolic_batch` the batch is `torch.export.Dim("b")`."""
-    attention = [name for name, mod in pipeline.model.named_modules()
-                 if isinstance(mod, PointnetSAModuleMSG) and mod.use_attention]
-    if attention:
-        raise ValueError(
-            f"export: attention grouping ({', '.join(attention)}) does not export: its ball "
-            "query sizes its buffers from the data (ops/grouping._attention_chunk reads the "
-            "widest ball to the host), which a traced program cannot")
     device = next(pipeline.inference.parameters()).device
     example = torch.zeros(max(batch, 2) if symbolic_batch else batch, n_points, 4,
                           device=device)

@@ -11,9 +11,11 @@ dispatches on the device of its inputs: CUDA tensors launch the
 hand-written kernel (`csrc/ball_query.cu` on one of its two routes,
 `csrc/gather.cu`, and for the gather's backward `csrc/scatter_add.cu`),
 CPU tensors take the plain PyTorch version beside it.
-The attention and caller-ordered ball queries, the k-NN, the box queries and
-the point IoU are plain PyTorch on every device, as they are plain XLA in
-the JAX package.
+The attention-ordered ball query is a custom op too: `csrc/ball_query_attention.cu`
+(K9) on the card, its plain version on the CPU; the JAX package computes it
+in XLA. The caller-ordered ball query, the k-NN, the box queries and the
+point IoU are plain PyTorch on every device, as they are plain XLA in the
+JAX package.
 
 The ball-query contract is the reference CUDA one (tf_grouping_g.cu:215-255,
 :308-357): per ring, the first `ns` points in index order inside the ring,
@@ -262,32 +264,48 @@ def _order_key(s: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
 
 
-# `ball_query_attention` takes the queries of all clouds in chunks of at
-# most this many (query, point) pairs: its live buffers are a few of
-# [b, chunk, n] (f32 distances, int32 keys, int64 slots and indices), ~8 GiB
-# at this size, so SA1 of the flagship (8 x 4,096 queries over 16,384
-# points) runs in two chunks a radius.
+# `ball_query_attention` takes the queries in chunks: its live buffers are a
+# few of [b, chunk, n] (the f32 feature distances and their int32 keys; on
+# the CPU the plain version's compacted keys and indices too). A chunk holds
+# at most ATTN_CHUNK_PAIRS pairs over max(b, ATTN_CHUNK_CLOUDS) clouds. With
+# a concrete batch the buffers therefore stay within ATTN_CHUNK_PAIRS pairs
+# (1 GiB of 4-byte values each) whatever the batch; SA1 of the flagship (4,096 queries
+# over 16,384 points a cloud) runs in two chunks a radius at batch 8 and
+# below. A symbolic batch (torch.export) cannot size the chunk by b: it is
+# sized as for ATTN_CHUNK_CLOUDS clouds, the same chunk as live infer at
+# batch 8 and below, so an exported program's buffers grow with the batch it
+# is called at past 8 (PERF.md, section 7, has the peak memory).
 ATTN_CHUNK_PAIRS = 1 << 28
+ATTN_CHUNK_CLOUDS = 8
 _INT32_MIN = -(1 << 31)
+# Tests only: K9 keeps a ball of up to this many members in shared memory
+# (its kCapMax, 4,096) and streams a larger ball's cloud again in every
+# pass. Tests lower it to reach the streaming tier with small balls; the
+# package never sets it.
+_ATTN_SMEM_CAP = 4096
 
 
-def attention_chunk(b: int, m: int, n: int) -> int:
+def attention_chunk(b, m: int, n: int) -> int:
     """Queries a cloud of `ball_query_attention`'s chunks: as many as keep
-    b x chunk x n within ATTN_CHUNK_PAIRS, at least 1, at most m."""
-    return max(1, min(m, ATTN_CHUNK_PAIRS // max(1, b * n)))
+    max(b, ATTN_CHUNK_CLOUDS) x chunk x n within ATTN_CHUNK_PAIRS, at least
+    1, at most m. A symbolic b (a `torch.SymInt` under torch.export) counts
+    as ATTN_CHUNK_CLOUDS clouds."""
+    clouds = b if isinstance(b, int) and b > ATTN_CHUNK_CLOUDS else ATTN_CHUNK_CLOUDS
+    return max(1, min(m, ATTN_CHUNK_PAIRS // max(1, clouds * n)))
 
 
-def _attention_chunk(r2: float, ns: int, pts: torch.Tensor, qs: torch.Tensor,
-                     f: torch.Tensor, nf: torch.Tensor):
-    """One chunk of queries of every cloud: [b, q, 3] over [b, n, 3], keys
-    from features nf [b, q, cf] against f [b, n, cf]. Each row's in-radius
-    points are compacted first, in index order (a running count and a
-    scatter, no sort), to the widest row's count k: the bisection's 32
-    passes and the selections then run over [b, q, k], not [b, q, n]."""
-    b, q, n = qs.shape[0], qs.shape[1], pts.shape[1]
-    dev = qs.device
-    in_r = _pairwise_dist2(qs, pts) < r2  # [b, q, n]
-    key = _order_key(square_distance(nf, f))  # [b, q, n], signed order of d
+def ball_query_attention_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, key: torch.Tensor,
+                               r2: float, ns: int):
+    """K9's plain version: queries new_xyz [b, q, 3] over xyz [b, n, 3], key
+    int32 [b, q, n] the signed order key of each pair (larger is visited
+    first). Each row's in-radius points are compacted first, in index order
+    (a running count and a scatter, no sort), to the widest row's count k,
+    one host read: the bisection's 32 passes and the selections then run
+    over [b, q, k], not [b, q, n]. -> (idx int32 [b, q, ns], cnt int32
+    [b, q])."""
+    b, q, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
+    dev = new_xyz.device
+    in_r = _pairwise_dist2(new_xyz, xyz) < r2  # [b, q, n]
     total = in_r.sum(-1)  # [b, q]
     k = max(int(total.max()), 1)
     slot = torch.where(in_r, in_r.cumsum(-1) - 1, k)  # out-of-radius: a spare slot
@@ -325,6 +343,29 @@ def _attention_chunk(r2: float, ns: int, pts: torch.Tensor, qs: torch.Tensor,
     return idx, cnt
 
 
+@_build.on_input_device
+def _ball_query_attention_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor, key: torch.Tensor,
+                               r2: float, ns: int):
+    """K9 (`csrc/ball_query_attention.cu`): one block a query, fixed-shape,
+    no host read -> (idx int32 [b, q, ns], cnt int32 [b, q])."""
+    if xyz.dtype != torch.float32 or new_xyz.dtype != torch.float32 or key.dtype != torch.int32:
+        raise ValueError(f"ball_query_attention: kernel takes f32 points and int32 keys, got "
+                         f"{xyz.dtype}, {new_xyz.dtype}, {key.dtype}")
+    b, n, _ = xyz.shape
+    q = new_xyz.shape[1]
+    if key.shape != (b, q, n):
+        raise ValueError(f"ball_query_attention: key must be [{b}, {q}, {n}], got "
+                         f"{tuple(key.shape)}")
+    idx = torch.zeros(b, q, ns, dtype=torch.int32, device=xyz.device)
+    cnt = torch.zeros(b, q, dtype=torch.int32, device=xyz.device)
+    if b * q and n:  # an empty cloud leaves every ball empty: all 0
+        xyz, new_xyz, key = xyz.contiguous(), new_xyz.contiguous(), key.contiguous()
+        _build.BALL_QUERY_ATTENTION(xyz.data_ptr(), new_xyz.data_ptr(), key.data_ptr(),
+                                    idx.data_ptr(), cnt.data_ptr(), b, n, q, r2, ns,
+                                    _ATTN_SMEM_CAP)
+    return idx, cnt
+
+
 def ball_query_attention(radius: float, nsample: int, xyz: torch.Tensor,
                          new_xyz: torch.Tensor, feats: torch.Tensor,
                          new_feats: torch.Tensor):
@@ -339,18 +380,25 @@ def ball_query_attention(radius: float, nsample: int, xyz: torch.Tensor,
     index (the stable sort's rule), padded by repeating the first-visited
     member (the largest key, lowest index on ties); slots are in index
     order. The threshold comes from a 32-step bisection over
-    order-preserving integer keys of each ball's points: comparisons and
-    counts only, vectorised over the clouds and over chunks of queries
-    (`attention_chunk`); one host read a chunk (its widest ball).
+    order-preserving integer keys of each ball's points. The keys are one
+    matrix product a chunk of queries (`attention_chunk`); the query itself
+    is the custom op `torch.ops.ssd3d.ball_query_attention`: K9 on the card
+    (no host read, so attention configs export), `ball_query_attention_plain`
+    on the CPU.
     -> (idx int32 [b, m, nsample], cnt int32 [b, m]); equal to the JAX
     package's at f32."""
     _check_query("ball_query_attention", xyz, new_xyz)
-    b, n, _ = xyz.shape
-    m = new_xyz.shape[1]
+    _build.require_cuda("ball_query_attention", xyz, new_xyz, feats, new_feats)
+    b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
     r2 = float(np.float32(radius * radius))
     chunk = attention_chunk(b, m, n)
-    parts = [_attention_chunk(r2, nsample, xyz, new_xyz[:, q0:q0 + chunk], feats,
-                              new_feats[:, q0:q0 + chunk]) for q0 in range(0, m, chunk)]
+    parts = []
+    for q0 in range(0, m, chunk):
+        key = _order_key(square_distance(new_feats[:, q0:q0 + chunk], feats))
+        parts.append(torch.ops.ssd3d.ball_query_attention(
+            xyz, new_xyz[:, q0:q0 + chunk], key, r2, nsample))
+    if len(parts) == 1:
+        return parts[0]
     return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
 
 

@@ -20,8 +20,8 @@ their arguments and call these ops; an exported program holds the ops
 themselves, so a process that loads one imports `ssd3d_torch.ops` (which
 registers them) and nothing else of the package.
 
-No op has an autograd formula of its own: the sampling, ball-query and
-three-nn ops return integers or take detached inputs, K7 runs under
+No op has an autograd formula of its own: the sampling, ball-query, NMS
+and three-nn ops return integers or take detached inputs, K7 runs under
 `no_grad`, and the row gather's gradient is `grouping._GatherRows`, whose
 backward is the scatter-add op. No output aliases an input.
 """
@@ -32,12 +32,15 @@ from typing import Sequence
 
 import torch
 
-from ssd3d_torch.ops import grouping, interpolate, sa_fused, sampling
+from ssd3d_torch.ops import grouping, interpolate, nms, sa_fused, sampling
 
 Tensor = torch.Tensor
 
-# op -> (the kernel source in csrc/, the TPU kernels it replaces:
-# `ssd3d/ops/pallas/<file>:<function>` of each `pl.pallas_call` site)
+# op -> (the kernel source in csrc/, the JAX code it replaces). A site
+# `<file>:<function>` is a `pl.pallas_call` function of
+# `ssd3d/ops/pallas/<file>`; a site with a path from the repository root,
+# `ssd3d/<path>:<line>`, is a loop of XLA inside the jitted program, which
+# the JAX package computes without a Pallas kernel (K8 and K9).
 OPS = {
     "fps": ("fps.cu", ("fps.py:_fps_pallas_batch", "fps.py:_fps_pallas_tiled")),
     "ffps": ("ffps.cu", ("fps.py:ffps_pallas_pre", "fps.py:ffps_pallas_hbm_rows")),
@@ -48,6 +51,8 @@ OPS = {
                                             "gather.py:_gather_bwd")),
     "three_nn": ("three_nn.cu", ("three_nn.py:three_nn_pallas",)),
     "sa_fused": ("sa_fused.cu", ("sa_fused.py:_sa_fused_raw", "sa_fused.py:_sa_multi_raw")),
+    "nms_keep": ("nms_keep.cu", ("ssd3d/ops/nms.py:47", "ssd3d/ops/nms.py:170")),
+    "ball_query_attention": ("ball_query_attention.cu", ("ssd3d/ops/grouping.py:393",)),
 }
 
 
@@ -207,3 +212,40 @@ def _(src, idx, centers, masks, params, n_layers, has_agg):
     layers_list, agg = _layers(params, n_layers, has_agg)
     c_out = agg[0].shape[1] if agg else sum(layers[-1][0].shape[1] for layers in layers_list)
     return src.new_empty((centers.shape[0], centers.shape[1], c_out), dtype=torch.float32)
+
+
+# ---------------------------------------------------------------- K8, K9
+
+@torch.library.custom_op("ssd3d::nms_keep", mutates_args=(), device_types="cpu")
+def nms_keep(suppress: Tensor) -> Tensor:
+    """NMS's greedy keep sweep (K8): suppress bool [r, k, k] in visiting
+    order -> keep bool [r, k]."""
+    return nms.nms_keep_plain(suppress)
+
+
+nms_keep.register_kernel("cuda")(lambda suppress: nms._nms_keep_cuda(suppress))
+
+
+@nms_keep.register_fake
+def _(suppress):
+    return suppress.new_empty(suppress.shape[:2], dtype=torch.bool)
+
+
+@torch.library.custom_op("ssd3d::ball_query_attention", mutates_args=(), device_types="cpu")
+def ball_query_attention(xyz: Tensor, new_xyz: Tensor, key: Tensor, r2: float,
+                         ns: int) -> tuple[Tensor, Tensor]:
+    """The attention-ordered ball query (K9): xyz f32 [b, n, 3], new_xyz f32
+    [b, q, 3], key int32 [b, q, n] -> (idx int32 [b, q, ns], cnt int32 [b, q])."""
+    return grouping.ball_query_attention_plain(xyz, new_xyz, key, r2, ns)
+
+
+ball_query_attention.register_kernel("cuda")(
+    lambda xyz, new_xyz, key, r2, ns: grouping._ball_query_attention_cuda(xyz, new_xyz, key, r2,
+                                                                         ns))
+
+
+@ball_query_attention.register_fake
+def _(xyz, new_xyz, key, r2, ns):
+    b, q = new_xyz.shape[:2]
+    return (new_xyz.new_empty((b, q, ns), dtype=torch.int32),
+            new_xyz.new_empty((b, q), dtype=torch.int32))

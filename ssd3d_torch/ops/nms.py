@@ -4,11 +4,16 @@ The same greedy score-ordered suppression as the JAX package: a stable sort
 by score, the K x K IoU matrix, a sequential keep sweep, then the first
 `max_output` kept entries in score order. Every sort is stable, as
 `jnp.argsort` is, so equal scores keep their index order. All classes and
-batch elements sweep together in one loop of K steps, on the host: the
-proposal NMS of PointRCNN (`class_unaware_nms`, 2,048 candidates after the
-top-k prefilter) runs 2,048 such steps for a batch. The soft-NMS, the
-IoU-guided NMS and the point-mask NMS of the reference's legacy paths are
-here too, for one set of candidates each.
+batch elements sweep together: the keep sweep is the custom op
+`torch.ops.ssd3d.nms_keep` (`ops/library.py`), which on a CUDA tensor
+launches the hand-written kernel `csrc/nms_keep.cu` (K8, the counterpart of
+the JAX package's `fori_loop`, so a forward runs with no host-driven loop
+and an export holds one node a sweep) and on a CPU tensor runs the plain
+loop of K steps (`nms_keep_plain`). The IoU matrix, the threshold test, the
+sorts and the `max_output` compaction stay in PyTorch, as the JAX package
+keeps them outside its loop. The soft-NMS, the IoU-guided NMS and the
+point-mask NMS of the reference's legacy paths are here too, for one set of
+candidates each; the last two sweep through K8 as well.
 """
 
 from __future__ import annotations
@@ -16,8 +21,47 @@ from __future__ import annotations
 import torch
 
 from ssd3d_torch.core.geometry import boxes_to_bev_aabb
+from ssd3d_torch.ops import _build
 from ssd3d_torch.core.iou import aabb_iou
 from ssd3d_torch.ops.topk import top_k_set
+
+
+def nms_keep_plain(suppress: torch.Tensor) -> torch.Tensor:
+    """The keep sweep's plain version: suppress bool [r, k, k] in visiting
+    order -> keep bool [r, k]; candidate j is dropped iff some kept i < j
+    has suppress[:, i, j] (entries on and below the diagonal are ignored).
+    A loop of k steps, every row at once."""
+    r, k = suppress.shape[:2]
+    dev = suppress.device
+    suppress = suppress & torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
+    keep = torch.ones(r, k, dtype=torch.bool, device=dev)
+    for i in range(k):
+        keep &= ~(suppress[:, i] & keep[:, i:i + 1])
+    return keep
+
+
+@_build.on_input_device
+def _nms_keep_cuda(suppress: torch.Tensor) -> torch.Tensor:
+    """K8: the packed upper triangle [r, k, ceil(k / 64)] of 64-bit words
+    (scratch), then one warp a row sweeping it -> keep bool [r, k]."""
+    if suppress.dtype != torch.bool or suppress.dim() != 3 or suppress.shape[1] != suppress.shape[2]:
+        raise ValueError(f"nms_keep: suppress must be bool [r, k, k], got {suppress.dtype} "
+                         f"{tuple(suppress.shape)}")
+    r, k = suppress.shape[:2]
+    words = (k + 63) // 64
+    suppress = suppress.contiguous()
+    keep = torch.empty(r, k, dtype=torch.bool, device=suppress.device)
+    mask = torch.empty(r * k * words, dtype=torch.int64, device=suppress.device)
+    if keep.numel():
+        _build.NMS_KEEP(suppress.data_ptr(), mask.data_ptr(), keep.data_ptr(), r, k)
+    return keep
+
+
+def nms_keep(suppress: torch.Tensor) -> torch.Tensor:
+    """The greedy keep sweep (`torch.ops.ssd3d.nms_keep`): K8 on a CUDA
+    tensor, `nms_keep_plain` on a CPU tensor."""
+    _build.require_cuda("nms_keep", suppress)
+    return torch.ops.ssd3d.nms_keep(suppress)
 
 
 def _greedy_keep(order: torch.Tensor, suppress: torch.Tensor, max_output: int):
@@ -25,12 +69,9 @@ def _greedy_keep(order: torch.Tensor, suppress: torch.Tensor, max_output: int):
     (indices into the input), suppress [r, k, k] in visiting order (entry
     i kills a later j where true) -> (idx int32 [r, max_output], the first
     `max_output` kept in visiting order, padded with 0; valid bool)."""
-    r, k = order.shape
+    k = order.shape[1]
     dev = order.device
-    suppress = suppress & torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
-    keep = torch.ones(r, k, dtype=torch.bool, device=dev)
-    for i in range(k):
-        keep &= ~(suppress[:, i] & keep[:, i:i + 1])
+    keep = nms_keep(suppress)
     iota = torch.arange(k, device=dev)
     sel = torch.argsort(torch.where(keep, iota, k + iota), dim=-1, stable=True)
     picked = order.gather(1, sel)
@@ -166,7 +207,7 @@ def batched_class_nms(boxes_3d: torch.Tensor, bev_boxes: torch.Tensor,
     scores, classes (int32), valid (bool), index (int32), each
     [b, cls*max_output]."""
     b, n, cls_num = scores.shape
-    reg_idx = torch.clamp(torch.arange(cls_num), max=boxes_3d.shape[2] - 1)
+    reg_idx = torch.arange(cls_num, device=scores.device).clamp(max=boxes_3d.shape[2] - 1)
     box_pc = boxes_3d.permute(0, 2, 1, 3)[:, reg_idx]  # [b, cls, n, 7]
     bev_pc = bev_boxes.permute(0, 2, 1, 3)[:, reg_idx]  # [b, cls, n, 4]
     sc_pc = scores.permute(0, 2, 1)  # [b, cls, n]

@@ -94,12 +94,27 @@ def test_ball_query_attention_equals_jax(radius, ns):
     assert 0 < float(gc.float().mean()) <= ns and int(gc.min()) >= 1  # each centre is in its ball
     pairs = grouping.ATTN_CHUNK_PAIRS
     try:
-        grouping.ATTN_CHUNK_PAIRS = 2 * 700 * 7
+        grouping.ATTN_CHUNK_PAIRS = grouping.ATTN_CHUNK_CLOUDS * 700 * 7  # 2 clouds count as 8
         assert grouping.attention_chunk(2, 90, 700) == 7
         ci, cc = grouping.ball_query_attention(radius, ns, *map(_t, (xyz, q, f, nf)))
     finally:
         grouping.ATTN_CHUNK_PAIRS = pairs
     assert torch.equal(ci, gi) and torch.equal(cc, gc)
+
+
+def test_attention_chunk_bounds_the_pairs_of_a_concrete_batch():
+    """SA1 of the flagship, 4,096 queries over 16,384 points: a concrete
+    batch past ATTN_CHUNK_CLOUDS keeps b x chunk x n within
+    ATTN_CHUNK_PAIRS; a smaller or symbolic batch takes the chunk of
+    ATTN_CHUNK_CLOUDS clouds."""
+    from torch.fx.experimental.symbolic_shapes import ShapeEnv
+
+    assert [grouping.attention_chunk(b, 4096, 16384) for b in (1, 8, 16, 64, 4096, 65536)] == [
+        2048, 2048, 1024, 256, 4, 1]  # at least 1
+    for b in (9, 16, 48, 64):
+        assert b * grouping.attention_chunk(b, 4096, 16384) * 16384 <= grouping.ATTN_CHUNK_PAIRS
+    assert grouping.attention_chunk(ShapeEnv().create_unbacked_symint(), 4096, 16384) == 2048
+    assert grouping.attention_chunk(2, 5, 16384) == 5  # at most m
 
 
 def test_ball_query_attention_is_the_sorted_visitation_multiset():

@@ -1,7 +1,8 @@
 """Serving export of the port (`ssd3d_torch.bin.export`): artifacts made by
 `torch.export` round-trip through `torch.export.save` / `load` and equal
 live `Pipeline.infer` exactly, with a fixed and with a symbolic batch, on the
-tiny 3DSSD and the tiny nuScenes 3DSSD; the CLI writes
+tiny 3DSSD, the tiny 3DSSD with attention grouping and the tiny nuScenes
+3DSSD; the CLI writes
 the artifact and its `.json` from a port checkpoint; and a process that
 imports only `ssd3d_torch.ops` loads and runs it.
 `tests/test_torch_export_two_stage.py` exports the tiny PointRCNN and
@@ -69,7 +70,7 @@ def tiny():
 def test_fixed_batch_artifact_equals_live(tiny, tmp_path):
     cfg, pipe, n = tiny
     exported = export_infer(pipe, 2, n)
-    assert _custom_ops(exported) == {"fps", "ffps", "ball_query", "gather_rows"}
+    assert _custom_ops(exported) == {"fps", "ffps", "ball_query", "gather_rows", "nms_keep"}
     served = _round_trip(exported, tmp_path / "fixed.pt2")
     points = _scans(2, n, seed=2)
     _build.reset_launches()
@@ -80,12 +81,22 @@ def test_fixed_batch_artifact_equals_live(tiny, tmp_path):
         served(_scans(3, n, seed=2))
 
 
-def test_attention_grouping_refuses_to_export_with_its_reason():
+def test_attention_grouping_artifact_equals_live(tmp_path):
+    """The tiny 3DSSD with attention grouping on SA1 exports with a symbolic
+    batch (its query chunk does not depend on the batch, and its ball query
+    reads nothing back to the host), and the loaded artifact equals live
+    `infer` bit for bit at batch 1 and 3."""
     cfg = load_cfg(str(TINY), ["MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE",
                                str(_attention_arch(TINY))])
     pipe = build_pipeline(cfg, device="cpu")
-    with pytest.raises(ValueError, match="attention grouping .*sizes its buffers from the data"):
-        export_infer(pipe, 1, cfg.MODEL.POINTS_NUM_FOR_TRAINING)
+    init_weights(pipe.model, 0)
+    n = cfg.MODEL.POINTS_NUM_FOR_TRAINING
+    exported = export_infer(pipe, 2, n, symbolic_batch=True)
+    assert {"ball_query_attention", "nms_keep"} <= _custom_ops(exported)
+    served = _round_trip(exported, tmp_path / "attention.pt2")
+    for b in (1, 3):
+        points = _scans(b, n, seed=5)
+        _assert_equal(served(points), pipe.infer(points))
 
 
 def _attention_arch(path):

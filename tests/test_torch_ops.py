@@ -438,9 +438,12 @@ def test_cpu_tensors_take_the_plain_versions():
     grouping.group_points(src, idx).sum().backward()  # the scatter-add backward
     assert src.grad.shape == xyz.shape
     sampling.farthest_point_sample_from_dist(sampling.fused_square_distance(xyz), 8)
+    boxes = torch.cat([xyz[0, :, [0, 2]], xyz[0, :, [0, 2]] + 1.0], -1)
+    nms.nms_bev(boxes, xyz[0, :, 1], 8, 0.3)
+    grouping.ball_query_attention(1.0, 4, xyz, xyz[:, :5], xyz, xyz[:, :5])
     assert _build.launches() == {"fps": 0, "ffps": 0, "ball_query": 0, "gather": 0,
                                  "scatter_add": 0, "three_nn": 0, "sa_fused": 0,
-                                 "ffps_dist": 0}
+                                 "ffps_dist": 0, "nms_keep": 0, "ball_query_attention": 0}
     assert _build._lib is None  # nothing was built or loaded
 
 

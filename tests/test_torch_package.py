@@ -113,17 +113,25 @@ def test_each_kernel_source_names_the_tpu_kernel_it_replaces():
 def test_each_custom_op_names_its_source_and_the_tpu_kernels_it_replaces():
     """Every kernel is one custom op (`ops/library.py`), whose entry names
     its CUDA source and the `pl.pallas_call` functions that source
-    replaces; each such function exists in the JAX package's Pallas file."""
+    replaces; each such function exists in the JAX package's Pallas file.
+    K8 and K9 name the JAX package's XLA code they stand for instead, by a
+    path from the repository root: a `fori_loop` line, or the function's
+    definition."""
     from ssd3d_torch.ops import library
 
     sources = set()
     for op, (source, replaced) in library.OPS.items():
-        assert (REPO / "ssd3d_torch" / "csrc" / source).is_file(), op
+        head = (REPO / "ssd3d_torch" / "csrc" / source).read_text()[:1500]
         sources.add(source)
         for site in replaced:
-            file, fn = site.split(":")
-            text = (REPO / "ssd3d" / "ops" / "pallas" / file).read_text()
-            assert f"def {fn}(" in text, site
+            file, where = site.split(":")
+            if "/" in file:  # a line of XLA code
+                assert "Replaces no Pallas kernel" in head and "bounds it on the H100" in head, op
+                text = (REPO / file).read_text().splitlines()[int(where) - 1]
+                assert "fori_loop" in text or f"def {op}(" in text, site
+            else:  # a Pallas function
+                text = (REPO / "ssd3d" / "ops" / "pallas" / file).read_text()
+                assert f"def {where}(" in text, site
         assert getattr(torch.ops.ssd3d, op).default._schema.name == f"ssd3d::{op}"
     assert sources == {p.name for p in (REPO / "ssd3d_torch" / "csrc").glob("*.cu")}
 
