@@ -166,11 +166,11 @@ Nineteen phases, each of which raises on failure (no error is caught):
    batch 8 (launches by kernel and route: K3 at SA3 and CG-SA only; scans/s,
    batch-1 latency, device busy, peak memory; the syncs counted; scans/s
    with K9 and with the plain query, in turns); K9 held bit
-   for bit to the plain query at each of SA1's and SA2's three radii, on
-   its first chunk of queries, on its chosen tier and with every ball
-   streaming, under set_sync_debug_mode("error"), both timed with the
-   bound; each whole attention query (keys and K9) timed with its kernel
-   launches;
+   for bit to the plain query at each of SA1's and SA2's three radii, each
+   whole query in one call, on each of its tiers (`K9_TIERS`, the default
+   under set_sync_debug_mode("error")), each timed with the bound; each
+   whole attention query (its norms and K9) timed, held to one K9 launch,
+   with its peak memory above its inputs;
    card against CPU on one scan at f32 (every attention row equal, or a
    near-tie of the CPU's keys then taken from the card, `AttentionReplay`;
    picks equal, values within F32_TOL); the bf16 train step at batch 8
@@ -226,7 +226,9 @@ the loaded attention artifact at batch 8, the PointRCNN and STD
 artifacts, and the reference checkpoint's evaluate and train, phase 19),
 `launches` is their sum; K8's (`nms_keep`) times are of PointRCNN's
 proposal sweep at batch 4 and `other_shapes` holds every path's matrix
-it was held at, K9's (`ball_query_attention`) of its slowest SA chunk;
+it was held at (around its tiles too) and `latency_floor_ms` its time with
+nothing suppressed, K9's (`ball_query_attention`) of its slowest whole SA
+query;
 times and bounds are of the shape in `shape`
 (K1's, K2's and K3's on the route that shape takes; `routes` holds every
 route's times at each shape of theirs, and `launches_by_route` their
@@ -636,6 +638,28 @@ def hold_k8(name: str, suppress: torch.Tensor, timed: bool = True) -> dict:
                                     f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})"
                                     if timed else ""))
     return out
+
+
+# K8 around its tiles of 64 candidates (held untimed at three densities each)
+K8_TILE_KS = (1, 63, 64, 65, 2047)
+K8_FLOOR = "latency floor: nothing suppressed, batch 4"
+
+
+def hold_k8_tiles() -> None:
+    """K8 at k around its tiles (`K8_TILE_KS`, nothing, 1% and everything
+    suppressed) and its latency floor: the proposal sweep's shape [4, 2048,
+    2048] with nothing suppressed, where every tile's fixed-point loop ends
+    after one step and the time is the chain of 32 tiles, one after the
+    other (its `us_a_tile`)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for k in K8_TILE_KS:
+        for density in (0.0, 0.01, 1.0):
+            hold_k8(f"k = {k}, density {density}",
+                    torch.rand(4, k, k, generator=gen, device="cuda") < density, timed=False)
+    floor = hold_k8(K8_FLOOR, torch.zeros(4, 2048, 2048, dtype=torch.bool, device="cuda"))
+    floor["us_a_tile"] = floor["ms"] * 1e3 / 32
+    log(f"K8's latency floor: {floor['ms']:.4f} ms for 32 tiles a row, "
+        f"{floor['us_a_tile']:.3f} us a tile")
 
 
 # ----------------------------------------------------------------- phase 1
@@ -1781,6 +1805,7 @@ def phase_two_stage() -> dict:
         fn(points)
     hold_k8(K8_HEADLINE, calls[0])
     hold_k8(f"PointRCNN's final NMS, batch {b}", calls[1])
+    hold_k8_tiles()
     count_syncs(lambda: fn(points), f"PointRCNN inference at batch {b}")
     in_turns(fn, points, f"PointRCNN inference at batch {b}", 3)
 
@@ -3615,8 +3640,8 @@ def phase_nuscenes(report: list[dict]) -> dict:
 ATTN_STEPS = 3  # timed bf16 train steps with attention grouping
 # an attention query's row may differ card against CPU only where a member
 # taken on one leg and not the other lies this close (relative) to the CPU's
-# selection threshold of feature distance: the keys are one f32 matrix
-# product summed in another order on each device
+# selection threshold of feature distance: both legs sum the cross term in
+# channel order, but each device sums the squared norms in its own order
 ATTN_TIE_RTOL = 1e-5
 GN_OPTS = ["MODEL.NETWORK.USE_GN", "True"]
 
@@ -3697,13 +3722,30 @@ def attention_flagship_on(device, dtype=None, opts=()):
                     attention=ATTENTION_LAYERS)
 
 
+# K9's tiers by (grouping._ATTN_TILE_CAP, grouping._ATTN_SMEM_CAP): the
+# defaults (query tiles, larger balls listed), every ball listed, balls past
+# 5 members listed and streamed, every ball listed and streamed
+K9_TIERS = {"tile": (grouping._ATTN_TILE_CAP, grouping._ATTN_SMEM_CAP), "list": (0, 4096),
+            "tile5_stream": (5, 5), "stream": (0, 0)}
+
+
+def on_k9_tier(tier: str):
+    """K9's caps set to `tier`'s (`K9_TIERS`) while the context holds."""
+    tile_cap, smem_cap = K9_TIERS[tier]
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(grouping, "_ATTN_TILE_CAP", tile_cap))
+    stack.enter_context(mock.patch.object(grouping, "_ATTN_SMEM_CAP", smem_cap))
+    return stack
+
+
 def attention_query_times(model, scans: torch.Tensor, report: list[dict]) -> list[dict]:
     """SA1's and SA2's attention queries (three radii each) at their inputs in
-    one forward: K9 on each query's first chunk held to its plain version bit
-    for bit (under set_sync_debug_mode("error")), on its chosen tier and with
-    every ball streaming (the shared tier cut to 0), both timed (`cuda_ms`)
-    with the bound; then each whole query (keys and K9) timed and profiled
-    for its kernel launches. Appends K9's entry to `report`."""
+    one forward, each whole (one K9 call a radius, no chunk): K9 held to its
+    plain version bit for bit on every tier (`K9_TIERS`; the default tier
+    under set_sync_debug_mode("error")), timed (`cuda_ms`) on each with the
+    bound; then each whole query (its squared norms and K9) timed, held to
+    one K9 launch, and its peak memory above its inputs read.
+    Appends K9's entry to `report`."""
     seen = []
     real = modules.ball_query_attention
 
@@ -3718,65 +3760,74 @@ def attention_query_times(model, scans: torch.Tensor, report: list[dict]) -> lis
     out = []
     for i, (radius, ns, xyz, new_xyz, feats, new_feats) in enumerate(seen):
         layer = "SA1" if i < radii[0] else "SA2"
-        b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
-        chunk = grouping.attention_chunk(b, m, n)
+        b, n, m, cf = xyz.shape[0], xyz.shape[1], new_xyz.shape[1], feats.shape[-1]
         r2 = float(np.float32(radius * radius))
         with torch.inference_mode():
-            q = new_xyz[:, :chunk].contiguous()
-            key = grouping._order_key(geometry.square_distance(new_feats[:, :chunk], feats))
+            a_sq = (new_feats * new_feats).sum(-1).float()
+            b_sq = (feats * feats).sum(-1).float()
 
             def k9():
-                return torch.ops.ssd3d.ball_query_attention(xyz, q, key, r2, ns)
+                return torch.ops.ssd3d.ball_query_attention(xyz, new_xyz, feats, new_feats, a_sq,
+                                                            b_sq, r2, ns)
 
             def plain():
-                return grouping.ball_query_attention_plain(xyz, q, key, r2, ns)
+                return grouping.ball_query_attention_plain(xyz, new_xyz, feats, new_feats, a_sq,
+                                                           b_sq, r2, ns)
 
-            with sync_errors():
-                got = k9()
+            def whole():
+                return grouping.ball_query_attention(radius, ns, xyz, new_xyz, feats, new_feats)
+
             want = plain()
-            with mock.patch.object(grouping, "_ATTN_SMEM_CAP", 0):
-                streamed = k9()
-            for g, s_, w in zip(got, streamed, want):
-                check(torch.equal(g, w) and torch.equal(s_, w),
-                      f"K9 at {layer} r={radius} differs from the plain query")
-            totals = torch.cat([(grouping._pairwise_dist2(q[:, q0:q0 + 256], xyz) < r2).sum(-1)
-                                for q0 in range(0, chunk, 256)], 1)
+            tier_ms = {}
+            for tier in K9_TIERS:
+                with on_k9_tier(tier), sync_errors() if tier == "tile" else contextlib.nullcontext():
+                    got = k9()
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"K9 at {layer} r={radius} on its {tier} tier differs from the plain query")
+                with on_k9_tier(tier):
+                    tier_ms[tier] = cuda_ms(k9, 10 if tier == "tile" else 3)
+            ms = tier_ms["tile"]
+            plain_ms = cuda_ms(plain, 2)
+            whole_ms = cuda_ms(whole, 10)
+            totals = torch.cat([(grouping._pairwise_dist2(new_xyz[:, q0:q0 + 256], xyz) < r2)
+                                .sum(-1) for q0 in range(0, m, 256)], 1)
             inside = int(totals.sum())
-            past = int((totals > grouping._ATTN_SMEM_CAP).sum())
-            ms = cuda_ms(k9, 10)
-            plain_ms = cuda_ms(plain, 3)
-            with mock.patch.object(grouping, "_ATTN_SMEM_CAP", 0):
-                stream_ms = cuda_ms(k9, 3)
-            whole_ms = cuda_ms(lambda: grouping.ball_query_attention(radius, ns, xyz, new_xyz,
-                                                                     feats, new_feats), 5)
-            # two calls under the profiler, halved: a call first under a
-            # profiler can lose its first launches (`profile_once`)
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    grouping.ball_query_attention(radius, ns, xyz, new_xyz, feats, new_feats)
-                torch.cuda.synchronize()
-        n_launch = sum(1 for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA) // 2
-        # bytes: the clouds, the keys of in-radius pairs (a pair outside the
-        # radius needs no key) and the outputs; operations: the in-radius test
-        # of every pair (3 sub, 3 mul, 2 add, a compare)
-        bnd = bound(4 * (b * n * 3 + b * chunk * 3 + inside + b * chunk * ns + b * chunk),
-                    9 * b * chunk * n)
-        whole_bytes_ms = 4 * b * chunk * n / H100_BYTES_PER_S * 1e3
+            past_tile = int((totals > grouping._ATTN_TILE_CAP).sum())
+            past_smem = int((totals > grouping._ATTN_SMEM_CAP).sum())
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            whole()
+            torch.cuda.synchronize()
+            peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+            _build.reset_launches()
+            whole()
+            torch.cuda.synchronize()
+        n_launch = _build.launches()["ball_query_attention"]
+        check(n_launch == 1, f"the {layer} r={radius} attention query launched K9 {n_launch} "
+              "times, not once")
+        # operations: the in-radius test of every pair (3 sub, 3 mul, 2 add, a
+        # compare) and each member's key (cf mul, cf add, 2 add, 1 mul, the
+        # order key: 2 cf + 4); bytes: the clouds, the norms, the query
+        # features, each member's feature row and the outputs
+        es = feats.element_size()
+        bnd = bound(4 * (b * n * 3 + b * m * 3 + b * m + b * n + b * m * ns + b * m)
+                    + es * (b * m * cf + inside * cf),
+                    9 * b * m * n + (2 * cf + 4) * inside)
         out.append(dict(layer=layer, radius=radius, nsample=ns, ms=ms, plain_ms=plain_ms,
-                        stream_ms=stream_ms, **bnd, whole_key_read_ms=whole_bytes_ms,
-                        query_ms=whole_ms, launches=n_launch, balls_past_shared_tier=past,
-                        mean_ball=inside / (b * chunk),
-                        shape=f"{b} x {chunk} queries over {n} points, ns {ns}",
-                        query_shape=f"{tuple(new_xyz.shape[:2])} x {tuple(xyz.shape[:2])}, "
-                                    f"{feats.shape[-1]} feature channels", chunk=chunk))
-        log(f"K9 at {layer} r={radius} ns={ns}, chunk {out[-1]['shape']}: idx and cnt bit for bit "
-            f"the plain query's on its tier and all streaming, no sync ({past} of {b * chunk} "
-            f"balls past the shared tier, {inside / (b * chunk):.1f} members a ball); "
-            f"{ms:.3f} ms, all streaming {stream_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; reading every key would take "
-            f"{whole_bytes_ms:.4f} ms); the whole query (keys and K9, "
-            f"{-(-m // chunk)} chunks) {whole_ms:.3f} ms in {n_launch} kernel launches")
+                        tier_ms=tier_ms, **bnd, query_ms=whole_ms, launches=n_launch,
+                        query_peak_mib=peak_mib, balls_past_tile=past_tile,
+                        balls_past_shared_tier=past_smem, mean_ball=inside / (b * m),
+                        shape=f"{b} x {m} queries over {n} points, {cf} feature channels "
+                              f"({feats.dtype}), ns {ns}"))
+        log(f"K9 at {layer} r={radius} ns={ns}, the whole query {out[-1]['shape']}: idx and cnt "
+            f"bit for bit the plain query's on every tier, no sync ({past_tile} of {b * m} balls "
+            f"past the query tile, {past_smem} past the shared tier, {inside / (b * m):.1f} "
+            f"members a ball); {ms:.4f} ms (" + ", ".join(f"{t} {v:.3f}" for t, v in
+                                                       tier_ms.items() if t != "tile")
+            + f"), plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
+            f"the whole query (norms and K9) {whole_ms:.4f} ms in one K9 launch, "
+            f"peak {peak_mib:.1f} MiB above its inputs")
     head = max(out, key=lambda e: e["ms"])
     report.append(dict(name="ball_query_attention", route="cuda",
                        source="ssd3d_torch/csrc/ball_query_attention.cu",
@@ -3785,7 +3836,7 @@ def attention_query_times(model, scans: torch.Tensor, report: list[dict]) -> lis
                        bound_by=head["bound_by"], library_ms=None,
                        shape=f"{head['layer']} r={head['radius']}: {head['shape']}",
                        other_shapes={f"{e['layer']} r={e['radius']}": e for e in out},
-                       check="idx and cnt equal to the plain query on both tiers"))
+                       check="idx and cnt equal to the plain query on every tier"))
     return out
 
 
@@ -4243,6 +4294,7 @@ def opcheck_ops() -> None:
         return torch.randn(*shape, generator=g, device="cuda") * scale
 
     xyz = rand(2, 4096, 3, scale=20.0)
+    feats = rand(2, 4096, 4)
     sa3 = load_cfg(str(FLAGSHIP_CFG)).MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE[2]
     specs = ring_specs(sa3[2], sa3[3], True)
     idx = torch.randint(0, 1024, (2, 8192), generator=g, device="cuda", dtype=torch.int32)
@@ -4266,8 +4318,9 @@ def opcheck_ops() -> None:
                      device="cuda"), params, [2, 1], False),
         "nms_keep": (rand(8, 256, 256) > 1.0,),
         "ball_query_attention": (xyz[:, :1024].contiguous(), xyz[:, :256].contiguous(),
-                                 torch.randint(-1000, 1000, (2, 256, 1024), generator=g,
-                                               device="cuda", dtype=torch.int32), 16.0, 32),
+                                 feats[:, :1024].contiguous(), feats[:, :256].contiguous(),
+                                 (feats[:, :256] ** 2).sum(-1), (feats[:, :1024] ** 2).sum(-1),
+                                 16.0, 32),
     }
     check(set(args) == set(library.OPS), f"opcheck covers {sorted(args)}")
     for name, a in args.items():
@@ -4471,10 +4524,9 @@ ATTN_MEMORY_BATCHES = (8, 16, 32, 48)
 
 def attention_peak_memory(pipe, served, scans: torch.Tensor, card: str) -> dict:
     """The peak device memory of one attention pass above what was allocated
-    before it (`max_memory_allocated`), live `infer` (a concrete batch: a
-    query chunk holds at most ATTN_CHUNK_PAIRS pairs over all clouds) and
-    the symbolic-batch artifact (a chunk sized for ATTN_CHUNK_CLOUDS clouds),
-    at batches of the scans repeated -> {batch: {"live": GiB, "artifact":
+    before it (`max_memory_allocated`), live `infer` and the symbolic-batch
+    artifact (each attention query one K9 call a radius, with no [b, q, n]
+    buffer, on either), at batches of the scans repeated -> {batch: {"live": GiB, "artifact":
     GiB}}, None where a pass ran out of memory. Logs the batch at which each
     would fill the card, extrapolated linearly from the two largest."""
     card_gib = torch.cuda.mem_get_info()[1] / 2**30
@@ -4714,6 +4766,7 @@ def main() -> int:
                        replaces="ssd3d/ops/nms.py:47", launches=0, max_abs_err=0.0,
                        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                        bound_by=head["bound_by"], library_ms=None,
+                       latency_floor_ms=K8_SHAPES[K8_FLOOR]["ms"],
                        shape=f"{K8_HEADLINE}: {head['shape']}",
                        other_shapes={k: v for k, v in K8_SHAPES.items() if k != K8_HEADLINE},
                        check="keep bit for bit the plain sweep's at every path's matrices"))

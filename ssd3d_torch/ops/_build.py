@@ -179,12 +179,15 @@ SA_FUSED = Kernel("sa_fused", "ssd3d_sa_fused",
 # registers, 0 for the block route's scratch buffer; and the cluster route's
 # cluster size, threads a CTA and exchange)
 FFPS_DIST = Kernel("ffps_dist", "ssd3d_ffps_dist", [P, P, P, I, I, I, I, I, I, I, I])
-# NMS's greedy keep sweep (K8): suppress, packed-word scratch, keep, rows, candidates
-NMS_KEEP = Kernel("nms_keep", "ssd3d_nms_keep", [P, P, P, I, I])
-# the attention-ordered ball query (K9): xyz, new_xyz, key, idx, cnt, b, n,
-# queries, r2, ns and the shared-memory tier's largest ball
+# NMS's greedy keep sweep (K8): suppress, scratch, keep, rows, candidates and
+# the sweep block's shared-memory budget
+NMS_KEEP = Kernel("nms_keep", "ssd3d_nms_keep", [P, P, P, I, I, I])
+# the attention-ordered ball query (K9): xyz, new_xyz, feats, new_feats, a_sq,
+# b_sq, idx, cnt, the ball list (scratch), b, n, queries, channels, bf16 (0 or
+# 1), r2, ns, and the query tile's and the shared-memory tier's largest balls
 BALL_QUERY_ATTENTION = Kernel("ball_query_attention", "ssd3d_ball_query_attention",
-                              [P, P, P, P, P, I, I, I, ctypes.c_float, I, I])
+                              [P, P, P, P, P, P, P, P, P, I, I, I, I, I, ctypes.c_float, I, I,
+                               I])
 KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD, THREE_NN, SA_FUSED, FFPS_DIST, NMS_KEEP,
            BALL_QUERY_ATTENTION)
 

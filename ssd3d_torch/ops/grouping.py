@@ -32,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from ssd3d_torch.core.geometry import canonicalize_points, square_distance
+from ssd3d_torch.core.geometry import canonicalize_points
 from ssd3d_torch.ops import _build
 
 _QUERY_CHUNK = 256  # plain version: queries per chunk, bounds the [b, chunk, n] tensors
@@ -264,45 +264,57 @@ def _order_key(s: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
 
 
-# `ball_query_attention` takes the queries in chunks: its live buffers are a
-# few of [b, chunk, n] (the f32 feature distances and their int32 keys; on
-# the CPU the plain version's compacted keys and indices too). A chunk holds
-# at most ATTN_CHUNK_PAIRS pairs over max(b, ATTN_CHUNK_CLOUDS) clouds. With
-# a concrete batch the buffers therefore stay within ATTN_CHUNK_PAIRS pairs
-# (1 GiB of 4-byte values each) whatever the batch; SA1 of the flagship (4,096 queries
-# over 16,384 points a cloud) runs in two chunks a radius at batch 8 and
-# below. A symbolic batch (torch.export) cannot size the chunk by b: it is
-# sized as for ATTN_CHUNK_CLOUDS clouds, the same chunk as live infer at
-# batch 8 and below, so an exported program's buffers grow with the batch it
-# is called at past 8 (PERF.md, section 7, has the peak memory).
+# `ball_query_attention_plain` takes the queries in chunks: its live buffers
+# are a few of [b, chunk, n] (the f32 feature distances, their int32 keys, the
+# compacted keys and indices). A chunk holds at most ATTN_CHUNK_PAIRS pairs
+# over max(b, ATTN_CHUNK_CLOUDS) clouds (1 GiB of 4-byte values each); SA1 of
+# the flagship (4,096 queries over 16,384 points a cloud) runs in two chunks a
+# radius at batch 8 and below. K9 holds no such buffer: it computes the keys
+# of each ball's members only, so the card takes a whole radius in one call.
 ATTN_CHUNK_PAIRS = 1 << 28
 ATTN_CHUNK_CLOUDS = 8
 _INT32_MIN = -(1 << 31)
-# Tests only: K9 keeps a ball of up to this many members in shared memory
-# (its kCapMax, 4,096) and streams a larger ball's cloud again in every
-# pass. Tests lower it to reach the streaming tier with small balls; the
-# package never sets it.
+# Tests only: K9's tiers. A ball of up to _ATTN_TILE_CAP members (at most
+# 128) is resolved by its query tile; a larger one goes to the ball list,
+# which keeps up to _ATTN_SMEM_CAP members (at most 4,096) in shared memory
+# and streams a larger ball's cloud again in every pass. Tests lower them to
+# reach every tier with small balls; the package never sets them.
+_ATTN_TILE_CAP = 128
 _ATTN_SMEM_CAP = 4096
 
 
 def attention_chunk(b, m: int, n: int) -> int:
-    """Queries a cloud of `ball_query_attention`'s chunks: as many as keep
-    max(b, ATTN_CHUNK_CLOUDS) x chunk x n within ATTN_CHUNK_PAIRS, at least
-    1, at most m. A symbolic b (a `torch.SymInt` under torch.export) counts
-    as ATTN_CHUNK_CLOUDS clouds."""
+    """Queries a cloud of `ball_query_attention_plain`'s chunks: as many as
+    keep max(b, ATTN_CHUNK_CLOUDS) x chunk x n within ATTN_CHUNK_PAIRS, at
+    least 1, at most m. A symbolic b (a `torch.SymInt`) counts as
+    ATTN_CHUNK_CLOUDS clouds."""
     clouds = b if isinstance(b, int) and b > ATTN_CHUNK_CLOUDS else ATTN_CHUNK_CLOUDS
     return max(1, min(m, ATTN_CHUNK_PAIRS // max(1, clouds * n)))
 
 
-def ball_query_attention_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, key: torch.Tensor,
-                               r2: float, ns: int):
-    """K9's plain version: queries new_xyz [b, q, 3] over xyz [b, n, 3], key
-    int32 [b, q, n] the signed order key of each pair (larger is visited
-    first). Each row's in-radius points are compacted first, in index order
-    (a running count and a scatter, no sort), to the widest row's count k,
-    one host read: the bisection's 32 passes and the selections then run
-    over [b, q, k], not [b, q, n]. -> (idx int32 [b, q, ns], cnt int32
-    [b, q])."""
+def attention_keys(new_feats: torch.Tensor, feats: torch.Tensor, a_sq: torch.Tensor,
+                   b_sq: torch.Tensor) -> torch.Tensor:
+    """The attention order keys, K9's arithmetic: int32 [b, q, n], the signed
+    order key of (a_sq + b_sq) - 2 * cross, cross the f32 dot of the feature
+    rows new_feats [b, q, cf] and feats [b, n, cf] summed in channel order
+    from 0 (bf16 widened exactly), each operation rounded; a_sq [b, q] and
+    b_sq [b, n] the squared norms. At cf = 1 this is
+    `_order_key(square_distance(new_feats, feats))` bit for bit."""
+    nf, f = new_feats.float(), feats.float()
+    cross = torch.zeros(nf.shape[0], nf.shape[1], f.shape[1], device=nf.device)
+    for c in range(nf.shape[-1]):
+        cross = cross + nf[..., c, None] * f[:, None, :, c]
+    return _order_key((a_sq[..., None] + b_sq[:, None, :]) - 2.0 * cross)
+
+
+def _attention_select(xyz: torch.Tensor, new_xyz: torch.Tensor, key: torch.Tensor, r2: float,
+                      ns: int):
+    """The attention query over given keys int32 [b, q, n] (larger is
+    visited first). Each row's in-radius points are compacted first, in
+    index order (a running count and a scatter, no sort), to the widest
+    row's count k, one host read: the bisection's 32 passes and the
+    selections then run over [b, q, k], not [b, q, n]. -> (idx int32
+    [b, q, ns], cnt int32 [b, q])."""
     b, q, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
     dev = new_xyz.device
     in_r = _pairwise_dist2(new_xyz, xyz) < r2  # [b, q, n]
@@ -343,25 +355,58 @@ def ball_query_attention_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, key: to
     return idx, cnt
 
 
-@_build.on_input_device
-def _ball_query_attention_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor, key: torch.Tensor,
+def ball_query_attention_plain(xyz: torch.Tensor, new_xyz: torch.Tensor, feats: torch.Tensor,
+                               new_feats: torch.Tensor, a_sq: torch.Tensor, b_sq: torch.Tensor,
                                r2: float, ns: int):
-    """K9 (`csrc/ball_query_attention.cu`): one block a query, fixed-shape,
-    no host read -> (idx int32 [b, q, ns], cnt int32 [b, q])."""
-    if xyz.dtype != torch.float32 or new_xyz.dtype != torch.float32 or key.dtype != torch.int32:
-        raise ValueError(f"ball_query_attention: kernel takes f32 points and int32 keys, got "
-                         f"{xyz.dtype}, {new_xyz.dtype}, {key.dtype}")
+    """K9's plain version: queries new_xyz [b, q, 3] over xyz [b, n, 3], in
+    chunks of `attention_chunk` queries: each chunk's keys
+    (`attention_keys`, [b, chunk, n]), then its compaction, bisection and
+    selection (`_attention_select`). -> (idx int32 [b, q, ns], cnt int32
+    [b, q])."""
+    b, q, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
+    chunk = attention_chunk(b, q, n)
+    parts = []
+    for q0 in range(0, q, chunk):
+        key = attention_keys(new_feats[:, q0:q0 + chunk], feats, a_sq[:, q0:q0 + chunk], b_sq)
+        parts.append(_attention_select(xyz, new_xyz[:, q0:q0 + chunk], key, r2, ns))
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
+
+
+@_build.on_input_device
+def _ball_query_attention_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor, feats: torch.Tensor,
+                               new_feats: torch.Tensor, a_sq: torch.Tensor, b_sq: torch.Tensor,
+                               r2: float, ns: int):
+    """K9 (`csrc/ball_query_attention.cu`): query tiles, then the list of
+    balls past the tile's cap, fixed-shape, no host read, no [b, q, n]
+    buffer -> (idx int32 [b, q, ns], cnt int32 [b, q])."""
     b, n, _ = xyz.shape
-    q = new_xyz.shape[1]
-    if key.shape != (b, q, n):
-        raise ValueError(f"ball_query_attention: key must be [{b}, {q}, {n}], got "
-                         f"{tuple(key.shape)}")
-    idx = torch.zeros(b, q, ns, dtype=torch.int32, device=xyz.device)
-    cnt = torch.zeros(b, q, dtype=torch.int32, device=xyz.device)
-    if b * q and n:  # an empty cloud leaves every ball empty: all 0
-        xyz, new_xyz, key = xyz.contiguous(), new_xyz.contiguous(), key.contiguous()
-        _build.BALL_QUERY_ATTENTION(xyz.data_ptr(), new_xyz.data_ptr(), key.data_ptr(),
-                                    idx.data_ptr(), cnt.data_ptr(), b, n, q, r2, ns,
+    q, cf = new_xyz.shape[1], feats.shape[-1]
+    if (xyz.dtype != torch.float32 or new_xyz.dtype != torch.float32
+            or a_sq.dtype != torch.float32 or b_sq.dtype != torch.float32
+            or feats.dtype not in (torch.float32, torch.bfloat16)
+            or new_feats.dtype != feats.dtype):
+        raise ValueError(f"ball_query_attention: kernel takes f32 points and norms and f32 or "
+                         f"bf16 features, got {xyz.dtype}, {new_xyz.dtype}, {feats.dtype}, "
+                         f"{new_feats.dtype}, {a_sq.dtype}, {b_sq.dtype}")
+    if (feats.shape != (b, n, cf) or new_feats.shape != (b, q, cf) or a_sq.shape != (b, q)
+            or b_sq.shape != (b, n)):
+        raise ValueError(f"ball_query_attention: feats {tuple(feats.shape)}, new_feats "
+                         f"{tuple(new_feats.shape)}, a_sq {tuple(a_sq.shape)}, b_sq "
+                         f"{tuple(b_sq.shape)} do not fit xyz {tuple(xyz.shape)} and new_xyz "
+                         f"{tuple(new_xyz.shape)}")
+    if not n:  # an empty cloud leaves every ball empty: all 0
+        return (torch.zeros(b, q, ns, dtype=torch.int32, device=xyz.device),
+                torch.zeros(b, q, dtype=torch.int32, device=xyz.device))
+    idx = torch.empty(b, q, ns, dtype=torch.int32, device=xyz.device)
+    cnt = torch.empty(b, q, dtype=torch.int32, device=xyz.device)
+    listed = torch.empty(1 + b * q, dtype=torch.int32, device=xyz.device)
+    if b * q:
+        args = [t.contiguous() for t in (xyz, new_xyz, feats, new_feats, a_sq, b_sq)]
+        _build.BALL_QUERY_ATTENTION(*(t.data_ptr() for t in args), idx.data_ptr(),
+                                    cnt.data_ptr(), listed.data_ptr(), b, n, q, cf,
+                                    int(feats.dtype == torch.bfloat16), r2, ns, _ATTN_TILE_CAP,
                                     _ATTN_SMEM_CAP)
     return idx, cnt
 
@@ -380,26 +425,22 @@ def ball_query_attention(radius: float, nsample: int, xyz: torch.Tensor,
     index (the stable sort's rule), padded by repeating the first-visited
     member (the largest key, lowest index on ties); slots are in index
     order. The threshold comes from a 32-step bisection over
-    order-preserving integer keys of each ball's points. The keys are one
-    matrix product a chunk of queries (`attention_chunk`); the query itself
-    is the custom op `torch.ops.ssd3d.ball_query_attention`: K9 on the card
-    (no host read, so attention configs export), `ball_query_attention_plain`
-    on the CPU.
+    order-preserving integer keys of each ball's points. The squared norms
+    are summed here as `square_distance` sums them (in the features' dtype,
+    then f32), once a query; the rest is the custom op
+    `torch.ops.ssd3d.ball_query_attention`, one call a radius: K9 on the
+    card (the keys of each ball's members only, no host read, so attention
+    configs export), `ball_query_attention_plain` on the CPU.
     -> (idx int32 [b, m, nsample], cnt int32 [b, m]); equal to the JAX
     package's at f32."""
     _check_query("ball_query_attention", xyz, new_xyz)
     _build.require_cuda("ball_query_attention", xyz, new_xyz, feats, new_feats)
-    b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
     r2 = float(np.float32(radius * radius))
-    chunk = attention_chunk(b, m, n)
-    parts = []
-    for q0 in range(0, m, chunk):
-        key = _order_key(square_distance(new_feats[:, q0:q0 + chunk], feats))
-        parts.append(torch.ops.ssd3d.ball_query_attention(
-            xyz, new_xyz[:, q0:q0 + chunk], key, r2, nsample))
-    if len(parts) == 1:
-        return parts[0]
-    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
+    feats, new_feats = feats.detach(), new_feats.detach()  # the outputs are indices
+    a_sq = (new_feats * new_feats).sum(-1).float()
+    b_sq = (feats * feats).sum(-1).float()
+    return torch.ops.ssd3d.ball_query_attention(xyz, new_xyz, feats, new_feats, a_sq, b_sq, r2,
+                                                nsample)
 
 
 def knn_points(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor):

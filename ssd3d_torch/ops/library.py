@@ -232,20 +232,22 @@ def _(suppress):
 
 
 @torch.library.custom_op("ssd3d::ball_query_attention", mutates_args=(), device_types="cpu")
-def ball_query_attention(xyz: Tensor, new_xyz: Tensor, key: Tensor, r2: float,
-                         ns: int) -> tuple[Tensor, Tensor]:
+def ball_query_attention(xyz: Tensor, new_xyz: Tensor, feats: Tensor, new_feats: Tensor,
+                         a_sq: Tensor, b_sq: Tensor, r2: float, ns: int) -> tuple[Tensor, Tensor]:
     """The attention-ordered ball query (K9): xyz f32 [b, n, 3], new_xyz f32
-    [b, q, 3], key int32 [b, q, n] -> (idx int32 [b, q, ns], cnt int32 [b, q])."""
-    return grouping.ball_query_attention_plain(xyz, new_xyz, key, r2, ns)
+    [b, q, 3], feats [b, n, cf] and new_feats [b, q, cf] (f32 or bf16), the
+    squared norms a_sq f32 [b, q] and b_sq f32 [b, n] -> (idx int32
+    [b, q, ns], cnt int32 [b, q])."""
+    return grouping.ball_query_attention_plain(xyz, new_xyz, feats, new_feats, a_sq, b_sq, r2, ns)
 
 
 ball_query_attention.register_kernel("cuda")(
-    lambda xyz, new_xyz, key, r2, ns: grouping._ball_query_attention_cuda(xyz, new_xyz, key, r2,
-                                                                         ns))
+    lambda xyz, new_xyz, feats, new_feats, a_sq, b_sq, r2, ns:
+    grouping._ball_query_attention_cuda(xyz, new_xyz, feats, new_feats, a_sq, b_sq, r2, ns))
 
 
 @ball_query_attention.register_fake
-def _(xyz, new_xyz, key, r2, ns):
+def _(xyz, new_xyz, feats, new_feats, a_sq, b_sq, r2, ns):
     b, q = new_xyz.shape[:2]
     return (new_xyz.new_empty((b, q, ns), dtype=torch.int32),
             new_xyz.new_empty((b, q), dtype=torch.int32))

@@ -40,10 +40,18 @@ def nms_keep_plain(suppress: torch.Tensor) -> torch.Tensor:
     return keep
 
 
+# Tests only: the shared bytes a K8 sweep block may take (the H100's 232,448).
+# Tests lower it to stage a tile's rows in column chunks and to keep the
+# removed words in the scratch; the package never sets it.
+_NMS_SMEM_BUDGET = 232448
+_NMS_GRID_MAX = 65535  # the sweep's blocks (csrc/nms_keep.cu kGridMax)
+
+
 @_build.on_input_device
 def _nms_keep_cuda(suppress: torch.Tensor) -> torch.Tensor:
-    """K8: the packed upper triangle [r, k, ceil(k / 64)] of 64-bit words
-    (scratch), then one warp a row sweeping it -> keep bool [r, k]."""
+    """K8: the upper triangle packed into 64-bit words in tiles of 64
+    candidates (scratch), then one block a row sweeping the tiles from shared
+    memory -> keep bool [r, k]."""
     if suppress.dtype != torch.bool or suppress.dim() != 3 or suppress.shape[1] != suppress.shape[2]:
         raise ValueError(f"nms_keep: suppress must be bool [r, k, k], got {suppress.dtype} "
                          f"{tuple(suppress.shape)}")
@@ -51,9 +59,12 @@ def _nms_keep_cuda(suppress: torch.Tensor) -> torch.Tensor:
     words = (k + 63) // 64
     suppress = suppress.contiguous()
     keep = torch.empty(r, k, dtype=torch.bool, device=suppress.device)
-    mask = torch.empty(r * k * words, dtype=torch.int64, device=suppress.device)
+    # the packed words [r, W, W, 64], then each sweep block's removed words
+    scratch = torch.empty(r * words * words * 64 + min(r, _NMS_GRID_MAX) * words,
+                          dtype=torch.int64, device=suppress.device)
     if keep.numel():
-        _build.NMS_KEEP(suppress.data_ptr(), mask.data_ptr(), keep.data_ptr(), r, k)
+        _build.NMS_KEEP(suppress.data_ptr(), scratch.data_ptr(), keep.data_ptr(), r, k,
+                        _NMS_SMEM_BUDGET)
     return keep
 
 

@@ -1,14 +1,19 @@
 """K9, the attention-ordered ball query (`torch.ops.ssd3d.ball_query_attention`,
 `ssd3d_torch/csrc/ball_query_attention.cu`).
 
-On the CPU the op runs its plain version (`ops.grouping.ball_query_attention_plain`):
-`ops.grouping.ball_query_attention` through it is held to the JAX package's
-`ball_query_attention` (idx and cnt equal) on tie-heavy feature keys, on balls
-smaller than ns and on empty balls; the op itself is held to a direct
-per-query selection in numpy on keys that reach both ends of int32, and
-passes `torch.library.opcheck`. Tests marked `cuda` hold the kernel to the
-plain version bit for bit on the card, on both of its tiers (a ball in shared
-memory, and one past it that streams the cloud); they skip without a card.
+The op takes the features and their squared norms and computes each
+member's key itself. On the CPU it runs its plain version
+(`ops.grouping.ball_query_attention_plain`): `ops.grouping.ball_query_attention`
+through it is held to the JAX package's `ball_query_attention` (idx and cnt
+equal) on tie-heavy features, on balls smaller than ns and on empty balls; the
+op itself is held to a direct per-query selection in numpy, on keys summed in
+channel order in numpy from features that are random, duplicated rows (ties)
+or extreme (keys near both ends of int32), and passes `torch.library.opcheck`;
+its keys are `_order_key(square_distance(...))` bit for bit at one channel.
+Tests marked `cuda` hold the kernel to the plain version bit for bit on the
+card, on each of its tiers (the query tile, the ball list in shared memory,
+the ball list streaming the cloud), forced by the caps `_ATTN_TILE_CAP` and
+`_ATTN_SMEM_CAP`; they skip without a card.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import pytest
 import torch
 
 from ssd3d.ops import grouping as jgrouping
+from ssd3d_torch.core.geometry import square_distance
 from ssd3d_torch.ops import _build, grouping
 
 INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
@@ -85,33 +91,72 @@ def _select(xyz, q, key, r2, ns):
     return idx, cnt
 
 
-def _keys(seed, b, m, n, kind):
+def _feats(seed, b, n, m, kind, cf=4):
+    """Features [b, n, cf] and the queries' (the first m rows): "uniform"
+    normal; "ties" rows drawn from 3 distinct rows (equal keys); "extremes"
+    entries from 0, +-1e-30, +-1 and +-1e18 (keys near both ends of int32,
+    and cancellations that round to 0 or below)."""
     rng = np.random.RandomState(seed)
-    if kind == "extremes":  # both ends of int32, and ties at them
-        return rng.choice([INT32_MIN, INT32_MIN + 1, -1, 0, 1, INT32_MAX - 1, INT32_MAX],
-                          size=(b, m, n)).astype(np.int32)
     if kind == "ties":
-        return rng.randint(-3, 3, size=(b, m, n)).astype(np.int32)
-    return rng.randint(INT32_MIN, INT32_MAX, size=(b, m, n), dtype=np.int64).astype(np.int32)
+        f = rng.randn(b, 3, cf)[np.arange(b)[:, None], rng.randint(0, 3, size=(b, n))]
+    elif kind == "extremes":
+        f = rng.choice([0.0, 1e-30, -1e-30, 1.0, -1.0, 1e18, -1e18], size=(b, n, cf))
+    else:
+        f = rng.randn(b, n, cf)
+    f = f.astype(np.float32)
+    return f, f[:, :m].copy()
+
+
+def _norms(f, nf):
+    """The squared norms as `ball_query_attention` sums them."""
+    f, nf = _t(f), _t(nf)
+    return (nf * nf).sum(-1).float(), (f * f).sum(-1).float()
+
+
+def _np_keys(f, nf, a_sq, b_sq):
+    """The keys written out in numpy f32: cross summed in channel order from
+    0, then the signed order key of (a_sq + b_sq) - 2 * cross."""
+    f, nf = np.asarray(f, np.float32), np.asarray(nf, np.float32)
+    cross = np.zeros((nf.shape[0], nf.shape[1], f.shape[1]), np.float32)
+    for c in range(f.shape[-1]):
+        cross = cross + nf[:, :, None, c] * f[:, None, :, c]
+    d = (np.asarray(a_sq)[..., None] + np.asarray(b_sq)[:, None, :]) - np.float32(2.0) * cross
+    bits = d.astype(np.float32).view(np.int32)
+    return np.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
 
 
 @pytest.mark.parametrize("kind", ["uniform", "ties", "extremes"])
 @pytest.mark.parametrize("radius,ns", [(0.5, 4), (1.5, 16), (3.0, 32)])
 def test_op_is_the_contract(radius, ns, kind):
     xyz, q, _, _ = _cloud(3, n=300, m=40, far=5)
-    key = _keys(4, 2, 40, 300, kind)
+    f, nf = _feats(4, 2, 300, 40, kind)
+    a_sq, b_sq = _norms(f, nf)
     r2 = float(np.float32(radius * radius))
-    want_i, want_c = _select(xyz, q, key, r2, ns)
-    got_i, got_c = torch.ops.ssd3d.ball_query_attention(_t(xyz), _t(q), _t(key), r2, ns)
+    want_i, want_c = _select(xyz, q, _np_keys(f, nf, a_sq, b_sq), r2, ns)
+    got_i, got_c = torch.ops.ssd3d.ball_query_attention(_t(xyz), _t(q), _t(f), _t(nf), a_sq,
+                                                        b_sq, r2, ns)
     np.testing.assert_array_equal(got_c.numpy(), want_c)
     np.testing.assert_array_equal(got_i.numpy(), want_i)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_keys_at_one_channel_are_square_distance_keys(dtype):
+    """At one channel (SA1's) the cross term is one product, so the plain
+    keys equal the order keys of `square_distance` bit for bit."""
+    f = _t(np.random.RandomState(12).randn(2, 300, 1).astype(np.float32) * 3).to(dtype)
+    nf = f[:, :40]
+    a_sq, b_sq = (nf * nf).sum(-1).float(), (f * f).sum(-1).float()
+    got = grouping.attention_keys(nf, f, a_sq, b_sq)
+    assert got.dtype == torch.int32 and got.shape == (2, 40, 300)
+    assert torch.equal(got, grouping._order_key(square_distance(nf, f)))
+
+
 def test_op_passes_opcheck():
     xyz, q, _, _ = _cloud(5, n=200, m=30, far=3)
-    key = _t(_keys(6, 2, 30, 200, "ties"))
+    f, nf = _feats(6, 2, 200, 30, "ties")
     torch.library.opcheck(torch.ops.ssd3d.ball_query_attention,
-                          (_t(xyz), _t(q), key, float(np.float32(1.0)), 8))
+                          (_t(xyz), _t(q), _t(f), _t(nf), *_norms(f, nf),
+                           float(np.float32(1.0)), 8))
 
 
 # -------------------------------------------------- the kernel (needs the card)
@@ -124,10 +169,21 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_vs_plain(xyz, q, key, r2, ns, dev):
-    want = grouping.ball_query_attention_plain(xyz, q, key, r2, ns)
+# K9's tiers by (_ATTN_TILE_CAP, _ATTN_SMEM_CAP): the defaults (query tiles,
+# larger balls listed), every ball listed, balls past 5 members listed and
+# streamed, every ball listed and streamed
+TIERS = {"tile": (grouping._ATTN_TILE_CAP, grouping._ATTN_SMEM_CAP), "list": (0, 4096),
+         "tile5_stream": (5, 5), "stream": (0, 0)}
+
+
+def _kernel_vs_plain(xyz, q, f, nf, r2, ns, dev):
+    """K9 on the card against the plain op on the CPU, both given the same
+    inputs and norms (the norms summed on the CPU)."""
+    a_sq, b_sq = (nf.float() * nf.float()).sum(-1), (f.float() * f.float()).sum(-1)
+    want = torch.ops.ssd3d.ball_query_attention(xyz, q, f, nf, a_sq, b_sq, r2, ns)
     _build.reset_launches()
-    got = torch.ops.ssd3d.ball_query_attention(xyz.to(dev), q.to(dev), key.to(dev), r2, ns)
+    got = torch.ops.ssd3d.ball_query_attention(*(t.to(dev) for t in (xyz, q, f, nf, a_sq, b_sq)),
+                                               r2, ns)
     torch.cuda.synchronize()
     assert _build.launches()["ball_query_attention"] == 1
     for g, w in zip(got, want):
@@ -136,37 +192,51 @@ def _kernel_vs_plain(xyz, q, key, r2, ns, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap", [grouping._ATTN_SMEM_CAP, 5, 0])
+@pytest.mark.parametrize("tier", sorted(TIERS))
 @pytest.mark.parametrize("kind", ["uniform", "ties", "extremes"])
 @pytest.mark.parametrize("radius,ns", [(0.5, 4), (1.5, 16), (3.0, 32), (6.0, 700)])
-def test_kernel_equals_plain(cuda, radius, ns, kind, cap, monkeypatch):
-    """At the default tier and with the shared tier cut to 5 and 0 members
-    (every larger ball streams its cloud)."""
-    monkeypatch.setattr(grouping, "_ATTN_SMEM_CAP", cap)
+def test_kernel_equals_plain(cuda, radius, ns, kind, tier, monkeypatch):
+    """On each tier, with 200 queries (a ragged last query tile) and 20 empty
+    balls a cloud."""
+    monkeypatch.setattr(grouping, "_ATTN_TILE_CAP", TIERS[tier][0])
+    monkeypatch.setattr(grouping, "_ATTN_SMEM_CAP", TIERS[tier][1])
     xyz, q, _, _ = _cloud(7, n=3000, m=200, far=20)
-    key = _t(_keys(8, 2, 200, 3000, kind))
-    _kernel_vs_plain(_t(xyz), _t(q), key, float(np.float32(radius * radius)), ns, cuda)
+    f, nf = _feats(8, 2, 3000, 200, kind)
+    _kernel_vs_plain(*map(_t, (xyz, q, f, nf)), float(np.float32(radius * radius)), ns, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", sorted(TIERS))
+@pytest.mark.parametrize("cf", [1, 64])
+def test_kernel_equals_plain_bf16(cuda, cf, tier, monkeypatch):
+    """bf16 features (widened exactly) at SA1's and SA2's widths."""
+    monkeypatch.setattr(grouping, "_ATTN_TILE_CAP", TIERS[tier][0])
+    monkeypatch.setattr(grouping, "_ATTN_SMEM_CAP", TIERS[tier][1])
+    xyz, q, _, _ = _cloud(13, n=2000, m=100, far=4)
+    f, nf = (_t(a).to(torch.bfloat16) for a in _feats(14, 2, 2000, 100, "uniform", cf=cf))
+    _kernel_vs_plain(_t(xyz), _t(q), f, nf, float(np.float32(1.2 * 1.2)), 32, cuda)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["uniform", "ties"])
 def test_kernel_past_the_shared_tier(cuda, kind):
-    """Balls of up to 30,000 members (the whole cloud), past the shared tier's
-    4,096: the streaming tier at its real size."""
+    """Balls of up to 30,000 members (the whole cloud), past the query
+    tile's 128 and the shared tier's 4,096: the streaming tier at its real
+    size, at the default caps."""
     xyz, q, _, _ = _cloud(9, b=1, n=30000, m=48, far=4)
-    key = _t(_keys(10, 1, 48, 30000, kind))
-    _, cnt = _kernel_vs_plain(_t(xyz), _t(q), key, 400.0, 64, cuda)
+    f, nf = _feats(10, 1, 30000, 48, kind)
+    _, cnt = _kernel_vs_plain(*map(_t, (xyz, q, f, nf)), 400.0, 64, cuda)
     assert int(cnt[0, 0]) == 64
 
 
 @pytest.mark.cuda
 def test_public_query_on_the_card_equals_plain(cuda):
-    """`ball_query_attention` on CUDA tensors: its keys on the card, then K9,
-    equal to the plain version fed the same keys."""
-    xyz, q, f, nf = map(_t, _cloud(11, n=2048, m=512, cf=8, levels=3))
-    r2 = float(np.float32(0.8 * 0.8))
-    got = grouping.ball_query_attention(0.8, 32, *(a.to(cuda) for a in (xyz, q, f, nf)))
-    key = grouping._order_key(grouping.square_distance(nf.to(cuda), f.to(cuda))).cpu()
-    want = grouping.ball_query_attention_plain(xyz, q, key, r2, 32)
+    """`ball_query_attention` on CUDA tensors (its norms on the card, then
+    K9) equal to the plain op fed the same norms."""
+    xyz, q, f, nf = (_t(a).to(cuda) for a in _cloud(11, n=2048, m=512, cf=8, levels=3))
+    got = grouping.ball_query_attention(0.8, 32, xyz, q, f, nf)
+    a_sq, b_sq = (nf * nf).sum(-1).float(), (f * f).sum(-1).float()
+    want = grouping.ball_query_attention_plain(*(t.cpu() for t in (xyz, q, f, nf, a_sq, b_sq)),
+                                               float(np.float32(0.8 * 0.8)), 32)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)

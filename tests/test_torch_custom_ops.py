@@ -52,6 +52,7 @@ def _op_args(device="cpu"):
     specs = grouping.ring_specs([0.8, 1.6], [8, 16], True)
     pick = torch.from_numpy(np.random.RandomState(11).randint(0, 64, (2, 40))
                             .astype(np.int32)).to(device)
+    feats = _t(17, 2, 64, 3).to(device)
     return {
         "fps": (xyz, 16),
         "ffps": (_t(12, 2, 64, 7).to(device), 16),
@@ -63,9 +64,8 @@ def _op_args(device="cpu"):
         "three_nn": (xyz, xyz[:, ::4].contiguous()),
         "sa_fused": _sa_args(device),
         "nms_keep": (torch.from_numpy(np.random.RandomState(16).rand(3, 70, 70) > 0.6).to(device),),
-        "ball_query_attention": (xyz, xyz[:, :12].contiguous(), torch.from_numpy(
-            np.random.RandomState(17).randint(-9, 9, (2, 12, 64)).astype(np.int32)).to(device),
-            0.64, 8),
+        "ball_query_attention": (xyz, xyz[:, :12].contiguous(), feats, feats[:, :12].contiguous(),
+                                 (feats[:, :12] ** 2).sum(-1), (feats ** 2).sum(-1), 0.64, 8),
     }
 
 

@@ -83,16 +83,20 @@ def test_fixed_batch_artifact_equals_live(tiny, tmp_path):
 
 def test_attention_grouping_artifact_equals_live(tmp_path):
     """The tiny 3DSSD with attention grouping on SA1 exports with a symbolic
-    batch (its query chunk does not depend on the batch, and its ball query
-    reads nothing back to the host), and the loaded artifact equals live
-    `infer` bit for bit at batch 1 and 3."""
-    cfg = load_cfg(str(TINY), ["MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE",
-                               str(_attention_arch(TINY))])
+    batch (its ball query reads nothing back to the host), holding one
+    attention query node a radius (the query is not chunked on the card),
+    and the loaded artifact equals live `infer` bit for bit at batch 1 and
+    3."""
+    arch = _attention_arch(TINY)
+    cfg = load_cfg(str(TINY), ["MODEL.NETWORK.FIRST_STAGE.ARCHITECTURE", str(arch)])
     pipe = build_pipeline(cfg, device="cpu")
     init_weights(pipe.model, 0)
     n = cfg.MODEL.POINTS_NUM_FOR_TRAINING
     exported = export_infer(pipe, 2, n, symbolic_batch=True)
     assert {"ball_query_attention", "nms_keep"} <= _custom_ops(exported)
+    queries = [node for node in exported.graph.nodes if node.op == "call_function"
+               and str(node.target).startswith("ssd3d.ball_query_attention")]
+    assert len(queries) == len(arch[0][2])  # SA1's radii
     served = _round_trip(exported, tmp_path / "attention.pt2")
     for b in (1, 3):
         points = _scans(b, n, seed=5)

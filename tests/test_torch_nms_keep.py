@@ -9,8 +9,11 @@ everything suppressed, nothing suppressed, equal scores and random
 overlaps; the kept sets (idx and valid with max_output past k) must be equal
 exactly. The plain version is also held to a direct greedy loop in numpy,
 and the op passes `torch.library.opcheck`. Tests marked `cuda` hold the
-kernel to the plain version bit for bit on the card, at the same shapes and
-at the proposal NMS's 2,048 candidates over 16 rows; they skip without one.
+kernel to the plain version bit for bit on the card, at the same shapes, at
+the proposal NMS's 2,048 candidates over 16 rows, around its tiles of 64
+candidates with everything, nothing or a chain suppressed, past 65,535 rows,
+and with a tile's rows staged in column chunks and its removed words in the
+scratch (the test seam `nms._NMS_SMEM_BUDGET`); they skip without one.
 """
 
 from __future__ import annotations
@@ -190,3 +193,54 @@ def test_kernel_equals_plain_on_nms_matrices(cuda, k, kind):
     sorted_boxes = _t(boxes)[order][None]
     s = nms.aabb_iou(sorted_boxes, sorted_boxes) > 0.3
     assert torch.equal(nms.nms_keep(s.to(cuda)).cpu(), nms.nms_keep_plain(s))
+
+
+def _patterned(r: int, k: int, kind: str) -> torch.Tensor:
+    """suppress [r, k, k]: "all" (the first candidate suppresses the rest),
+    "none", or "chain" (each candidate suppresses only the next: every other
+    one is kept, a chain 64 long inside every tile)."""
+    if kind == "all":
+        return torch.ones(r, k, k, dtype=torch.bool)
+    s = torch.zeros(r, k, k, dtype=torch.bool)
+    if kind == "chain":
+        i = torch.arange(k - 1)
+        s[:, i, i + 1] = True
+    return s
+
+
+def _kernel_vs_plain(s: torch.Tensor, dev) -> torch.Tensor:
+    want = nms.nms_keep_plain(s)
+    _build.reset_launches()
+    got = nms.nms_keep(s.to(dev))
+    torch.cuda.synchronize()
+    assert _build.launches()["nms_keep"] == 1
+    assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["all", "none", "chain"])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 127, 2048, 3000])
+def test_kernel_tiles_equal_plain(cuda, k, kind):
+    keep = _kernel_vs_plain(_patterned(2, k, kind), cuda)
+    if kind == "chain":
+        assert torch.equal(keep[0], torch.arange(k) % 2 == 0)
+
+
+@pytest.mark.cuda
+def test_kernel_past_65535_rows(cuda):
+    """More rows than sweep blocks: a block sweeps several rows."""
+    _kernel_vs_plain(_t(_suppress(70000, 5, 0.5, 3)), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [3000, 1100])
+@pytest.mark.parametrize("k", [65, 300, 2048])
+def test_kernel_in_column_chunks(cuda, k, budget, monkeypatch):
+    """A sweep block given 3,000 shared bytes stages two words of a tile a
+    time (its removed words, up to 256 bytes, in shared memory); given
+    1,100, one word, and at k = 2,048 the removed words live in the
+    scratch (256 bytes and a word column do not fit)."""
+    monkeypatch.setattr(nms, "_NMS_SMEM_BUDGET", budget)
+    _kernel_vs_plain(_t(_suppress(3, k, 0.02, k + budget)), cuda)
+    _kernel_vs_plain(_patterned(2, k, "chain"), cuda)
