@@ -551,7 +551,9 @@ def count_syncs(fn, what: str) -> int:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    # one warning a sync; the first switch to "warn" in a process also warns once
+    # that the mode is a prototype ("... all synchronizing operations"), not a sync
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
     sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
     log(f"{what}: {len(syncs)} synchronizing operations left in one pass (set_sync_debug_mode "
         f"warn); most frequent sites: {sites.most_common(5)}")
@@ -4685,8 +4687,10 @@ def profile_flagship(root: str, scans: torch.Tensor, card: str) -> None:
         check(any(re.search(pattern, name) for name, _ in by_name),
               f"the trace summary names no {kernel} kernel ({pattern})")
     total = sum(ms for _, ms in by_cat)
+    # the spans' annotations on the card's timeline are not device work
     averages = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)) / 1e3
     check(abs(total - averages) <= TRACE_TOTAL_RTOL * averages,
           f"trace summary {total:.3f} ms of device time, key_averages {averages:.3f} ms")
     log(f"profiling.trace of one flagship batch of {scans.shape[0]}: device {total:.3f} ms in "

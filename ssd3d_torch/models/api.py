@@ -18,6 +18,7 @@ from ssd3d_torch.models.single_stage import build_detector
 from ssd3d_torch.models.two_stage import build_two_stage, foreground_mask
 from ssd3d_torch.train.train_step import TrainGraph
 from ssd3d_torch.train.two_stage_step import TwoStageGraph
+from ssd3d_torch.utils.profiling import span
 
 
 class SingleStageInference(torch.nn.Module):
@@ -32,7 +33,9 @@ class SingleStageInference(torch.nn.Module):
     def forward(self, points: torch.Tensor) -> dict:
         """points [bs, n, 4] -> detections (boxes, scores, classes, valid,
         index; with the nuScenes heads velocity and attribute too)."""
-        return self.spec.decode_and_nms(self.model(points))
+        outputs = self.model(points)
+        with span("ssd3d.decode"):
+            return self.spec.decode_and_nms(outputs)
 
 
 class TwoStageInference(torch.nn.Module):
@@ -55,19 +58,22 @@ class TwoStageInference(torch.nn.Module):
         package's DoubleStage `infer` returns them."""
         model = self.model
         rpn_out = model.rpn(points)
-        proposals, scores, valid = self.rpn_spec.propose(rpn_out)
-        if self.only_first:
-            return {"boxes": proposals, "scores": scores,
-                    "classes": torch.zeros(scores.shape, dtype=torch.int32, device=scores.device),
-                    "valid": valid}
-        mask = foreground_mask(rpn_out)
+        with span("ssd3d.proposals"):
+            proposals, scores, valid = self.rpn_spec.propose(rpn_out)
+            if self.only_first:
+                return {"boxes": proposals, "scores": scores,
+                        "classes": torch.zeros(scores.shape, dtype=torch.int32,
+                                               device=scores.device),
+                        "valid": valid}
+            mask = foreground_mask(rpn_out)
         p = proposals.shape[1]
         chunk = rcnn_chunk(p, self.chunk_limit)
         parts = [model.rcnn(rpn_out["base_xyz"], rpn_out["feature"], mask,
                             proposals[:, c0:c0 + chunk]) for c0 in range(0, p, chunk)]
-        out = {k: torch.cat([part[k] for part in parts], dim=1) for k in parts[0]}
-        out["proposals"] = proposals
-        dets = self.rcnn_spec.final_detections(out)
+        with span("ssd3d.decode"):
+            out = {k: torch.cat([part[k] for part in parts], dim=1) for k in parts[0]}
+            out["proposals"] = proposals
+            dets = self.rcnn_spec.final_detections(out)
         dets["proposals"] = proposals
         dets["proposals_valid"] = valid
         return dets
@@ -90,7 +96,8 @@ class Pipeline:
 
     @torch.inference_mode()
     def infer(self, points: torch.Tensor) -> dict:
-        return self.inference(points)
+        with span("ssd3d.infer"):
+            return self.inference(points)
 
 
 def rcnn_chunk(p: int, limit: int) -> int:

@@ -28,6 +28,7 @@ from ssd3d_torch.nn.modules import (
     PointnetSAModuleMSG,
     VoteLayer,
 )
+from ssd3d_torch.utils.profiling import span
 
 
 class PointBackbone(nn.Module):
@@ -44,6 +45,7 @@ class PointBackbone(nn.Module):
         feat_ch = list(prefix_channels) + [in_channels]
         used_names: set = set()
         self.layers: list[tuple] = []  # (scope, layer_type, spec)
+        self.span_names: list[str] = []  # a layer's span, named by its scope
         for layer_i, spec in enumerate(architecture):
             (xyz_idx, feat_idx, radius_list, nsample_list, mlp_list, bn,
              fps_range_list, fps_method_list, npoint_list, former_fps_from,
@@ -78,6 +80,7 @@ class PointBackbone(nn.Module):
             self.add_module(scope, module)
             feat_ch.append(module.out_channels)
             self.layers.append((scope, layer_type, spec))
+            self.span_names.append(f"ssd3d.backbone.{scope}")
         self.feature_channels = feat_ch
 
     def forward(self, points: torch.Tensor, bn_momentum: float = 0.9,
@@ -90,32 +93,33 @@ class PointBackbone(nn.Module):
         feature_list: list = list(prefix_features) + [points[..., 3:]]
         fps_idx_list: list = [None] * (self.n_prefix + 1)
         vote_base, vote_offset = [], []
-        for scope, layer_type, spec in self.layers:
+        for (scope, layer_type, spec), name in zip(self.layers, self.span_names):
             xyz_idx, feat_idx = spec[0], spec[1]
             former_fps_from, vote_ctr_from = spec[9], spec[14]
-            module = getattr(self, scope)
-            xyz_in = xyz_list[xyz_idx[0]]
-            feat_in = feature_list[feat_idx[0]]
-            if layer_type == "SA_Layer":
-                former = fps_idx_list[former_fps_from] if former_fps_from != -1 else None
-                vote_ctr = xyz_list[vote_ctr_from] if vote_ctr_from != -1 else None
-                new_xyz, new_feat, new_fps_idx = module(xyz_in, feat_in, former, vote_ctr,
-                                                       bn_momentum)
-                fps_idx_list.append(new_fps_idx)
-            elif layer_type == "Vote_Layer":
-                new_xyz, new_feat, offsets = module(xyz_in, feat_in, bn_momentum)
-                vote_base.append(xyz_in)
-                vote_offset.append(offsets)
-                fps_idx_list.append(None)
-            elif layer_type == "FP_Layer":
-                new_xyz = xyz_in
-                new_feat = module(xyz_in, xyz_list[xyz_idx[1]], feat_in,
-                                  feature_list[feat_idx[1]], bn_momentum)
-                fps_idx_list.append(None)
-            else:  # SA_Layer_SSG_Last: one feature vector per cloud, no xyz
-                new_xyz = None
-                new_feat = module(xyz_in, feat_in, bn_momentum)
-                fps_idx_list.append(None)
+            with span(name):
+                module = getattr(self, scope)
+                xyz_in = xyz_list[xyz_idx[0]]
+                feat_in = feature_list[feat_idx[0]]
+                if layer_type == "SA_Layer":
+                    former = fps_idx_list[former_fps_from] if former_fps_from != -1 else None
+                    vote_ctr = xyz_list[vote_ctr_from] if vote_ctr_from != -1 else None
+                    new_xyz, new_feat, new_fps_idx = module(xyz_in, feat_in, former, vote_ctr,
+                                                           bn_momentum)
+                    fps_idx_list.append(new_fps_idx)
+                elif layer_type == "Vote_Layer":
+                    new_xyz, new_feat, offsets = module(xyz_in, feat_in, bn_momentum)
+                    vote_base.append(xyz_in)
+                    vote_offset.append(offsets)
+                    fps_idx_list.append(None)
+                elif layer_type == "FP_Layer":
+                    new_xyz = xyz_in
+                    new_feat = module(xyz_in, xyz_list[xyz_idx[1]], feat_in,
+                                      feature_list[feat_idx[1]], bn_momentum)
+                    fps_idx_list.append(None)
+                else:  # SA_Layer_SSG_Last: one feature vector per cloud, no xyz
+                    new_xyz = None
+                    new_feat = module(xyz_in, feat_in, bn_momentum)
+                    fps_idx_list.append(None)
             xyz_list.append(new_xyz)
             feature_list.append(new_feat)
         return {

@@ -22,6 +22,7 @@ from ssd3d_torch.models.backbone import PointBackbone
 from ssd3d_torch.models.heads import DetectionHead, IoUHead
 from ssd3d_torch.ops import _build
 from ssd3d_torch.ops.nms import batched_class_nms
+from ssd3d_torch.utils.profiling import span
 
 
 class SingleStageDetector(nn.Module):
@@ -63,7 +64,10 @@ class SingleStageDetector(nn.Module):
         """points: [bs, n, 3 + c] -> dict of raw network outputs. In train
         mode BatchNorm uses batch statistics and moves its running ones by
         `bn_momentum`."""
-        return self.predict(self.backbone(points, bn_momentum), bn_momentum)
+        with span("ssd3d.backbone"):
+            net = self.backbone(points, bn_momentum)
+        with span("ssd3d.head"):
+            return self.predict(net, bn_momentum)
 
     def predict(self, net: dict, bn_momentum: float = 0.9) -> dict:
         """The heads over the backbone's output lists (`backbone(points)`),

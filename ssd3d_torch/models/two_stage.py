@@ -36,6 +36,7 @@ from ssd3d_torch.nn.modules import max_pool
 from ssd3d_torch.ops import _build
 from ssd3d_torch.ops.grouping import _first_k, gather_rows, group_points, query_boxes_3d_points
 from ssd3d_torch.ops.nms import batched_class_nms, class_unaware_nms
+from ssd3d_torch.utils.profiling import span
 
 
 def expand_boxes(boxes: torch.Tensor, context: float) -> torch.Tensor:
@@ -248,22 +249,26 @@ class TwoStageDetector(nn.Module):
 
     def rpn(self, points: torch.Tensor, bn_momentum: float = 0.9) -> dict:
         """points [bs, n, 4] -> the RPN's per-point outputs."""
-        net = self.rpn_backbone(points, bn_momentum)
-        out = self._predict(self.rpn_heads, net, bn_momentum)
-        out["vote_base"], out["vote_offset"] = net["vote_base"], net["vote_offset"]
-        return out
+        with span("ssd3d.rpn"):
+            net = self.rpn_backbone(points, bn_momentum)
+            out = self._predict(self.rpn_heads, net, bn_momentum)
+            out["vote_base"], out["vote_offset"] = net["vote_base"], net["vote_offset"]
+            return out
 
     def rcnn(self, base_xyz, base_feature, base_mask, proposals, bn_momentum: float = 0.9) -> dict:
         """proposals [bs, p, 7] (bottom-face boxes) -> per-proposal
         refinement outputs [bs, p, ...] and the pool's has-points mask."""
         bs, p = proposals.shape[:2]
-        pool_out, pool_mask = getattr(self, self.pool_name)(
-            base_xyz, base_feature, base_mask, proposals, bn_momentum)
-        ctr = boxes_bottom_to_center(proposals)[..., 0:3]
-        net = self.rcnn_backbone(pool_out, bn_momentum, prefix_xyz=(ctr,), prefix_features=(None,))
-        out = self._predict(self.rcnn_heads, net, bn_momentum, fold=(bs, p))
-        out["pool_mask"] = pool_mask
-        return out
+        with span("ssd3d.rcnn"):
+            with span("ssd3d.rcnn.pool"):
+                pool_out, pool_mask = getattr(self, self.pool_name)(
+                    base_xyz, base_feature, base_mask, proposals, bn_momentum)
+            ctr = boxes_bottom_to_center(proposals)[..., 0:3]
+            net = self.rcnn_backbone(pool_out, bn_momentum, prefix_xyz=(ctr,),
+                                     prefix_features=(None,))
+            out = self._predict(self.rcnn_heads, net, bn_momentum, fold=(bs, p))
+            out["pool_mask"] = pool_mask
+            return out
 
     def forward(self, points: torch.Tensor, rpn_spec: "StageSpec", bn_momentum: float = 0.9):
         """The whole test-mode forward: RPN, proposals, RCNN."""

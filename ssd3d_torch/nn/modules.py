@@ -40,6 +40,7 @@ from ssd3d_torch.ops.sampling import (
     farthest_point_sample_features,
     gather_points,
 )
+from ssd3d_torch.utils.profiling import span
 
 
 # the RoI regime's least number of clouds for the fused route
@@ -199,42 +200,47 @@ class PointnetSAModuleMSG(nn.Module):
                 former_fps_idx: torch.Tensor | None = None,
                 vote_ctr: torch.Tensor | None = None, bn_momentum: float = 0.9):
         bs = xyz.shape[0]
-        if vote_ctr is not None:
-            # CG layer: the centres are the vote outputs, not FPS picks
-            npoint = vote_ctr.shape[1]
-            fps_idx = torch.arange(npoint, dtype=torch.int32, device=xyz.device).expand(bs, npoint)
-        else:
-            fps_idx = _fusion_sample(xyz.detach(), features.detach(),
-                                     self.fps_sample_range_list, self.fps_method_list,
-                                     self.npoint_list)
-        if former_fps_idx is not None:
-            fps_idx = torch.cat([fps_idx, former_fps_idx], dim=-1)
-        new_xyz = gather_points(vote_ctr if vote_ctr is not None else xyz, fps_idx)
+        with span("ssd3d.sa.sample"):
+            if vote_ctr is not None:
+                # CG layer: the centres are the vote outputs, not FPS picks
+                npoint = vote_ctr.shape[1]
+                fps_idx = torch.arange(npoint, dtype=torch.int32,
+                                       device=xyz.device).expand(bs, npoint)
+            else:
+                fps_idx = _fusion_sample(xyz.detach(), features.detach(),
+                                         self.fps_sample_range_list, self.fps_method_list,
+                                         self.npoint_list)
+            if former_fps_idx is not None:
+                fps_idx = torch.cat([fps_idx, former_fps_idx], dim=-1)
+            new_xyz = gather_points(vote_ctr if vote_ctr is not None else xyz, fps_idx)
 
-        if self.n_scales == 0:
-            # radius-less layer: a pure gather (3DSSD's pre-vote selection)
-            return new_xyz, gather_points(features, fps_idx), fps_idx
+            if self.n_scales == 0:
+                # radius-less layer: a pure gather (3DSSD's pre-vote selection)
+                return new_xyz, gather_points(features, fps_idx), fps_idx
 
-        if self.use_attention:
-            # the centres' features through the row gather (K4 on the card)
-            feats = features.detach()
-            new_feat = gather_rows(feats, fps_idx)
-            queries = [ball_query_attention(r, ns, xyz.detach(), new_xyz.detach(), feats, new_feat)
-                       for r, ns in zip(self.radius_list, self.nsample_list)]
-        else:
-            queries = ball_query_multi(self.radius_list, self.nsample_list, xyz.detach(),
-                                       new_xyz.detach(), dilated=self.dilated_group)
-        # one packed gather per scale instead of separate xyz / feature gathers
-        packed_src = torch.cat([features, xyz], dim=-1)
-        flat = tuple(t for query in queries for t in query)
-        fused = self._use_fused(packed_src, queries)
-        if fused is None:
-            new_features = torch.cond(packed_src.shape[0] >= FUSED_MIN_CLOUDS, self._fused,
-                                      self._grouped, (packed_src, new_xyz) + flat)
-        elif fused:
-            new_features = self._fused(packed_src, new_xyz, *flat)
-        else:
-            new_features = self._grouped(packed_src, new_xyz, *flat, bn_momentum=bn_momentum)
+        with span("ssd3d.sa.group"):
+            if self.use_attention:
+                # the centres' features through the row gather (K4 on the card)
+                feats = features.detach()
+                new_feat = gather_rows(feats, fps_idx)
+                queries = [ball_query_attention(r, ns, xyz.detach(), new_xyz.detach(), feats,
+                                                new_feat)
+                           for r, ns in zip(self.radius_list, self.nsample_list)]
+            else:
+                queries = ball_query_multi(self.radius_list, self.nsample_list, xyz.detach(),
+                                           new_xyz.detach(), dilated=self.dilated_group)
+        with span("ssd3d.sa.mlp"):
+            # one packed gather per scale instead of separate xyz / feature gathers
+            packed_src = torch.cat([features, xyz], dim=-1)
+            flat = tuple(t for query in queries for t in query)
+            fused = self._use_fused(packed_src, queries)
+            if fused is None:
+                new_features = torch.cond(packed_src.shape[0] >= FUSED_MIN_CLOUDS, self._fused,
+                                          self._grouped, (packed_src, new_xyz) + flat)
+            elif fused:
+                new_features = self._fused(packed_src, new_xyz, *flat)
+            else:
+                new_features = self._grouped(packed_src, new_xyz, *flat, bn_momentum=bn_momentum)
         return new_xyz, new_features, fps_idx
 
 

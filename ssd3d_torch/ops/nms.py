@@ -24,6 +24,7 @@ from ssd3d_torch.core.geometry import boxes_to_bev_aabb
 from ssd3d_torch.ops import _build
 from ssd3d_torch.core.iou import aabb_iou
 from ssd3d_torch.ops.topk import top_k_set
+from ssd3d_torch.utils.profiling import span
 
 
 def nms_keep_plain(suppress: torch.Tensor) -> torch.Tensor:
@@ -190,22 +191,24 @@ def class_unaware_nms(boxes_3d: torch.Tensor, scores: torch.Tensor, max_output: 
 
     -> (boxes [b, max_output, 7], scores [b, max_output] (0 where not
     valid), valid bool [b, max_output])."""
-    b, n, _ = scores.shape
-    best_score = scores.amax(-1)
-    if boxes_3d.shape[2] == 1:
-        boxes = boxes_3d[:, :, 0]
-    else:
-        best_cls = scores.argmax(-1)
-        boxes = boxes_3d.gather(2, best_cls[..., None, None].expand(b, n, 1, 7))[:, :, 0]
-    if pre_topk and n > pre_topk:
-        top_i = top_k_set(best_score, pre_topk)[0].long()
-        boxes = boxes.gather(1, top_i[..., None].expand(-1, -1, 7))
-        best_score = best_score.gather(1, top_i)
-    idx, valid = _nms_rows(boxes_to_bev_aabb(boxes), best_score, max_output, iou_threshold)
-    gidx = idx.long()
-    out_boxes = boxes.gather(1, gidx[..., None].expand(-1, -1, 7))
-    out_scores = torch.where(valid, best_score.gather(1, gidx), torch.zeros_like(best_score[:, :1]))
-    return out_boxes, out_scores, valid
+    with span("ssd3d.nms"):
+        b, n, _ = scores.shape
+        best_score = scores.amax(-1)
+        if boxes_3d.shape[2] == 1:
+            boxes = boxes_3d[:, :, 0]
+        else:
+            best_cls = scores.argmax(-1)
+            boxes = boxes_3d.gather(2, best_cls[..., None, None].expand(b, n, 1, 7))[:, :, 0]
+        if pre_topk and n > pre_topk:
+            top_i = top_k_set(best_score, pre_topk)[0].long()
+            boxes = boxes.gather(1, top_i[..., None].expand(-1, -1, 7))
+            best_score = best_score.gather(1, top_i)
+        idx, valid = _nms_rows(boxes_to_bev_aabb(boxes), best_score, max_output, iou_threshold)
+        gidx = idx.long()
+        out_boxes = boxes.gather(1, gidx[..., None].expand(-1, -1, 7))
+        out_scores = torch.where(valid, best_score.gather(1, gidx),
+                                 torch.zeros_like(best_score[:, :1]))
+        return out_boxes, out_scores, valid
 
 
 def batched_class_nms(boxes_3d: torch.Tensor, bev_boxes: torch.Tensor,
@@ -217,24 +220,25 @@ def batched_class_nms(boxes_3d: torch.Tensor, bev_boxes: torch.Tensor,
     scores: [b, n, cls] -> dict of boxes [b, cls*max_output, 7],
     scores, classes (int32), valid (bool), index (int32), each
     [b, cls*max_output]."""
-    b, n, cls_num = scores.shape
-    reg_idx = torch.arange(cls_num, device=scores.device).clamp(max=boxes_3d.shape[2] - 1)
-    box_pc = boxes_3d.permute(0, 2, 1, 3)[:, reg_idx]  # [b, cls, n, 7]
-    bev_pc = bev_boxes.permute(0, 2, 1, 3)[:, reg_idx]  # [b, cls, n, 4]
-    sc_pc = scores.permute(0, 2, 1)  # [b, cls, n]
-    idx, valid = _nms_rows(bev_pc.reshape(b * cls_num, n, 4),
-                           sc_pc.reshape(b * cls_num, n), max_output, iou_threshold)
-    idx = idx.reshape(b, cls_num, max_output)
-    valid = valid.reshape(b, cls_num, max_output)
-    gidx = idx.long()
-    boxes = box_pc.gather(2, gidx[..., None].expand(-1, -1, -1, 7))
-    s_out = torch.where(valid, sc_pc.gather(2, gidx), torch.full_like(sc_pc[..., :1], -1.0))
-    cat = torch.arange(cls_num, dtype=torch.int32, device=scores.device)
-    cat = cat[None, :, None].expand(b, cls_num, max_output)
-    return {
-        "boxes": boxes.reshape(b, cls_num * max_output, 7),
-        "scores": s_out.reshape(b, -1),
-        "classes": cat.reshape(b, -1),
-        "valid": valid.reshape(b, -1),
-        "index": idx.reshape(b, -1),
-    }
+    with span("ssd3d.nms"):
+        b, n, cls_num = scores.shape
+        reg_idx = torch.arange(cls_num, device=scores.device).clamp(max=boxes_3d.shape[2] - 1)
+        box_pc = boxes_3d.permute(0, 2, 1, 3)[:, reg_idx]  # [b, cls, n, 7]
+        bev_pc = bev_boxes.permute(0, 2, 1, 3)[:, reg_idx]  # [b, cls, n, 4]
+        sc_pc = scores.permute(0, 2, 1)  # [b, cls, n]
+        idx, valid = _nms_rows(bev_pc.reshape(b * cls_num, n, 4),
+                               sc_pc.reshape(b * cls_num, n), max_output, iou_threshold)
+        idx = idx.reshape(b, cls_num, max_output)
+        valid = valid.reshape(b, cls_num, max_output)
+        gidx = idx.long()
+        boxes = box_pc.gather(2, gidx[..., None].expand(-1, -1, -1, 7))
+        s_out = torch.where(valid, sc_pc.gather(2, gidx), torch.full_like(sc_pc[..., :1], -1.0))
+        cat = torch.arange(cls_num, dtype=torch.int32, device=scores.device)
+        cat = cat[None, :, None].expand(b, cls_num, max_output)
+        return {
+            "boxes": boxes.reshape(b, cls_num * max_output, 7),
+            "scores": s_out.reshape(b, -1),
+            "classes": cat.reshape(b, -1),
+            "valid": valid.reshape(b, -1),
+            "index": idx.reshape(b, -1),
+        }

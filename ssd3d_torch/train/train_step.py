@@ -43,6 +43,7 @@ from ssd3d_torch.train.assigner import AssignerConfig, assign_targets
 from ssd3d_torch.train.device_aug import AugDraws, augment_batch
 from ssd3d_torch.train.device_aug import draw as draw_augmentation
 from ssd3d_torch.train.schedules import bn_momentum, learning_rate
+from ssd3d_torch.utils.profiling import span
 
 MAX_GRAD_NORM = 5.0
 
@@ -186,23 +187,29 @@ def optimizer_step(state: TrainState, solver_cfg, compute_losses,
     `grad_norm` and `param_norm`) as tensors on the model's device, but
     `lr`, a float. Under data parallelism the backward is scaled by the rank
     count (`dp.backward_scale`) and the losses are the global batch's,
-    summed over the ranks."""
-    bn_m = bn_momentum(solver_cfg, state.step)
-    lr = learning_rate(solver_cfg, state.step)
-    state.model.zero_grad(set_to_none=True)
-    total, loss_dict = compute_losses(bn_m)
-    (total * dp.backward_scale() if world() > 1 else total).backward()
-    metrics = dp.sum_over_ranks({k: v.detach() for k, v in loss_dict.items()}
-                                | {"total": total.detach()})
-    metrics["lr"] = lr
-    if histograms:
-        metrics["grad_norm"] = global_norm(
-            [p.grad for p in state.model.parameters() if p.grad is not None])
-    apply_update(state, lr)
-    if histograms:
-        with torch.no_grad():
-            metrics["param_norm"] = global_norm(list(state.model.parameters()))
-    return metrics
+    summed over the ranks. Spans: `ssd3d.train.step` around it all; under it
+    the forward, targets and loss (opened by `compute_losses`), the
+    backward, the metrics and the update."""
+    with span("ssd3d.train.step"):
+        bn_m = bn_momentum(solver_cfg, state.step)
+        lr = learning_rate(solver_cfg, state.step)
+        state.model.zero_grad(set_to_none=True)
+        total, loss_dict = compute_losses(bn_m)
+        with span("ssd3d.train.backward"):
+            (total * dp.backward_scale() if world() > 1 else total).backward()
+        with span("ssd3d.train.metrics"):
+            metrics = dp.sum_over_ranks({k: v.detach() for k, v in loss_dict.items()}
+                                        | {"total": total.detach()})
+            metrics["lr"] = lr
+            if histograms:
+                metrics["grad_norm"] = global_norm(
+                    [p.grad for p in state.model.parameters() if p.grad is not None])
+        with span("ssd3d.train.update"):
+            apply_update(state, lr)
+        if histograms:
+            with span("ssd3d.train.metrics"), torch.no_grad():
+                metrics["param_norm"] = global_norm(list(state.model.parameters()))
+        return metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,18 +256,22 @@ class TrainGraph:
         augmented first with `draws`) -> (total, loss dict).
         Moves the BatchNorm running statistics by `bn_m` (the JAX version
         returns them as mutated batch_stats)."""
-        if self.aug_cfg is not None:
-            batch = augment_batch(batch, self.aug_cfg, draws)
-        outputs = self.model(batch["points"], bn_m)
+        with span("ssd3d.train.forward"):
+            if self.aug_cfg is not None:
+                batch = augment_batch(batch, self.aug_cfg, draws)
+            outputs = self.model(batch["points"], bn_m)
         base_xyz = outputs["base_xyz"]
-        anchors = self.spec.anchors(base_xyz)
-        targets = assign_targets(self.assigner_cfg, base_xyz, anchors,
-                                 batch["gt_boxes"], batch["gt_labels"],
-                                 gt_velocity=batch.get("gt_velocity"),
-                                 gt_attribute=batch.get("gt_attribute"))
-        loss_dict = L.compute_stage_losses(self.loss_cfg, self.spec.coder, outputs, targets,
-                                           anchors, base_xyz, gt_boxes_scene=batch["gt_boxes"])
-        return sum(loss_dict.values()), loss_dict
+        with span("ssd3d.train.targets"):
+            anchors = self.spec.anchors(base_xyz)
+            targets = assign_targets(self.assigner_cfg, base_xyz, anchors,
+                                     batch["gt_boxes"], batch["gt_labels"],
+                                     gt_velocity=batch.get("gt_velocity"),
+                                     gt_attribute=batch.get("gt_attribute"))
+        with span("ssd3d.train.loss"):
+            loss_dict = L.compute_stage_losses(self.loss_cfg, self.spec.coder, outputs, targets,
+                                               anchors, base_xyz,
+                                               gt_boxes_scene=batch["gt_boxes"])
+            return sum(loss_dict.values()), loss_dict
 
     def train_step(self, state: TrainState, batch: dict, seed: int = 0,
                    draws: AugDraws | None = None) -> dict:

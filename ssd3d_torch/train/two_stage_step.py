@@ -33,6 +33,7 @@ from ssd3d_torch.parallel.distributed import world
 from ssd3d_torch.train import losses as L
 from ssd3d_torch.train.assigner import AssignerConfig, assign_targets
 from ssd3d_torch.train.train_step import TrainState, new_state, optimizer_step
+from ssd3d_torch.utils.profiling import span
 
 
 def gather_tree_by_mask(tree: dict, mask: torch.Tensor, k: int) -> dict:
@@ -101,29 +102,34 @@ class TwoStageGraph:
         running statistics by `bn_m`."""
         model = self.model
         gt_boxes, gt_labels = batch["gt_boxes"], batch["gt_labels"]
-        with torch.no_grad() if self.freeze_rpn else contextlib.nullcontext():
+        with span("ssd3d.train.forward"), \
+                torch.no_grad() if self.freeze_rpn else contextlib.nullcontext():
             rpn_out = model.rpn(batch["points"], bn_m)
         base_xyz = rpn_out["base_xyz"]
-        anchors1 = self.rpn_spec.anchors(base_xyz)
-        targets1 = assign_targets(self.assigner_1, base_xyz, anchors1, gt_boxes, gt_labels)
-        losses1 = L.compute_stage_losses(self.loss_cfg_1, self.rpn_spec.coder, rpn_out, targets1,
-                                         anchors1, base_xyz, gt_boxes_scene=gt_boxes)
+        with span("ssd3d.train.targets"):
+            anchors1 = self.rpn_spec.anchors(base_xyz)
+            targets1 = assign_targets(self.assigner_1, base_xyz, anchors1, gt_boxes, gt_labels)
+        with span("ssd3d.train.loss"):
+            losses1 = L.compute_stage_losses(self.loss_cfg_1, self.rpn_spec.coder, rpn_out,
+                                             targets1, anchors1, base_xyz, gt_boxes_scene=gt_boxes)
         loss_dict = {f"loss_stage0/{k}": v for k, v in losses1.items()}
 
         if not self.only_first_stage:
             # the proposals, their targets and the minibatch are data: the
             # stage-1 gradients flow through the stage-1 losses only
             rpn_sg = {k: v.detach() if torch.is_tensor(v) else v for k, v in rpn_out.items()}
-            with torch.no_grad():
+            with span("ssd3d.train.targets"), torch.no_grad():
                 proposals, targets2 = self.stage2_targets(rpn_sg, gt_boxes, gt_labels, uniforms)
                 base_mask = (torch.sigmoid(rpn_sg["cls"].amax(-1, keepdim=True))
                              >= self.pool_mask_thresh).float()
             feature = rpn_sg["feature"] if self.freeze_rpn else rpn_out["feature"]
-            rcnn_out = model.rcnn(rpn_sg["base_xyz"], feature, base_mask, proposals, bn_m)
+            with span("ssd3d.train.forward"):
+                rcnn_out = model.rcnn(rpn_sg["base_xyz"], feature, base_mask, proposals, bn_m)
             rcnn_out["proposals"] = proposals
-            losses2 = L.compute_stage_losses(
-                self.loss_cfg_2, self.rcnn_spec.coder, rcnn_out, targets2,
-                proposals[:, :, None, :], boxes_bottom_to_center(proposals)[..., 0:3])
+            with span("ssd3d.train.loss"):
+                losses2 = L.compute_stage_losses(
+                    self.loss_cfg_2, self.rcnn_spec.coder, rcnn_out, targets2,
+                    proposals[:, :, None, :], boxes_bottom_to_center(proposals)[..., 0:3])
             loss_dict.update({f"loss_stage1/{k}": v for k, v in losses2.items()})
 
         if self.loss_prefixes:

@@ -7,8 +7,12 @@ reference has none, SURVEY §5: only wall-clock prints).
   `key_averages()` and `events()` stay readable after the block).
 - `summarize_trace(log_dir)`: the newest trace under `log_dir` summed by
   name or by category, readable without TensorBoard or Perfetto.
-- `Stopwatch`: a step timer that waits for the step's output (CUDA
-  launches return before the card is done).
+- `span(name)`: a span at one of the port's layer boundaries, the
+  profiler's own `record_function` while a profiler runs, else a shared
+  no-op. Every span name starts with `ssd3d.` (the custom ops are
+  `ssd3d::<op>`); spans nest on the calling thread.
+- `span_device_times(events)`: the profiler's events reduced to each
+  span's device time and kernel count.
 """
 
 from __future__ import annotations
@@ -22,10 +26,57 @@ import os
 import time
 
 import torch
-from torch.utils import _pytree
 
 # the trace's event categories of work on the card
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_PREFIX = "ssd3d."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span named `name` (`ssd3d.<layer>`) around a layer of the port:
+    while a profiler runs, `torch.profiler.record_function(name)`, an event
+    of the profiler's own on its clock, whose parent is the span around it;
+    otherwise one shared no-op context, so that a span costs one check of
+    the profiler's state when nothing traces (`torch.export` included)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def _linked(e) -> tuple[float, int]:
+    """Device µs and kernels linked to event `e` or to an event inside it."""
+    us = sum(k.duration for k in e.kernels)
+    n = sum(1 for k in e.kernels if not k.name.startswith(("Memcpy", "Memset")))
+    for c in e.cpu_children:
+        cu, cn = _linked(c)
+        us, n = us + cu, n + cn
+    return us, n
+
+
+def span_device_times(events) -> dict[str, tuple[float, int]]:
+    """A profile's events (`prof.events()`) -> {span name: (device µs, kernels)}
+    summed over every `ssd3d.` span of that name: the device work (kernels,
+    copies, sets) that the profiler links to the span or to an op inside
+    it, and that of every outermost op of another thread that starts inside
+    the span's time range, since the autograd engine launches a backward's
+    kernels from a thread of its own. Kernels count launches of kernels
+    alone."""
+    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    outer = [e for e in host if e.cpu_parent is None]
+    out: dict[str, tuple[float, int]] = {}
+    for s in host:
+        if not s.name.startswith(SPAN_PREFIX):
+            continue
+        us, n = _linked(s)
+        t0, t1 = s.time_range.start, s.time_range.end
+        for e in outer:
+            if e.thread != s.thread and t0 <= e.time_range.start <= t1:
+                eu, en = _linked(e)
+                us, n = us + eu, n + en
+        pu, pn = out.get(s.name, (0.0, 0))
+        out[s.name] = (pu + us, pn + n)
+    return out
 
 
 @contextlib.contextmanager
@@ -77,31 +128,3 @@ def summarize_trace(log_dir: str, top: int = 30, by_category: bool = False):
     for e in wanted:
         agg[e["cat"] if by_category else e.get("name", "?")] += e["dur"]
     return [(k, v / 1e3) for k, v in agg.most_common(top)]
-
-
-class Stopwatch:
-    """Step timing that waits for the work: `lap(output)` fetches one
-    element of the output's first tensor leaf before it reads the clock."""
-
-    def __init__(self):
-        self._t0 = None
-        self.laps: list = []
-
-    def start(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def lap(self, output=None) -> float:
-        if output is not None:
-            leaf = next((x for x in _pytree.tree_leaves(output) if isinstance(x, torch.Tensor)),
-                        None)
-            if leaf is not None:
-                leaf.reshape(-1)[:1].tolist()  # waits for the device
-        dt = time.perf_counter() - self._t0
-        self.laps.append(dt)
-        self._t0 = time.perf_counter()
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return sum(self.laps) / max(len(self.laps), 1)

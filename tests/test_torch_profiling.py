@@ -1,7 +1,7 @@
 """The port's profiling hooks (`ssd3d_torch/utils/profiling.py`): a crafted
 Chrome trace summed by name and by category (device events first, the CPU
-ops of a CPU-only trace otherwise), a CPU `trace` of the tiny flagship, and
-`Stopwatch`."""
+ops of a CPU-only trace otherwise) and a CPU `trace` of the tiny flagship
+(the spans: `tests/test_torch_spans.py`)."""
 
 from __future__ import annotations
 
@@ -81,15 +81,3 @@ def test_trace_of_the_tiny_flagship_on_the_cpu(tmp_path):
     names = {e.key for e in prof.key_averages()}
     assert {"ssd3d::fps", "ssd3d::ball_query"} <= names
 
-
-def test_stopwatch_waits_for_the_output_and_keeps_laps():
-    sw = profiling.Stopwatch().start()
-    time.sleep(0.02)
-    first = sw.lap({"boxes": torch.ones(3, 7), "n": 3})
-    time.sleep(0.01)
-    second = sw.lap([torch.zeros(0), torch.ones(2)])  # an empty first leaf
-    third = sw.lap()
-    assert first >= 0.02 and second >= 0.01 and third >= 0.0
-    assert sw.laps == [first, second, third]
-    assert sw.mean == pytest.approx((first + second + third) / 3)
-    assert profiling.Stopwatch().mean == 0.0
