@@ -23,7 +23,13 @@ Nineteen phases, each of which raises on failure (no error is caught):
    the CPU plain version (`index_add_`, which adds each destination's rows
    in ascending order, as K5 does) and a second launch, at the three layer
    shapes and the four of `tests/test_torch_ops.py`, timed against
-   `torch.index_add`.
+   `torch.index_add`; K10, the eval-mode PointConv epilogue, at SharedMLPs
+   of 3DSSD's SA scales and PointRCNN's RPN and FP layers (`K10_SHAPES`):
+   every layer bit for bit its plain version (the eager chain's own ops)
+   and the MLP its eager chain, the epilogues and the MLP timed both ways
+   with the byte bound; then its launches by route in one 3DSSD inference
+   pass, one train step and one PointRCNN inference pass, each held to that
+   pass's eval BatchNorm + ReLU PointConv calls (none in the train step).
 3. The main path: flagship 3DSSD inference (KITTI Car,
    `configs/kitti/3dssd/3dssd.yaml`, 16,384-point scans, bf16 as shipped,
    seeded weights) on a batch of 8 synthetic KITTI-like scans: forward,
@@ -301,9 +307,10 @@ from ssd3d_torch.entry import (
 from ssd3d_torch.models.api import build_pipeline
 from ssd3d_torch.models import two_stage
 from ssd3d_torch.nn import modules
-from ssd3d_torch.nn.layers import GroupNorm
+from ssd3d_torch.nn.layers import GroupNorm, PointConv, SharedMLP
 from ssd3d_torch.nn.modules import ffps_segments
 from ssd3d_torch.ops import _build, grouping, interpolate, nms, sa_fused, sampling
+from ssd3d_torch.ops.conv_epilogue import conv_epilogue, conv_epilogue_plain
 from ssd3d_torch.ops.grouping import (
     ball_query_multi,
     ball_query_multi_plain,
@@ -511,11 +518,11 @@ def path_routes(path: str) -> dict[str, dict[str, int]]:
 
 
 def check_routes(what: str, path: str) -> dict[str, dict[str, int]]:
-    """K1's, K2's and K3's launches by route since the last reset, held to
-    what the shape rules give `path`."""
+    """K1's, K2's, K3's and K7's launches by route since the last reset, held
+    to what the shape rules give `path` (K10's are held in phase 2)."""
     got, want = _build.route_launches(), path_routes(path)
     log(f"launches by route in {what}: {got}")
-    check(got == want, f"{what}: launches by route {got}, want {want}")
+    check({k: got[k] for k in want} == want, f"{what}: launches by route {got}, want {want}")
     return got
 
 
@@ -1014,6 +1021,141 @@ def k5_check(shape: str, idx: torch.Tensor, g: torch.Tensor, n: int, timed: bool
            f"{out['library_ms']:.4f} ms (K5 / index_add {out['ms'] / out['library_ms']:.2f}), "
            f"bound {out['bound_ms']:.4f} ms" if timed else ""))
     return out
+
+
+# ----------------------------------------------------------------- K10
+
+# K10 at SharedMLPs of the paths (name, x [b, m, ns, c_in], widths, compute
+# dtype, pool): 3DSSD's SA scales at batch 8 (bf16), PointRCNN's RPN SA1 and
+# an FP layer at batch 4 (f32)
+K10_SHAPES = (
+    ("3DSSD SA1 scale 3", (8, 4096, 64, 4), (32, 32, 64), torch.bfloat16, True),
+    ("3DSSD SA1 scale 1", (8, 4096, 32, 4), (16, 16, 32), torch.bfloat16, True),
+    ("3DSSD SA2 scale 3", (8, 1024, 64, 67), (64, 96, 128), torch.bfloat16, True),
+    ("3DSSD SA3 scale 2", (8, 512, 32, 131), (128, 192, 256), torch.bfloat16, True),
+    ("3DSSD CG layer4 scale 2", (8, 256, 32, 259), (256, 512, 1024), torch.bfloat16, True),
+    ("PointRCNN RPN SA1 scale 2", (4, 4096, 32, 4), (32, 32, 64), None, True),
+    ("PointRCNN FP layer", (4, 1, 16384, 384), (128, 128), None, False),
+)
+K10_HEADLINE = "3DSSD SA1 scale 3"
+
+
+def _bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal dtype, shape and values, NaN where the other has NaN."""
+    nan = want.isnan()
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.isnan(), nan)
+            and torch.equal(got.masked_fill(nan, 0), want.masked_fill(nan, 0)))
+
+
+def hold_k10(name: str, shape, widths, dtype, pool: bool) -> dict:
+    """K10 at one SharedMLP with seeded eval-mode weights: each layer's
+    epilogue through K10 bit for bit its plain version on the card (the
+    eager chain's own ops: + bias, .float(), * inv, + shift, relu, then the
+    cast or the pool) on the products of the layers before it, one sample
+    of one ball NaN; the whole MLP through K10 equal to the MLP with the op
+    switched off (`PointConv.takes_epilogue` patched, a switch of this script);
+    then the MLP's epilogues and the whole MLP timed both ways, with the bound:
+    each product read once and each output written once at 3.35 TB/s."""
+    gen = torch.Generator().manual_seed(10)
+    mlp = SharedMLP(shape[-1], list(widths), compute_dtype=dtype)
+    with torch.no_grad():
+        for pname, p in list(mlp.named_parameters()) + list(mlp.named_buffers()):
+            if pname.endswith("kernel"):
+                p.copy_(torch.randn(p.shape, generator=gen) * (2.0 / p.shape[0]) ** 0.5)
+            elif pname.endswith(("scale", "var")):
+                p.copy_(torch.rand(p.shape, generator=gen) + 0.5)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    mlp = mlp.cuda().eval()
+    x = torch.randn(shape, generator=gen).cuda()
+    x[0, -1, shape[2] // 2, 0] = float("nan")
+    has = (torch.rand(shape[:2], generator=gen) > 0.25).to(torch.int32).cuda() if pool else None
+    inner = dtype or torch.float32
+    args, n_bytes = [], 0
+    with torch.inference_mode():
+        h = x
+        for i in range(len(widths)):
+            conv = getattr(mlp, f"conv{i}")
+            last = i == len(widths) - 1
+            a = (conv.conv.product(h), conv.conv.bias, *conv.bn.affine(),
+                 has if last else None, pool and last, torch.float32 if last else inner)
+            got = conv_epilogue(*a)
+            check(_bits_equal(got, conv_epilogue_plain(*a)),
+                  f"K10 at {name}, layer {i}: differs from its plain version")
+            args.append(a)
+            n_bytes += (a[0].numel() * a[0].element_size() + got.numel() * got.element_size()
+                        + 3 * 4 * widths[i] + (has.numel() * 4 if a[5] else 0))
+            h = got
+        whole = mlp(x, pool=pool, has_pts=has)
+        with mock.patch.object(PointConv, "takes_epilogue", lambda self, x: False):
+            check(_bits_equal(whole, mlp(x, pool=pool, has_pts=has)),
+                  f"K10 at {name}: the MLP differs from its eager chain")
+            mlp_eager = cuda_ms(lambda: mlp(x, pool=pool, has_pts=has), 10)
+        mlp_k10 = cuda_ms(lambda: mlp(x, pool=pool, has_pts=has), 10)
+        ms = cuda_ms(lambda: [conv_epilogue(*a) for a in args], 20)
+        plain_ms = cuda_ms(lambda: [conv_epilogue_plain(*a) for a in args], 20)
+    out = dict(shape=f"{name}: x {list(shape)}, widths {list(widths)}, "
+                     f"{'bf16' if dtype else 'f32'}{', pooled' if pool else ''}",
+               ms=ms, plain_ms=plain_ms, mlp_ms=mlp_k10, mlp_eager_ms=mlp_eager,
+               bytes=n_bytes, **bound(n_bytes, 0))
+    log(f"K10 at {out['shape']}: every layer bit for bit its plain version and the MLP its "
+        f"eager chain; epilogues {ms:.4f} ms vs plain (the eager chain's ops) {plain_ms:.4f} ms "
+        f"({plain_ms / ms:.1f}x); the whole MLP {mlp_k10:.4f} ms vs eager {mlp_eager:.4f} ms; "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}, {n_bytes / 1e6:.1f} MB), "
+        f"{100 * out['bound_ms'] / ms:.1f}% of it")
+    return out
+
+
+def k10_path_launches() -> dict:
+    """K10's launches by route in one pass of each path beside the eval
+    BatchNorm + ReLU PointConv calls of that pass: 3DSSD inference at batch
+    8 (one launch a call), one 3DSSD train step (none: train mode), PointRCNN
+    inference at batch 4 (one launch a call)."""
+    def counted(model, fn):
+        calls = []
+        hooks = [m.register_forward_pre_hook(lambda m, _a: calls.append(m))
+                 for m in model.modules()
+                 if isinstance(m, PointConv) and m.bn is not None and m.activation]
+        _build.reset_launches()
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            for hook in hooks:
+                hook.remove()
+        return len(calls), dict(_build.CONV_EPILOGUE.by_route)
+
+    out = {}
+    _, model, _, n = flagship(device="cuda", seed=0)
+    scans = torch.from_numpy(synthetic_scenes(BATCH, n)["points"]).cuda()
+    with torch.inference_mode():
+        out["3DSSD inference"] = counted(model, lambda: model(scans))
+    step, batch = train_entry(device="cuda", seed=0, batch=BATCH)
+    out["3DSSD train step"] = counted(step.args[0].model, lambda: step(batch))
+    fn, (points,) = two_stage_entry(device="cuda", seed=0, batch=TWO_STAGE_BATCH)
+    out["PointRCNN inference"] = counted(fn.__self__.model, lambda: fn(points))
+    for path, (calls, routes) in out.items():
+        want = 0 if "train" in path else calls
+        check(sum(routes.values()) == want,
+              f"K10 on {path}: {routes} launches for {calls} eval BatchNorm + ReLU PointConv calls")
+        log(f"K10 on {path}: launches by route {routes}, {calls} BatchNorm + ReLU PointConv calls")
+    return {path: routes for path, (_, routes) in out.items()}
+
+
+def phase_conv_epilogue(report: list[dict]) -> None:
+    """Phase 2's K10: `hold_k10` at K10_SHAPES, then `k10_path_launches`."""
+    log("== phase 2 (K10): the eval-mode PointConv epilogue against its plain version")
+    shapes = {name: hold_k10(name, *rest) for name, *rest in K10_SHAPES}
+    head = shapes.pop(K10_HEADLINE)
+    report.append(dict(name="conv_epilogue", route="cuda",
+                       source="ssd3d_torch/csrc/conv_epilogue.cu",
+                       replaces="ssd3d/nn/layers.py:133", launches=0, max_abs_err=0.0,
+                       ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                       bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
+                       mlp_ms=head["mlp_ms"], mlp_eager_ms=head["mlp_eager_ms"],
+                       other_shapes=shapes, path_routes=k10_path_launches(),
+                       check="bit for bit the plain version (the eager chain's ops) on the card"))
 
 
 # ----------------------------------------------------------------- phase 3
@@ -4746,6 +4888,7 @@ def main() -> int:
     # car shells and clutter from `ssd3d_torch.utils.synth.make_scene`)
     scans = torch.from_numpy(synthetic_scenes(BATCH, N_POINTS)["points"]).cuda()
     report = timed(phase_kernels, scans)
+    timed(phase_conv_epilogue, report)
     infer_launches = timed(phase_main_path, scans)
     timed(phase_card_vs_cpu, scans)
     train_launches = timed(phase_training, report)
@@ -4777,7 +4920,7 @@ def main() -> int:
     for entry in report:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["name"] in ("fps", "ffps", "ball_query", "sa_fused", "ffps_dist"):
+        if entry["name"] in ("fps", "ffps", "ball_query", "sa_fused", "ffps_dist", "conv_epilogue"):
             entry["launches_by_route"] = {p: n["routes"][entry["name"]] for p, n in paths.items()}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": report}))

@@ -31,8 +31,7 @@ from ssd3d_torch.core.geometry import boxes_bottom_to_center, boxes_to_bev_aabb,
 from ssd3d_torch.models.backbone import PointBackbone
 from ssd3d_torch.models.heads import DetectionHead
 from ssd3d_torch.models.single_stage import dataset_classes, point_feature_channels
-from ssd3d_torch.nn.layers import SharedMLP
-from ssd3d_torch.nn.modules import max_pool
+from ssd3d_torch.nn.layers import SharedMLP, max_pool
 from ssd3d_torch.ops import _build
 from ssd3d_torch.ops.grouping import _first_k, gather_rows, group_points, query_boxes_3d_points
 from ssd3d_torch.ops.nms import batched_class_nms, class_unaware_nms

@@ -14,6 +14,13 @@ the JAX package's BatchNorm does over its mesh-sharded batch.
 Train or eval mode is the module's `training` flag; the BatchNorm momentum is
 a call argument (`bn_momentum`), passed down as in the JAX signatures,
 because the schedule changes it from step to step.
+
+In eval mode a `PointConv` with BatchNorm and ReLU runs what follows its
+product (the bias, the folded BatchNorm, the ReLU, the cast, and where asked
+the max-pool over a ball's samples) as one op, `ops.conv_epilogue` (K10 on
+the card), with the eager chain's rounding; in train mode, under GroupNorm,
+without BatchNorm or ReLU, and wherever autograd records, the chain runs op
+by op.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from torch import nn
 from torch.distributed.nn.functional import all_reduce as _all_reduce_grad
 
+from ssd3d_torch.ops.conv_epilogue import DTYPES as EPILOGUE_DTYPES, conv_epilogue
 from ssd3d_torch.parallel.distributed import world
 
 
@@ -73,8 +81,18 @@ class BatchNorm(nn.Module):
                 self.var.copy_(m * self.var + (1.0 - m) * var)
         else:
             mean, var = self.mean, self.var
+        inv, shift = self.affine(mean, var)
+        return x * inv + shift
+
+    def affine(self, mean: torch.Tensor | None = None,
+               var: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(inv, shift) of x * inv + shift: inv = rsqrt(var + eps) * scale,
+        shift = bias - mean * inv; by default of the running statistics
+        (eval mode)."""
+        mean = self.mean if mean is None else mean
+        var = self.var if var is None else var
         inv = torch.rsqrt(var + self.epsilon) * self.scale
-        return x * inv + (self.bias - mean * inv)
+        return inv, self.bias - mean * inv
 
 
 class GroupNorm(nn.Module):
@@ -130,11 +148,15 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(c_in, c_out))
         self.bias = nn.Parameter(torch.zeros(c_out))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, b = self.kernel, self.bias
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ kernel, both cast to the compute dtype where one is set."""
         if self.compute_dtype is not None:
-            x, k, b = x.to(self.compute_dtype), k.to(self.compute_dtype), b.to(self.compute_dtype)
-        return torch.matmul(x, k) + b
+            return torch.matmul(x.to(self.compute_dtype), self.kernel.to(self.compute_dtype))
+        return torch.matmul(x, self.kernel)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.product(x)
+        return y + self.bias.to(y.dtype)
 
 
 class PointConv(nn.Module):
@@ -160,11 +182,29 @@ class PointConv(nn.Module):
                              "and does not fold")
         if self.bn is None or not self.activation or self.training:
             raise ValueError("PointConv.fold: needs BatchNorm, ReLU and eval mode")
-        bn = self.bn
-        inv = torch.rsqrt(bn.var + bn.epsilon) * bn.scale
-        return self.conv.kernel, self.conv.bias, inv, bn.bias - bn.mean * inv
+        return (self.conv.kernel, self.conv.bias) + self.bn.affine()
 
-    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
+    def takes_epilogue(self, x: torch.Tensor) -> bool:
+        """Whether the layer runs its epilogue as one `conv_epilogue` op:
+        where `fold` succeeds (eval mode, BatchNorm, ReLU), the product in
+        f32 or bf16, and no gradient recorded (the op has no autograd
+        formula)."""
+        return (self.bn is not None and self.activation and not self.training
+                and (self.conv.compute_dtype or x.dtype) in EPILOGUE_DTYPES
+                and not (torch.is_grad_enabled()
+                         and (x.requires_grad or any(p.requires_grad for p in self.parameters()))))
+
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9, pool: bool = False,
+                has_pts: torch.Tensor | None = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """x [..., c_in] -> [..., channels], f32 or, where the epilogue op
+        writes it, `out_dtype` (the next layer's compute dtype, which that
+        layer would cast it to). With `pool`, the output's `max_pool` over
+        axis 2 of [b, m, ns, c] (each ball's samples) times has_pts (int
+        [b, m], 0 or 1) where given -> [b, m, channels] f32."""
+        if self.takes_epilogue(x):
+            return conv_epilogue(self.conv.product(x), self.conv.bias, *self.bn.affine(),
+                                 has_pts, pool, torch.float32 if pool else out_dtype)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x, bn_momentum)
@@ -172,6 +212,10 @@ class PointConv(nn.Module):
             x = self.gn(x)
         if self.activation:
             x = torch.relu(x)
+        if pool:
+            x = max_pool(x)
+            if has_pts is not None:
+                x = x * has_pts[..., None].to(x.dtype)
         return x
 
 
@@ -181,6 +225,7 @@ class SharedMLP(nn.Module):
     def __init__(self, c_in: int, channels, bn: bool = True,
                  compute_dtype: torch.dtype | None = None, use_gn: bool = False):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.n_layers = len(channels)
         for i, ch in enumerate(channels):
             self.add_module(f"conv{i}", PointConv(c_in, ch, bn=bn, compute_dtype=compute_dtype,
@@ -192,7 +237,23 @@ class SharedMLP(nn.Module):
         """Every layer's `PointConv.fold`, in order."""
         return [getattr(self, f"conv{i}").fold() for i in range(self.n_layers)]
 
-    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.9, pool: bool = False,
+                has_pts: torch.Tensor | None = None) -> torch.Tensor:
+        """x [..., c_in] -> [..., out_channels] f32; with `pool`, the last
+        layer's output max-pooled over each ball's samples, times has_pts
+        where given (`PointConv.forward`): [b, m, ns, c_in] -> [b, m, c]."""
+        inner = self.compute_dtype or torch.float32
         for i in range(self.n_layers):
-            x = getattr(self, f"conv{i}")(x, bn_momentum)
+            if i < self.n_layers - 1:
+                x = getattr(self, f"conv{i}")(x, bn_momentum, out_dtype=inner)
+            else:
+                x = getattr(self, f"conv{i}")(x, bn_momentum, pool, has_pts)
         return x
+
+
+def max_pool(grouped: torch.Tensor) -> torch.Tensor:
+    """Max over each ball's samples: [b, m, ns, c] -> [b, m, c]. `amax`
+    splits the gradient evenly among tied maxima, as JAX's max does (padding
+    repeats the first hit; ReLU outputs zeros); `max(dim).values` would send
+    it all to one sample."""
+    return grouped.amax(dim=2)

@@ -99,14 +99,6 @@ def ffps_segments(xyz: torch.Tensor, features: torch.Tensor, fps_idx: torch.Tens
     return parts
 
 
-def max_pool(grouped: torch.Tensor) -> torch.Tensor:
-    """Max over each ball's samples: [b, m, ns, c] -> [b, m, c]. `amax`
-    splits the gradient evenly among tied maxima, as JAX's max does (padding
-    repeats the first hit; ReLU outputs zeros); `max(dim).values` would send
-    it all to one sample."""
-    return grouped.amax(dim=2)
-
-
 class PointnetSAModuleMSG(nn.Module):
     """Set abstraction with multi-scale grouping and fusion sampling.
 
@@ -180,7 +172,8 @@ class PointnetSAModuleMSG(nn.Module):
             self.aggregation.fold() if self.aggregation is not None else None)
 
     def _grouped(self, packed_src, new_xyz, *queries, bn_momentum: float = 0.9):
-        """Every scale as gather, MLP and max-pool, then the aggregation."""
+        """Every scale as gather, MLP and max-pool (the MLP's last layer's,
+        `SharedMLP.forward`), then the aggregation."""
         scale_feats = []
         for i, (idx, cnt) in enumerate(zip(queries[0::2], queries[1::2])):
             has_pts = (cnt > 0).to(torch.int32)
@@ -188,9 +181,8 @@ class PointnetSAModuleMSG(nn.Module):
             grouped = group_points(packed_src, idx)
             grouped_xyz = grouped[..., -3:] - new_xyz[:, :, None, :]
             grouped = torch.cat([grouped[..., :-3], grouped_xyz], dim=-1)
-            grouped = getattr(self, f"mlp{i}")(grouped, bn_momentum)
-            pooled = max_pool(grouped)
-            scale_feats.append(pooled * has_pts[..., None].to(pooled.dtype))
+            scale_feats.append(getattr(self, f"mlp{i}")(grouped, bn_momentum, pool=True,
+                                                        has_pts=has_pts))
         new_features = torch.cat(scale_feats, dim=-1)
         if self.aggregation is not None:
             new_features = self.aggregation(new_features, bn_momentum)
@@ -302,4 +294,4 @@ class PointnetSAModuleGlobal(nn.Module):
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
                 bn_momentum: float = 0.9) -> torch.Tensor:
         # the whole cloud as one ball, through the one max-pool of the package
-        return max_pool(self.mlp(torch.cat([xyz, features], dim=-1), bn_momentum)[:, None])[:, 0]
+        return self.mlp(torch.cat([xyz, features], dim=-1)[:, None], bn_momentum, pool=True)[:, 0]

@@ -110,8 +110,8 @@ class Kernel:
 
     `launches` goes up by one each time the kernel is launched, and nowhere
     else; `chip_smoke.py` reads it to show the main path went through it. A
-    kernel with routes (K1, K2, K2m, K3, K7) also counts each launch under the route
-    the caller names, in `by_route`."""
+    kernel with routes (K1, K2, K2m, K3, K7, K10) also counts each launch under the
+    route the caller names, in `by_route`."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
         self.name = name
@@ -154,7 +154,7 @@ def on_input_device(fn):
     return run
 
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the three D-FPS routes, counted apart in FPS.by_route (the two last ints:
 # the route, 0 one block a cloud, 1 a cluster a cloud, 2 a cluster of slices;
 # and the slice route's cluster size)
@@ -188,8 +188,12 @@ NMS_KEEP = Kernel("nms_keep", "ssd3d_nms_keep", [P, P, P, I, I, I])
 BALL_QUERY_ATTENTION = Kernel("ball_query_attention", "ssd3d_ball_query_attention",
                               [P, P, P, P, P, P, P, P, P, I, I, I, I, I, ctypes.c_float, I, I,
                                I])
+# the eval-mode PointConv epilogue (K10), both routes: y, bias, inv, shift,
+# has (or null), out, rows, ns (0 for the rows route), c, y in bf16, out in
+# bf16 (0 or 1 each), the card's SM count
+CONV_EPILOGUE = Kernel("conv_epilogue", "ssd3d_conv_epilogue", [P, P, P, P, P, P, L, I, I, I, I, I])
 KERNELS = (FPS, FFPS, BALL_QUERY, GATHER, SCATTER_ADD, THREE_NN, SA_FUSED, FFPS_DIST, NMS_KEEP,
-           BALL_QUERY_ATTENTION)
+           BALL_QUERY_ATTENTION, CONV_EPILOGUE)
 
 
 def reset_launches() -> None:
@@ -203,8 +207,20 @@ def launches() -> dict[str, int]:
 
 
 def route_launches() -> dict[str, dict[str, int]]:
-    """Launches by route of the kernels that have routes (K1, K2, K3, K7, K2m)."""
-    return {k.name: dict(k.by_route) for k in (FPS, FFPS, BALL_QUERY, SA_FUSED, FFPS_DIST)}
+    """Launches by route of the kernels that have routes (K1, K2, K3, K7, K2m, K10)."""
+    return {k.name: dict(k.by_route)
+            for k in (FPS, FFPS, BALL_QUERY, SA_FUSED, FFPS_DIST, CONV_EPILOGUE)}
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def sm_count() -> int:
+    """The current card's streaming multiprocessors (cached by card)."""
+    dev = torch.cuda.current_device()
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_counts[dev]
 
 
 def dfps_cluster_size(b: int, n: int) -> int:

@@ -22,7 +22,8 @@ registers them) and nothing else of the package.
 
 No op has an autograd formula of its own: the sampling, ball-query, NMS
 and three-nn ops return integers or take detached inputs, K7 runs under
-`no_grad`, and the row gather's gradient is `grouping._GatherRows`, whose
+`no_grad`, K10 is taken only where no gradient is recorded, and the row
+gather's gradient is `grouping._GatherRows`, whose
 backward is the scatter-add op. No output aliases an input.
 """
 
@@ -32,6 +33,7 @@ from typing import Sequence
 
 import torch
 
+from ssd3d_torch.ops import conv_epilogue as epilogue
 from ssd3d_torch.ops import grouping, interpolate, nms, sa_fused, sampling
 
 Tensor = torch.Tensor
@@ -39,8 +41,9 @@ Tensor = torch.Tensor
 # op -> (the kernel source in csrc/, the JAX code it replaces). A site
 # `<file>:<function>` is a `pl.pallas_call` function of
 # `ssd3d/ops/pallas/<file>`; a site with a path from the repository root,
-# `ssd3d/<path>:<line>`, is a loop of XLA inside the jitted program, which
-# the JAX package computes without a Pallas kernel (K8 and K9).
+# `ssd3d/<path>:<line>`, is XLA code inside the jitted program, which the
+# JAX package computes without a Pallas kernel (K8 and K9: loops; K10: the
+# conv's bias, BatchNorm and ReLU, which XLA fuses).
 OPS = {
     "fps": ("fps.cu", ("fps.py:_fps_pallas_batch", "fps.py:_fps_pallas_tiled")),
     "ffps": ("ffps.cu", ("fps.py:ffps_pallas_pre", "fps.py:ffps_pallas_hbm_rows")),
@@ -53,6 +56,7 @@ OPS = {
     "sa_fused": ("sa_fused.cu", ("sa_fused.py:_sa_fused_raw", "sa_fused.py:_sa_multi_raw")),
     "nms_keep": ("nms_keep.cu", ("ssd3d/ops/nms.py:47", "ssd3d/ops/nms.py:170")),
     "ball_query_attention": ("ball_query_attention.cu", ("ssd3d/ops/grouping.py:393",)),
+    "conv_epilogue": ("conv_epilogue.cu", ("ssd3d/nn/layers.py:133",)),
 }
 
 
@@ -251,3 +255,26 @@ def _(xyz, new_xyz, feats, new_feats, a_sq, b_sq, r2, ns):
     b, q = new_xyz.shape[:2]
     return (new_xyz.new_empty((b, q, ns), dtype=torch.int32),
             new_xyz.new_empty((b, q), dtype=torch.int32))
+
+
+# ---------------------------------------------------------------- K10
+
+# K10 is called once a layer, 41 times a 3DSSD batch, on the host that paces
+# that forward since K10: it is defined through `torch.library.Library`, whose
+# dispatch into a Python kernel costs less host time a call than a
+# `custom_op`'s wrapper (the public call 53-57 against 83 us on the H100
+# machine's host), with the same three registrations.
+_K10_LIB = torch.library.Library("ssd3d", "FRAGMENT")
+_K10_LIB.define("conv_epilogue(Tensor y, Tensor bias, Tensor inv, Tensor shift, Tensor? has_pts, "
+                "bool pool, ScalarType out_dtype) -> Tensor")
+# The eval-mode PointConv epilogue (K10): y [..., c] (the product, f32 or
+# bf16), bias, inv, shift f32 [c] -> relu(f32(y + bias) * inv + shift) in
+# out_dtype; with pool, y [..., ns, c] -> its max over ns times has_pts (int32
+# [...]) where given, f32 [..., c].
+_K10_LIB.impl("conv_epilogue", epilogue.conv_epilogue_plain, "CPU")
+_K10_LIB.impl("conv_epilogue", epilogue._conv_epilogue_cuda, "CUDA")
+
+
+@torch.library.register_fake("ssd3d::conv_epilogue", lib=_K10_LIB)
+def _(y, bias, inv, shift, has_pts, pool, out_dtype):
+    return y.new_empty(epilogue.out_shape(y, pool), dtype=out_dtype)

@@ -127,10 +127,10 @@ class Decisions:
 
     def __init__(self, log: dict | None = None, kinds=KINDS, by_device: bool = False,
                  plain: bool = False):
-        from ssd3d_torch.nn import modules
+        from ssd3d_torch.nn import layers, modules
 
         # the functions the patches stand in for, as they are unpatched
-        self._relu, self._max_pool = torch.relu, modules.max_pool
+        self._relu, self._max_pool = torch.relu, layers.max_pool
         self._ball, self._fps = modules.ball_query_multi, modules.farthest_point_sample
         self._ffps = modules.farthest_point_sample_features
         self.recording = log is None
@@ -153,10 +153,11 @@ class Decisions:
                 for k in Decisions.KINDS}
 
     def patches(self) -> list:
-        """The patches of `kinds` (torch.relu and `nn.modules`' names)."""
-        from ssd3d_torch.nn import modules
+        """The patches of `kinds` (torch.relu, `nn.layers.max_pool` and
+        `nn.modules`' names)."""
+        from ssd3d_torch.nn import layers, modules
 
-        target = dict(relu=torch, max_pool=modules, ball_query=modules, fps=modules,
+        target = dict(relu=torch, max_pool=layers, ball_query=modules, fps=modules,
                       ffps=modules)
         name = dict(relu="relu", max_pool="max_pool", ball_query="ball_query_multi",
                     fps="farthest_point_sample", ffps="farthest_point_sample_features")

@@ -66,6 +66,10 @@ def _op_args(device="cpu"):
         "nms_keep": (torch.from_numpy(np.random.RandomState(16).rand(3, 70, 70) > 0.6).to(device),),
         "ball_query_attention": (xyz, xyz[:, :12].contiguous(), feats, feats[:, :12].contiguous(),
                                  (feats[:, :12] ** 2).sum(-1), (feats ** 2).sum(-1), 0.64, 8),
+        "conv_epilogue": (_t(18, 2, 6, 4, 16).to(device, torch.bfloat16), _t(19, 16).to(device),
+                          _t(20, 16).abs().to(device), _t(21, 16).to(device),
+                          torch.from_numpy(np.random.RandomState(22).randint(0, 2, (2, 6))
+                                           .astype(np.int32)).to(device), True, torch.float32),
     }
 
 

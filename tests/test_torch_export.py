@@ -70,7 +70,8 @@ def tiny():
 def test_fixed_batch_artifact_equals_live(tiny, tmp_path):
     cfg, pipe, n = tiny
     exported = export_infer(pipe, 2, n)
-    assert _custom_ops(exported) == {"fps", "ffps", "ball_query", "gather_rows", "nms_keep"}
+    assert _custom_ops(exported) == {"fps", "ffps", "ball_query", "gather_rows", "nms_keep",
+                                     "conv_epilogue"}
     served = _round_trip(exported, tmp_path / "fixed.pt2")
     points = _scans(2, n, seed=2)
     _build.reset_launches()

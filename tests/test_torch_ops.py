@@ -20,7 +20,7 @@ from ssd3d.ops import grouping as jgrouping
 from ssd3d.ops import nms as jnms
 from ssd3d.ops import sampling as jsampling
 from ssd3d_torch.ops import _build
-from ssd3d_torch.ops import grouping, nms, sampling
+from ssd3d_torch.ops import conv_epilogue, grouping, nms, sampling
 
 # Relative shortfall allowed for an F-FPS pick below the step's maximum:
 # float32 distance sums rounded in another order differ by ~1e-7 relative.
@@ -441,9 +441,11 @@ def test_cpu_tensors_take_the_plain_versions():
     boxes = torch.cat([xyz[0, :, [0, 2]], xyz[0, :, [0, 2]] + 1.0], -1)
     nms.nms_bev(boxes, xyz[0, :, 1], 8, 0.3)
     grouping.ball_query_attention(1.0, 4, xyz, xyz[:, :5], xyz, xyz[:, :5])
+    conv_epilogue.conv_epilogue(xyz, xyz[0, 0], xyz[0, 0], xyz[0, 0])
     assert _build.launches() == {"fps": 0, "ffps": 0, "ball_query": 0, "gather": 0,
                                  "scatter_add": 0, "three_nn": 0, "sa_fused": 0,
-                                 "ffps_dist": 0, "nms_keep": 0, "ball_query_attention": 0}
+                                 "ffps_dist": 0, "nms_keep": 0, "ball_query_attention": 0,
+                                 "conv_epilogue": 0}
     assert _build._lib is None  # nothing was built or loaded
 
 

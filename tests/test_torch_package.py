@@ -114,9 +114,10 @@ def test_each_custom_op_names_its_source_and_the_tpu_kernels_it_replaces():
     """Every kernel is one custom op (`ops/library.py`), whose entry names
     its CUDA source and the `pl.pallas_call` functions that source
     replaces; each such function exists in the JAX package's Pallas file.
-    K8 and K9 name the JAX package's XLA code they stand for instead, by a
-    path from the repository root: a `fori_loop` line, or the function's
-    definition."""
+    K8, K9 and K10 name the JAX package's XLA code they stand for instead,
+    by a path from the repository root: a `fori_loop` line, the function's
+    definition, or the conv application that XLA fuses with its BatchNorm
+    and ReLU (K10)."""
     from ssd3d_torch.ops import library
 
     sources = set()
@@ -128,7 +129,8 @@ def test_each_custom_op_names_its_source_and_the_tpu_kernels_it_replaces():
             if "/" in file:  # a line of XLA code
                 assert "Replaces no Pallas kernel" in head and "bounds it on the H100" in head, op
                 text = (REPO / file).read_text().splitlines()[int(where) - 1]
-                assert "fori_loop" in text or f"def {op}(" in text, site
+                assert ("fori_loop" in text or f"def {op}(" in text
+                        or "_dense_apply(" in text), site
             else:  # a Pallas function
                 text = (REPO / "ssd3d" / "ops" / "pallas" / file).read_text()
                 assert f"def {where}(" in text, site
