@@ -45,9 +45,13 @@ class Verdict:
         self.picks_off, self.dets_off = 0, 0
         self.notes: list[str] = []
 
+    def fail(self, where: str) -> None:
+        """A layer that did not run, ran twice or gave the wrong shape."""
+        self.layer_gap, self.where = float("inf"), where
+
     def gap(self, what: str, prog: torch.Tensor, ref: torch.Tensor) -> None:
         if prog.shape != ref.shape:
-            self.layer_gap, self.where = float("inf"), f"{what}: shape {tuple(prog.shape)}"
+            self.fail(f"{what}: shape {tuple(prog.shape)}")
             return
         scale = float(ref.float().abs().max()) if ref.numel() else 0.0
         err = float((prog.float() - ref.float()).abs().max()) if ref.numel() else 0.0
@@ -69,7 +73,7 @@ class Verdict:
                 "dets_off": self.dets_off}
 
 
-def _off_slots(prog: torch.Tensor, ref: torch.Tensor) -> int:
+def off_slots(prog: torch.Tensor, ref: torch.Tensor) -> int:
     """Slots (leading dims [b, k]) where prog and ref differ."""
     if prog.shape != ref.shape:
         return max(prog.shape[:2].numel(), ref.shape[:2].numel())
@@ -147,7 +151,7 @@ def judge_backbone(bb: nets.Backbone, p: nets.Params, lists: dict, outputs: dict
     for i, row in enumerate(bb.rows):
         name = f"{bb.prefix}.{bb.scopes[i]}"
         if name not in outputs:
-            v.layer_gap, v.where = float("inf"), f"{name}: not run"
+            v.fail(f"{name}: not run")
             return lists
         got = outputs[name]
         kind = row[11]
@@ -184,7 +188,7 @@ def judge_heads(det: nets.Detector, heads, p: nets.Params, lists: dict, outputs:
         ref = head(p, feat)
         got = outputs.get(head.name)
         if got is None:
-            v.layer_gap, v.where = float("inf"), f"{head.name}: not run"
+            v.fail(f"{head.name}: not run")
             return {}
         for key, val in ref.items():
             v.gap(f"{head.name} {key}", got[key], val)
@@ -207,19 +211,15 @@ def judge_request(det: nets.Detector, p: nets.Params, points: torch.Tensor, outp
     if not det.two_stage:
         ref = det.detections(out)
         for key in ("boxes", "scores", "classes", "valid", "index"):
-            v.dets_off += _off_slots(dets[key], ref[key])
+            v.dets_off += off_slots(dets[key], ref[key])
         return v
     proposals, _, valid = det.propose(out)
-    v.dets_off += _off_slots(dets["proposals"], proposals)
-    v.dets_off += _off_slots(dets["proposals_valid"][..., None], valid[..., None])
+    v.dets_off += off_slots(dets["proposals"], proposals)
+    v.dets_off += off_slots(dets["proposals_valid"][..., None], valid[..., None])
     prog_props = dets["proposals"].float()
-    pool_out = outputs.get(det.pool_name)
+    pool_out = det.pooler.judge(p, out, det.foreground(out), prog_props, outputs, v)
     if pool_out is None:
-        v.layer_gap, v.where = float("inf"), f"{det.pool_name}: not run"
         return v
-    pooled, has = det.pool(p, out["base_xyz"], out["feature"], det.foreground(out), prog_props)
-    v.gap(f"{det.pool_name} pooled", pool_out[0], pooled)
-    v.dets_off += _off_slots(pool_out[1], has)
     ctr = ops.boxes_bottom_to_center(prog_props)[..., 0:3]
     rl = judge_backbone(det.rcnn, p, det.rcnn.start(pool_out[0], (ctr,), (None,)), outputs, v)
     if v.layer_gap == float("inf"):
@@ -229,17 +229,18 @@ def judge_request(det: nets.Detector, p: nets.Params, points: torch.Tensor, outp
         return v
     ref = det.final(rout, prog_props, pool_out[1])
     for key in ("boxes", "scores", "classes", "valid", "index"):
-        v.dets_off += _off_slots(dets[key], ref[key])
+        v.dets_off += off_slots(dets[key], ref[key])
     return v
 
 
 def watched_modules(det: nets.Detector) -> list[str]:
     """The program's modules the reference judges, named as it names them:
-    every backbone layer and head, and the RoI pool and the RCNN's."""
+    every backbone layer and head, what the RoI pooler's judge step reads,
+    and the RCNN's layers and heads."""
     names = [f"{det.backbone.prefix}.{s}" for s in det.backbone.scopes]
     names += [h.name for h, _, _ in det.heads]
     if det.two_stage:
-        names.append(det.pool_name)
+        names += det.pooler.watched()
         names += [f"{det.rcnn.prefix}.{s}" for s in det.rcnn.scopes]
         names += [h.name for h, _, _ in det.rcnn_heads]
     return names
@@ -255,8 +256,7 @@ def judge_kept(det: nets.Detector, p: nets.Params, kept: list[dict], pool: dict,
             v = Verdict()
             twice = [n for n, c in rec["calls"].items() if c != 1]
             if twice:
-                v.layer_gap = float("inf")
-                v.where = f"{twice[0]} ran {rec['calls'][twice[0]]} times"
+                v.fail(f"{twice[0]} ran {rec['calls'][twice[0]]} times")
             else:
                 points = pool["points"][rec["rows"]].to(device)
                 v = judge_request(det, p, points, rec["outputs"], rec["dets"])

@@ -9,6 +9,7 @@ judged layer by layer against the reference (`judge.py`).
 
 Mix keys: `batch`, `pool`, `max_cars`, `warmup` (requests of set-up),
 `judged`, `trace_from`, `trace_requests`; `min_requests` (tests only).
+Warm-up and window run with one intra-op thread (`torch.set_num_threads`).
 """
 
 from __future__ import annotations
@@ -118,13 +119,20 @@ def run(r) -> dict:
     r.marks["program"] = time.perf_counter() - r.t_start
     pool = loadgen.make_pool(mix, r.seed, cell.cfg["MODEL"]["POINTS_NUM_FOR_TRAINING"], device)
     r.marks["scans"] = time.perf_counter() - r.t_start
-    window(program, mix, pool, device, 0.0, warmup=True)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    tracer = Tracer(device, mix["trace_from"], mix["trace_requests"]) if r.trace else None
-    setup_s = time.perf_counter() - r.t_start
-    win = window(program, mix, pool, device, r.seconds, recorder, tracer)
+    # one client on one host thread: no idle intra-op workers contend with
+    # the thread that drives the card (the host paces 3DSSD's forward)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        window(program, mix, pool, device, 0.0, warmup=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        tracer = Tracer(device, mix["trace_from"], mix["trace_requests"]) if r.trace else None
+        setup_s = time.perf_counter() - r.t_start
+        win = window(program, mix, pool, device, r.seconds, recorder, tracer)
+    finally:
+        torch.set_num_threads(threads)
     recorder.close()
     memory_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 

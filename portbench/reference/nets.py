@@ -1,8 +1,9 @@
 """The plain reference of the point detectors: PointNet++ set abstraction
 with fusion sampling (3DSSD's D-FPS, F-FPS and FS) and dilated multi-ring
 grouping, the candidate-generation vote layer, feature propagation, global
-pooling, the detection head, box decoding and NMS; PointRCNN's proposals,
-RoI pooling and refinement stage.
+pooling, the detection head, box decoding and NMS; the two-stage models'
+proposals and refinement stage, with the RoI pooler of the configuration's
+type (`poolers/<type>.py`).
 
 It reads the configuration's architecture rows (the schema of the upstream
 3DSSD repository's configs) and a flat dict of weights named by layer
@@ -24,7 +25,7 @@ from typing import Sequence
 
 import torch
 
-from portbench.reference import ops
+from portbench.reference import ops, poolers
 
 BN_EPS = 1e-3
 
@@ -352,8 +353,16 @@ class Stage:
         return torch.sigmoid(out["cls"])
 
 
+def pooler(cfg: dict, feat: int):
+    """The configuration's RoI pooler over RPN features of `feat` channels,
+    from `poolers/<type>.py`."""
+    row = cfg["MODEL"]["NETWORK"]["FIRST_STAGE"]["POINTS_POOLER"]
+    return poolers.load(row[0])(row, feat)
+
+
 class Detector:
-    """3DSSD (`SingleStage`) or PointRCNN (`DoubleStage`) from a config dict."""
+    """3DSSD (`SingleStage`) or a two-stage model (`DoubleStage`) from a
+    config dict."""
 
     def __init__(self, cfg: dict, nms_pre_topk: int = 0):
         self.cfg = cfg
@@ -372,20 +381,14 @@ class Detector:
         self.spec = list(self.backbone.spec) + [s for h, *_ in self.heads for s in h.spec]
         self.nms_pre_topk = nms_pre_topk
         if self.two_stage:
-            pool = net["FIRST_STAGE"]["POINTS_POOLER"]
-            if pool[0] != "RegionPool":
-                raise ValueError(f"reference: RoI pooler {pool[0]!r} not covered")
-            self.pool_info = [k for k in pool[1] if k in ("mask", "dist")]
-            self.pool_ns, self.pool_context, self.pool_align = pool[3], pool[4], list(pool[2])
-            self.pool_name = pool[8] or "roi_pool"
             feat = self.heads[0][0].trunk[-1] if self.heads[0][0].trunk else \
                 self.backbone.channels[self.heads[0][2][0]]
-            self.spec += mlp_spec(f"{self.pool_name}.align", 3 + len(self.pool_info),
-                                  self.pool_align)
-            pooled = 3 + self.pool_align[-1] + feat
+            self.pooler = pooler(cfg, feat)
+            self.spec += self.pooler.spec
             self.second = Stage(cfg, "SECOND_STAGE", cls_list)
             self.rcnn = Backbone("rcnn_backbone", net["SECOND_STAGE"]["ARCHITECTURE"],
-                                 pooled - 3, m["MAX_TRANSLATE_RANGE"], agg, prefix_channels=(0,))
+                                 self.pooler.channels - 3, m["MAX_TRANSLATE_RANGE"], agg,
+                                 prefix_channels=(0,))
             self.rcnn_heads = self._heads(net["SECOND_STAGE"]["HEAD"], self.rcnn.channels,
                                           "rcnn_head", self.second)
             self.spec += list(self.rcnn.spec) + [s for h, *_ in self.rcnn_heads for s in h.spec]
@@ -434,29 +437,6 @@ class Detector:
     def foreground(rpn: dict) -> torch.Tensor:
         return (torch.sigmoid(rpn["cls"].amax(-1, keepdim=True)) >= 0.5).float()
 
-    def pool(self, p: Params, base_xyz, base_feat, mask, proposals):
-        """RoI pooling: the first pool_ns points inside each proposal grown by
-        the context range, in the proposal's frame, with the align MLP over
-        (canonical xyz, mask, distance) and the RPN features -> ([bs * p, ns,
-        c], has-points int32 [bs, p, 1])."""
-        grown = torch.cat([proposals[..., 0:3], proposals[..., 3:6] + self.pool_context,
-                           proposals[..., 6:7]], -1)
-        idx, cnt = ops.first_k(ops.points_in_boxes(base_xyz, grown), self.pool_ns)
-        has = (cnt > 0).to(torch.int32)[..., None]
-        idx = idx * has
-        pxyz = ops.group_points(base_xyz, idx)
-        pfeat = ops.group_points(base_feat.float(), idx)
-        info = []
-        for key in self.pool_info:
-            info.append(ops.group_points(mask, idx) if key == "mask"
-                        else pxyz.square().sum(-1, keepdim=True).sqrt())
-        canon = ops.rotate_points_y(pxyz - grown[:, :, None, 0:3], -grown[..., 6])
-        enc = p.mlp(torch.cat([canon] + info, -1), f"{self.pool_name}.align",
-                    len(self.pool_align))
-        out = torch.cat([canon, enc, pfeat], -1)
-        bs, n_p, ns, c = out.shape
-        return out.reshape(bs * n_p, ns, c), has
-
     def final(self, out: dict, proposals, pool_mask) -> dict:
         ctr = ops.boxes_bottom_to_center(proposals)[..., 0:3]
         boxes = self.second.decode(ctr, out, anchors=proposals[:, :, None, :])
@@ -479,9 +459,9 @@ class Detector:
         if not self.two_stage:
             return self.detections(out)
         proposals, _, valid = self.propose(out)
-        pooled, has = self.pool(p, out["base_xyz"], out["feature"], self.foreground(out),
-                                proposals)
-        rec[self.pool_name] = (pooled, has)
+        pooled, has = self.pooler.forward(p, out["base_xyz"], out["feature"],
+                                          self.foreground(out), proposals)
+        rec[self.pooler.name] = (pooled, has)
         ctr = ops.boxes_bottom_to_center(proposals)[..., 0:3]
         rl = self.rcnn.forward(p, pooled, prefix_xyz=(ctr,), prefix_features=(None,),
                                record=rec)

@@ -9,13 +9,14 @@ rate. Nothing here reads which route or compile flags the program chose.
 from __future__ import annotations
 
 from portbench import peaks
+from portbench.reference import nets
 
 # D-FPS: per pick and point, the three differences, three squares, two
 # adds, the running minimum and the argmax's compare
 FPS_OPS_PER_POINT_PICK = 10
 
 
-def _mlp_macs(c_in: int, widths) -> int:
+def mlp_macs(c_in: int, widths) -> int:
     macs = 0
     for c in widths:
         macs += c_in * c
@@ -55,7 +56,7 @@ def _walk(rows, n_in: int, c_in: int, aggregate: bool, prefix_points=(), prefix_
             if radii:
                 scales = len(radii)
                 for k in range(scales):
-                    macs += m * ns_list[k] * _mlp_macs(c + 3, mlps[k])
+                    macs += m * ns_list[k] * mlp_macs(c + 3, mlps[k])
                 out = sum(mlp[-1] for mlp in mlps[:scales])
                 agg = row[15] if aggregate and row[15] != -1 else None
                 if agg:
@@ -66,16 +67,16 @@ def _walk(rows, n_in: int, c_in: int, aggregate: bool, prefix_points=(), prefix_
             pts.append(m)
             ch.append(out)
         elif kind == "Vote_Layer":
-            macs += n * (_mlp_macs(c, row[4]) + row[4][-1] * 3)
+            macs += n * (mlp_macs(c, row[4]) + row[4][-1] * 3)
             pts.append(n)
             ch.append(row[4][-1])
         elif kind == "FP_Layer":
             c_in_fp = ch[row[1][1]] + c
-            macs += n * _mlp_macs(c_in_fp, row[4])
+            macs += n * mlp_macs(c_in_fp, row[4])
             pts.append(n)
             ch.append(row[4][-1])
         else:  # SA_Layer_SSG_Last: one vector a cloud
-            macs += n * _mlp_macs(c + 3, row[4])
+            macs += n * mlp_macs(c + 3, row[4])
             pts.append(1)
             ch.append(row[4][-1])
     return macs, dfps, sa, pts, ch
@@ -87,7 +88,7 @@ def _head_macs(heads, pts, ch, cls_ch: int, reg_out: int) -> int:
         n = sum(pts[j] for j in feat_idx)
         c = sum(ch[j] for j in feat_idx)
         t = mlp[-1] if mlp else c
-        macs += n * (_mlp_macs(c, mlp) + 2 * t * 128 + 128 * cls_ch + 128 * reg_out)
+        macs += n * (mlp_macs(c, mlp) + 2 * t * 128 + 128 * cls_ch + 128 * reg_out)
     return macs
 
 
@@ -104,7 +105,9 @@ def _stage_outputs(cfg: dict, stage: str) -> tuple[int, int]:
 def shapes(cfg: dict, batch: int) -> dict:
     """The counts of one batch: `macs`, `dfps` [(clouds, n, npoint)], and
     `sa_fused` [(clouds, n, m, c_in, ns_list, mlps, agg)] (the RCNN's SA
-    layers, which run as the fused SA kernel)."""
+    layers, which run as the fused SA kernel). A two-stage model's RoI
+    pooler counts its own multiply-adds and says what the RCNN gets
+    (`reference/poolers/`)."""
     m, net = cfg["MODEL"], cfg["MODEL"]["NETWORK"]
     agg = net["AGGREGATION_SA_FEATURE"]
     n_points = m["POINTS_NUM_FOR_TRAINING"]
@@ -114,18 +117,16 @@ def shapes(cfg: dict, batch: int) -> dict:
     out = {"macs": macs * batch, "dfps": [(batch, n, k) for n, k in dfps], "sa_fused": []}
     if m["TYPE"] != "DoubleStage":
         return out
-    pool = net["FIRST_STAGE"]["POINTS_POOLER"]
     rois = batch * m["FIRST_STAGE"]["MAX_OUTPUT_NUM"]
-    info = len([k for k in pool[1] if k in ("mask", "dist")])
     head = net["FIRST_STAGE"]["HEAD"][0]
-    feat = head[3][-1] if head[3] else sum(ch[j] for j in head[1])
-    ns = pool[3]
-    pooled_c = pool[2][-1] + feat  # the RCNN's features after its canonical xyz
-    rmacs, rdfps, rsa, rpts, rch = _walk(net["SECOND_STAGE"]["ARCHITECTURE"], ns, pooled_c, agg,
-                                         prefix_points=(1,), prefix_ch=(0,))
+    pool = nets.pooler(cfg, head[3][-1] if head[3] else sum(ch[j] for j in head[1]))
+    # the RCNN's features come after each point's canonical xyz
+    rmacs, rdfps, rsa, rpts, rch = _walk(net["SECOND_STAGE"]["ARCHITECTURE"], pool.points,
+                                         pool.channels - 3, agg, prefix_points=(1,),
+                                         prefix_ch=(0,))
     cls2, reg2 = _stage_outputs(cfg, "SECOND_STAGE")
     rmacs += _head_macs(net["SECOND_STAGE"]["HEAD"], rpts, rch, cls2, reg2)
-    out["macs"] += rois * (ns * _mlp_macs(3 + info, pool[2]) + rmacs)
+    out["macs"] += rois * (pool.macs + rmacs)
     out["dfps"] += [(rois, n, k) for n, k in rdfps]
     out["sa_fused"] = [(rois,) + s for s in rsa]
     return out
@@ -148,11 +149,11 @@ def sa_fused_bound_s(clouds: int, n: int, m: int, c_in: int, ns_list, mlps, agg)
     (the max-pool's compares are far below them), and its inputs (the
     cloud rows of c_in + 3 floats, each ball's indices, the centres, the
     masks, the weights) and output once."""
-    macs = sum(m * ns * _mlp_macs(c_in + 3, mlp) for ns, mlp in zip(ns_list, mlps))
+    macs = sum(m * ns * mlp_macs(c_in + 3, mlp) for ns, mlp in zip(ns_list, mlps))
     out_c = sum(mlp[-1] for mlp in mlps)
     if agg:
         macs += m * out_c * agg
-    weights = sum(_mlp_macs(c_in + 3, mlp) + 3 * sum(mlp) for mlp in mlps)
+    weights = sum(mlp_macs(c_in + 3, mlp) + 3 * sum(mlp) for mlp in mlps)
     bytes_ = 4 * (clouds * (n * (c_in + 3) + m * sum(ns_list) + m * 3 + m * len(ns_list)
                             + m * (agg or out_c)) + weights)
     return max(2.0 * clouds * macs / peaks.F32_MATMUL_FLOP_PER_S, bytes_ / peaks.HBM_BYTES_PER_S)

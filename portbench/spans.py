@@ -3,7 +3,8 @@
 `Tracer.read()` already returns: `host`, every host event of that stretch
 as (start µs, end µs, name), the program's spans and the CUDA runtime's
 calls among them, and `labelled`, the stretch's merged device intervals,
-on the same clock.
+on the same clock; and `span_us`, the device µs and kernels under each
+span, summed by name (`trace.span_device_us`).
 
 The port opens a span at each of its layer boundaries
 (`ssd3d_torch/utils/profiling.span`): `ssd3d.infer` around a request's
@@ -14,7 +15,8 @@ spans inside them (PERF.md lists them). Where the program has no such span
 Readers in `metrics/`: `program_idle_ms.infer` / `.train` (`idle_ms` in
 `ssd3d.infer` / `ssd3d.train.step`), `syncs.infer` / `.train` (`calls` of
 `SYNC`, same spans), `update_launches.train` (`calls` of `LAUNCH` in
-`ssd3d.train.update`). The host-op stretch runs slower on the host than an
+`ssd3d.train.update`), `roi_pool_ms.infer` (`device_ms` of
+`ssd3d.rcnn.pool`). The host-op stretch runs slower on the host than an
 untraced run, so `program_idle_ms.*` reads above an untraced run's idle.
 """
 
@@ -61,3 +63,11 @@ def calls(tr: dict, name: str, pattern: re.Pattern) -> float | None:
     n = sum(1 for s, _, call in tr["host"] if pattern.match(call)
             and any(a <= s <= b for a, b in found))
     return n / tr["requests"]
+
+
+def device_ms(tr: dict, name: str) -> float | None:
+    """Device ms a request under the spans called `name` (the kernels,
+    copies and sets linked to them, `span_us`). None where the stretch has
+    no such span."""
+    found = tr.get("span_us", {}).get(name)
+    return None if found is None else found[0] / 1e3 / tr["requests"]

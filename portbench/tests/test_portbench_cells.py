@@ -73,3 +73,19 @@ def test_half_the_rows_in_a_whole_batch_fail_a_number(cell):
     over = [k for k, c in out["checks"].items()
             if isinstance(c["value"], float) and c["value"] > c["limit"]]
     assert over and "rows of a batch" not in out["_lines"][1], out["_lines"]
+
+
+def test_the_window_rate_reads_alike_end_to_end_and_per_layer():
+    # 3DSSD inference reads its window's rate per layer, PointRCNN end to end
+    w = harness.loadgen.Window()
+    w.t0, w.t1 = 10.0, 12.5
+    w.scans = [8] * 25
+    m = harness.SimpleNamespace(window=w)
+    assert harness.read_metric("scans_per_s", m) == 80.0
+    assert harness.read_metric("host_paced_scans_per_s.infer", m) == 80.0
+
+
+def test_the_offline_loop_leaves_the_thread_count_as_it_found_it():
+    threads = torch.get_num_threads()
+    run(small(next(c for c in CELLS if kind(c) == "offline")))
+    assert torch.get_num_threads() == threads

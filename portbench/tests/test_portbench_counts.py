@@ -12,6 +12,23 @@ import pytest
 
 from portbench import harness, peaks, rooflines, trace
 
+# every configuration of the benchmark, tested the day its file lands
+CONFIGS = [c["name"] for c in harness.benchmark()["configs"]]
+# the counts of a batch of 8 as they stood before each RoI pooler had a file of
+# its own (portbench/reference/poolers/): moving the pooler's arithmetic
+# changed none of them
+PINNED = {
+    "3dssd_kitti_car": (247834083328.0, {
+        "macs": 123917041664, "dfps": [(8, 16384, 4096), (8, 4096, 512), (8, 512, 256)],
+        "sa_fused": []}),
+    "pointrcnn_kitti_car": (1214095867904.0, {
+        "macs": 607047933952,
+        "dfps": [(8, 16384, 4096), (8, 4096, 1024), (8, 1024, 256), (8, 256, 64),
+                 (800, 512, 128), (800, 128, 32)],
+        "sa_fused": [(800, 512, 128, 256, [64], [[128, 128, 128]], None),
+                     (800, 128, 32, 128, [64], [[128, 128, 256]], None)]}),
+}
+
 SA_ROW = [[0], [0], [0.2, 0.4], [16, 32], [[8, 16], [8, 32]], True, [-1], ["D-FPS"], [64],
           -1, False, "SA_Layer", "layer1", True, -1, 24]
 
@@ -54,7 +71,13 @@ def test_sa_fused_bound_by_hand():
     assert rooflines.sa_fused_bound_s(10, 512, 32, 1, [16], [[8, 16]], None) == want
 
 
-@pytest.mark.parametrize("name", ["3dssd_kitti_car", "pointrcnn_kitti_car"])
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_counts_of_a_batch_of_8_are_pinned(name):
+    cfg = harness.load_config(name)["cfg"]
+    assert (rooflines.flops(cfg, 8), rooflines.shapes(cfg, 8)) == PINNED[name]
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_counts_read_no_route_and_no_compile_flag(name, monkeypatch):
     cfg = harness.load_config(name)["cfg"]
     before = (rooflines.flops(cfg, 8), rooflines.shapes(cfg, 8))

@@ -7,6 +7,8 @@ per-layer readers need.
 - the device time of each custom op (`ssd3d::*`): the kernels the profiler
   links to the op or to an op inside it, so that an op's kernels are found
   by the op's name whatever the kernels are called;
+- the device time and kernels under each of the program's spans
+  (`ssd3d.*`), summed by name (`span_device_us`);
 - host ops and the benchmark's own spans (`portbench.request`, `.h2d`,
   `.d2h`), to name what the host was doing during each idle gap;
 - the first stretch's host-clock length and each stretch's number of
@@ -20,6 +22,8 @@ import time
 import torch
 
 DEVICE = torch.autograd.DeviceType.CUDA
+# the program's spans (`ssd3d_torch/utils/profiling.span`); its custom ops are `ssd3d::<op>`
+SPAN_PREFIX = "ssd3d."
 
 
 class Tracer:
@@ -63,8 +67,8 @@ class Tracer:
     def read(self) -> dict:
         """-> the reduced trace (see the module's docstring): `window_s`,
         `busy_s`, `device`, `kernels` and `merged` of the first stretch,
-        `op_us` and `host` (with `labelled`, the second stretch's merged
-        device intervals) of the second."""
+        `op_us`, `span_us` and `host` (with `labelled`, the second
+        stretch's merged device intervals) of the second."""
         out = {"requests": self.n}
         for k, prof in enumerate(self.prof):
             events = list(prof.events())
@@ -89,15 +93,48 @@ class Tracer:
             for e in cpu:
                 if e.name.startswith("ssd3d::"):
                     # each op's kernels: those the profiler linked to it or to an op inside it
-                    op_us[e.name] = op_us.get(e.name, 0.0) + _subtree_kernel_us(e)
-            out.update(op_us=op_us, labelled=merged,
+                    op_us[e.name] = op_us.get(e.name, 0.0) + _linked(e)[0]
+            out.update(op_us=op_us, span_us=span_device_us(cpu), labelled=merged,
                        host=sorted((e.time_range.start, e.time_range.end, e.name) for e in cpu))
         return out
 
 
-def _subtree_kernel_us(e) -> float:
-    return (sum(k.duration for k in e.kernels)
-            + sum(_subtree_kernel_us(c) for c in e.cpu_children))
+def _linked(e) -> tuple[float, int]:
+    """Device µs and kernels that the profiler links to event `e` or to an
+    event inside it."""
+    us = sum(k.duration for k in e.kernels)
+    n = sum(1 for k in e.kernels if not k.name.startswith(("Memcpy", "Memset")))
+    for c in e.cpu_children:
+        cu, cn = _linked(c)
+        us, n = us + cu, n + cn
+    return us, n
+
+
+def span_device_us(host) -> dict[str, list]:
+    """The host events of a stretch (the profiler's `FunctionEvent`s) ->
+    {span name: [device µs, kernels]}, summed over every span of that name
+    (a host event whose name starts with `ssd3d.`): the device work
+    (kernels, copies, sets) that the profiler links to the span or to an op
+    inside it, and that of every outermost event of another thread that
+    starts inside the span's range, since the autograd engine launches a
+    backward's kernels from a thread of its own. Kernels count launches of
+    kernels alone. The arithmetic of the port's
+    `utils/profiling.span_device_times`."""
+    outer = [e for e in host if e.cpu_parent is None]
+    out: dict[str, list] = {}
+    for s in host:
+        if not s.name.startswith(SPAN_PREFIX):
+            continue
+        us, n = _linked(s)
+        t0, t1 = s.time_range.start, s.time_range.end
+        for e in outer:
+            if e.thread != s.thread and t0 <= e.time_range.start <= t1:
+                eu, en = _linked(e)
+                us, n = us + eu, n + en
+        total = out.setdefault(s.name, [0.0, 0])
+        total[0] += us
+        total[1] += n
+    return out
 
 
 def breakdown(tr: dict, top: int = 10) -> dict:
